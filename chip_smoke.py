@@ -6,21 +6,41 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   0 environment: torch/CUDA/nvcc versions, whether triton imports, the
     card's name and power limit, whether the native I/O core loaded (it
     decides between the streaming and the in-memory window path);
-  1 build: the CUDA kernels from gencore_tpu_torch/csrc (nvcc, sm_90a);
-  2 the vote kernel against its plain twin (vote_core_plain on CPU copies
-    of the same inputs) for every k-class K in {4, 16, 32, 64, 128, 256}
-    at J=4096, L=160 — exact, 0 mismatches — with the kernel's and the
-    plain function's times on the card;
-  3 a ~3k-read workload (duplex UMIs, deep clusters, lenDiff-shifted
-    right reads) through the port's CLI on cuda, against the scalar
-    oracle: records and report stats equal;
-  4 the 240k-read deep panel (bench.make_workload) through the port's CLI
+  1 build: the CUDA kernels from gencore_tpu_torch/csrc (one nvcc per
+    source, in parallel, sm_90a), registers and spills per kernel;
+  2 each kernel against its plain twin on CPU copies of the same inputs,
+    exact (0 mismatches), at J=4096, L=160, N=40960 for every k-class K in
+    {4, 16, 32, 64, 128, 256}:
+      2a gc_vote (csrc/vote.cu) against vote_core_plain;
+      2b gc_vote_window (csrc/vote_window.cu) against vote_window_plain,
+         member counts 0..K, job lengths <= L, out_len = L and 136, with
+         and without a qual table;
+    with each kernel's time, its plain version's time on the card, its
+    bound and its share of the bound;
+  3 a ~3k-read workload (duplex UMIs, deep clusters, lenDiff-shifted right
+    reads) through the port's CLI on cuda, against the scalar oracle:
+    records and report stats equal, and both kernels launched (the window
+    path and the gathered paths);
+  4 the 240k-read deep panel (workloads.deep_panel) through the port's CLI
     on cuda with its default path selection, against the golden digests
-    that the JAX package made (gencore_tpu_torch/testdata).
+    that the JAX package made (gencore_tpu_torch/testdata), with each
+    window launch's (K, J, sum of member counts) per class;
+  5 the deep panel's largest window launch, replayed: the fused kernel
+    against its twin (exact) and timed against the plain composition on
+    the card, with its bound;
+  6 device busy time and launch count of one deep-panel run (torch.profiler)
+    before, with the plain composition put back for that run only
+    (pallas_vote_window_plain: csrc/vote.cu plus plain-torch epilogue), and
+    after, with the fused kernel.
 Then the kernels line and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-JAX is blocked for the whole run: nothing here may import it.
+Bounds: the bytes each input is read once and each output written once
+over 3.35 TB/s, and ~10 int32 operations per (member, position) over
+16.7 T op/s (132 SMs x 64 INT32 lanes x 1.98 GHz); the larger one binds.
+
+JAX and the JAX package are blocked for the whole run: nothing here may
+import them.
 """
 
 from __future__ import annotations
@@ -33,15 +53,19 @@ import re
 import subprocess
 import sys
 import time
-import types
 
-sys.modules["jax"] = None     # the port must run without JAX
+sys.modules["jax"] = None          # the port must run without JAX
 sys.modules["jaxlib"] = None
+sys.modules["gencore_tpu"] = None  # ... and without the JAX package
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 KW = dict(hi=30, mod=20, lo=15, base_score_req=6, ratio_num=4, ratio_den=5)
 K_CLASSES = (4, 16, 32, 64, 128, 256)
+J_PHASE2, L_PHASE2, N_PHASE2 = 4096, 160, 40960
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_PER_MEMBER_POS = 10
 
 
 def emit(obj):
@@ -62,9 +86,16 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def bound(n_bytes, n_ops):
+    """(bound ms, what binds) for work that moves n_bytes and does n_ops."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_env(torch):
-    from gencore_tpu.io import native
     from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.io import native
     nvcc = vote._find_nvcc()
     nv = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                         timeout=60).stdout.strip().splitlines()
@@ -91,36 +122,17 @@ def phase_build():
     t0 = time.perf_counter()
     vote.build_library()
     dt = time.perf_counter() - t0
-    regs = re.findall(r"Used (\d+) registers.*", vote.BUILD_LOG)
-    spill = re.findall(r"(\d+) bytes spill stores", vote.BUILD_LOG)
+    kernels = {}
+    for m in re.finditer(r"Compiling entry function '(\S+)'(.*?)Used (\d+) "
+                         r"registers", vote.BUILD_LOG, re.S):
+        name = "vote_window" if "vote_window" in m.group(1) else "vote"
+        spill = re.search(r"(\d+) bytes spill stores", m.group(2))
+        kernels[name] = {"registers": int(m.group(3)),
+                         "spill_store_bytes": int(spill.group(1)) if spill
+                         else None}
     emit({"phase": 1, "name": "build", "ok": True, "seconds": dt,
           "library": os.path.relpath(vote.library_path(), REPO),
-          "registers": regs, "spill_store_bytes": spill})
-
-
-def _vote_inputs(np, K, J, L, N, seed):
-    """Inputs shaped as the window program gives them to the kernel:
-    rows base..base+K-1 (clamped), counts per job (0 = padded job with
-    every member absent, template included), negative scores, stored
-    sentinels, and jobs without a reference base."""
-    rng = np.random.default_rng(seed)
-    codes = np.array([0, 1, 2, 4, 8, 15, 255], dtype=np.uint8)
-    seq = codes[rng.choice(7, size=(N, L),
-                           p=[.04, .23, .23, .23, .23, .03, .01])]
-    qual = rng.choice(np.array([2, 12, 18, 25, 30, 36, 41], np.uint8),
-                      size=(N, L))
-    score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
-    base = rng.integers(0, N, size=J)
-    rows = np.clip(base[None, :] + np.arange(K)[:, None], 0, N - 1)
-    counts = rng.integers(1, K + 1, size=J)
-    counts[::9] = 0
-    valid = (np.arange(K)[:, None] < counts[None, :])
-    valid &= rng.random((K, J)) < 0.97
-    refbase = np.array([0, 1, 2, 4, 8], np.uint8)[
-        rng.integers(0, 5, size=(J, L))]
-    refbase[::4] = 0
-    return (seq, qual, score, rows.astype(np.int32),
-            valid.astype(np.uint8), refbase)
+          "kernels": kernels})
 
 
 def _time_ms(torch, fn, reps):
@@ -136,17 +148,59 @@ def _time_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def phase_kernel(torch, np, card):
+def _alternate(torch, plain, kern, plain_reps, kern_reps):
+    """plain, kernel, kernel, plain: ([plain ms x2], [kernel ms x2])."""
+    p1 = _time_ms(torch, plain, plain_reps)
+    k1 = _time_ms(torch, kern, kern_reps)
+    k2 = _time_ms(torch, kern, kern_reps)
+    p2 = _time_ms(torch, plain, plain_reps)
+    return [p1, p2], [k1, k2]
+
+
+def _matrices(np, rng, L, N):
+    """seq/qual u8 and score i8 [N, L]: =ACGTN codes with stored sentinels,
+    seven qual values, negative scores."""
+    codes = np.array([0, 1, 2, 4, 8, 15, 255], dtype=np.uint8)
+    seq = codes[rng.choice(7, size=(N, L),
+                           p=[.04, .23, .23, .23, .23, .03, .01])]
+    qual = rng.choice(np.array([2, 12, 18, 25, 30, 36, 41], np.uint8),
+                      size=(N, L))
+    score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
+    return seq, qual, score
+
+
+def _vote_inputs(np, K, J, L, N, seed):
+    """Inputs shaped as the window program gave them to csrc/vote.cu:
+    rows base..base+K-1 (clamped), counts per job (0 = padded job with
+    every member absent, template included), negative scores, stored
+    sentinels, and jobs without a reference base."""
+    rng = np.random.default_rng(seed)
+    seq, qual, score = _matrices(np, rng, L, N)
+    base = rng.integers(0, N, size=J)
+    rows = np.clip(base[None, :] + np.arange(K)[:, None], 0, N - 1)
+    counts = rng.integers(1, K + 1, size=J)
+    counts[::9] = 0
+    valid = (np.arange(K)[:, None] < counts[None, :])
+    valid &= rng.random((K, J)) < 0.97
+    refbase = np.array([0, 1, 2, 4, 8], np.uint8)[
+        rng.integers(0, 5, size=(J, L))]
+    refbase[::4] = 0
+    return (seq, qual, score, rows.astype(np.int32),
+            valid.astype(np.uint8), refbase)
+
+
+def phase_vote_kernel(torch, np):
     from gencore_tpu_torch.core import vote
     dev = torch.device("cuda", 0)
-    J, L, N = 4096, 160, 40960
+    J, L, N = J_PHASE2, L_PHASE2, N_PHASE2
     th = dict(hi=KW["hi"], mod=KW["mod"], lo=KW["lo"],
               bsr=KW["base_score_req"], rnum=KW["ratio_num"],
               rden=KW["ratio_den"])
     per_k = []
     worst = 0
     for K in K_CLASSES:
-        cpu = [torch.from_numpy(a) for a in _vote_inputs(np, K, J, L, N, K)]
+        arrs = _vote_inputs(np, K, J, L, N, K)
+        cpu = [torch.from_numpy(a) for a in arrs]
         gpu = [t.to(dev) for t in cpu]
         got = vote.vote_core(*gpu, **KW)
         torch.cuda.synchronize(dev)
@@ -155,51 +209,154 @@ def phase_kernel(torch, np, card):
         err = max(int((g.cpu().long() - w.long()).abs().max())
                   for g, w in zip(got, want))
         worst = max(worst, err)
-        ms = _time_ms(torch, lambda: vote.vote_core(*gpu, **KW), 20)
-        plain_ms = _time_ms(torch, lambda: vote.vote_core_plain(*gpu, **th),
-                            3)
+        plain, kern = _alternate(
+            torch, lambda: vote.vote_core_plain(*gpu, **th),
+            lambda: vote.vote_core(*gpu, **KW), 2, 20)
+        _, _, _, rows, valid, _ = arrs
+        n_rows = len(np.unique(rows[valid.astype(bool)]))
+        n_bytes = n_rows * 3 * L + K * J * 5 + J * L + 16 * J * L
+        n_ops = OPS_PER_MEMBER_POS * K * J * L
+        b_ms, b_by = bound(n_bytes, n_ops)
+        ms = sum(kern) / 2
         per_k.append({"K": K, "J": J, "L": L, "N": N, "mismatches": mism,
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                      "max_abs_err": err, "ms": ms, "ms_runs": kern,
+                      "plain_ms": sum(plain) / 2, "plain_ms_runs": plain,
+                      "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
+                      "bound_by": b_by, "share_of_bound": b_ms / ms})
         if mism:
-            fail(2, f"vote kernel != plain twin at K={K}: {mism} mismatches")
-    emit({"phase": 2, "name": "vote kernel vs plain twin", "ok": True,
-          "tolerance": "exact (0 mismatches)", "card": card,
-          "per_k": per_k})
+            fail("2a", f"vote kernel != plain twin at K={K}: {mism} "
+                       "mismatches")
+    emit({"phase": "2a", "name": "gc_vote vs vote_core_plain", "ok": True,
+          "tolerance": "exact (0 mismatches)", "per_k": per_k})
+    n_bytes = sum(p["bytes"] for p in per_k)
+    n_ops = sum(p["int_ops"] for p in per_k)
+    b_ms, b_by = bound(n_bytes, n_ops)
     return {"ms": sum(p["ms"] for p in per_k),
             "plain_ms": sum(p["plain_ms"] for p in per_k),
-            "max_abs_err": worst}
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst}
 
 
-def _small_workload(path_bam, path_fa):
-    import numpy as np
+def _window_class_args(np, rng, K, J, N, Jw, L):
+    """One k-class as the engine stages it: base rows (some running past
+    the matrix: they clamp), uint8 member counts 0..K, job lengths <= L,
+    refbase rows."""
+    kmax = min(K, 255)
+    base = rng.integers(0, N, size=J).astype(np.uint16 if N <= 65536
+                                              else np.uint32)
+    base[:8] = N - 3
+    counts = rng.integers(0, kmax + 1, size=J).astype(np.uint8)
+    counts[::9] = 0
+    counts[1::10] = kmax
+    jl = rng.integers(0, L + 1, size=J).astype(np.uint16)
+    jl[::3] = L
+    ridx = rng.integers(0, Jw, size=J).astype(np.uint16)
+    return [base, counts, jl, ridx]
 
-    from tests.datagen import SyntheticBam
-    sb = SyntheticBam(seed=11, contig_len=400_000, n_contigs=2)
-    rng = np.random.default_rng(12)
-    umis = ["AAAA", "CCCC", "GGGG", "TTTT", "ACGT", "TGCA"]
-    for k in range(560):
-        tid = k % 2
-        pos1 = 1000 + 600 * (k // 2)
-        pos2 = pos1 + int(rng.integers(20, 160))
-        a, b = rng.choice(umis, size=2, replace=False)
-        deep = k % 60 == 0
-        for _ in range(40 if deep else int(rng.integers(1, 4))):
-            umi = f"{a}_{b}" if rng.random() < 0.5 else f"{b}_{a}"
-            sb.add_pair(tid, pos1, pos2, read_len=150, umi=umi,
-                        n_errors=int(rng.random() < 0.3) * 2,
-                        qual=int(rng.choice([18, 30, 36])))
-    for k in range(30):   # right reads of mixed length, same right end
-        pos1 = 380_000 + 400 * k
-        end2 = pos1 + 240
-        sb.add_pair(0, pos1, end2 - 100, read_len=100, umi="ACGT_TTGA")
-        qname = sb._qname("ACGT_TTGA")
-        seq1, cg1 = sb.read_seq(0, pos1, 100)
-        seq2, cg2 = sb.read_seq(0, end2 - 80, 80)
-        sb._add(0, pos1, qname, 99, cg1, 0, end2 - 80, 240, seq1, 35, 0)
-        sb._add(0, end2 - 80, qname, 147, cg2, 0, pos1, -240, seq2, 35, 0)
-    sb.write_bam(path_bam)
-    sb.write_fasta(path_fa)
-    return len(sb.records)
+
+def _window_bound(np, class_args, classes, N, L, Jw, out_len, qtable):
+    """(bytes, int ops) the fused window kernel must move and do on these
+    inputs: every member row, template row of an empty job and refbase row
+    read once, the job table and qual table, the wire buffer and the
+    dense fallback written once; 10 ops per (member, position)."""
+    from gencore_tpu_torch.core import vote
+    member = np.zeros(N, dtype=bool)
+    tmpl = np.zeros(N, dtype=bool)
+    refrows = np.zeros(Jw, dtype=bool)
+    n_members = 0
+    Jt = 0
+    for ci, (K, J) in enumerate(classes):
+        base, counts, _jl, ridx = (np.asarray(a).astype(np.int64) for a in
+                                   class_args[4 * ci:4 * ci + 4])
+        cnt = np.clip(counts, 0, K)
+        n_members += int(cnt.sum())
+        off = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        member[np.clip(np.repeat(base, cnt) + off, 0, N - 1)] = True
+        tmpl[np.clip(base[cnt == 0], 0, N - 1)] = True
+        refrows[np.clip(ridx, 0, Jw - 1)] = True
+        Jt += J
+    ol = min(out_len, L)
+    n_bytes = (int(member.sum()) * 3 * L + int((tmpl & ~member).sum()) * 2 * L
+               + int(refrows.sum()) * L + 24 * Jt
+               + (16 if qtable is not None else 0)
+               + vote.wire_size(Jt, len(classes), qtable) + Jt * (ol // 2 + ol))
+    return n_bytes, OPS_PER_MEMBER_POS * n_members * L, n_members
+
+
+def _compare_window(torch, got, want):
+    """(mismatching bytes, max abs difference) of two (flat, dense)."""
+    pairs = [(got[0], want[0])] + [
+        (g, w) for gd, wd in zip(got[1], want[1]) for g, w in zip(gd, wd)]
+    mism = 0
+    err = 0
+    for g, w in pairs:
+        g = g.cpu()
+        if g.shape != w.shape:
+            return -1, -1
+        mism += int((g != w).sum())
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return mism, err
+
+
+def phase_window_kernel(torch, np):
+    from gencore_tpu_torch.core import vote
+    dev = torch.device("cuda", 0)
+    J, L, N = J_PHASE2, L_PHASE2, N_PHASE2
+    Jw = J
+    per_k = []
+    worst = 0
+    for K in K_CLASSES:
+        rng = np.random.default_rng(1000 + K)
+        seq, qual, score = _matrices(np, rng, L, N)
+        refbase = np.array([0, 1, 2, 4, 8], np.uint8)[
+            rng.integers(0, 5, size=(Jw, L))]
+        refbase[::4] = 0
+        class_args = _window_class_args(np, rng, K, J, N, Jw, L)
+        classes = ((K, J),)
+        qtable = np.zeros(16, dtype=np.uint8)
+        qtable[1:7] = [2, 12, 18, 25, 30, 36]      # 41 escapes: bad > 0
+        cpu = [torch.from_numpy(a) for a in (seq, qual, score, refbase)]
+        gpu = [t.to(dev) for t in cpu]
+        variants = []
+        for out_len in (L, 136):
+            for qt in (None, qtable):
+                kw = dict(classes=classes, L=L, out_len=out_len, **KW)
+                qc = None if qt is None else torch.from_numpy(qt)
+                got = vote.vote_window(*gpu, None if qc is None else
+                                       qc.to(dev), class_args, **kw)
+                torch.cuda.synchronize(dev)
+                want = vote.vote_window_plain(*cpu, qc, class_args, **kw)
+                mism, err = _compare_window(torch, got, want)
+                worst = max(worst, err)
+                variants.append({"out_len": out_len,
+                                 "qtable": qt is not None,
+                                 "mismatches": mism, "max_abs_err": err})
+                if mism:
+                    fail("2b", f"vote_window kernel != twin at K={K}, "
+                               f"out_len={out_len}, qtable={qt is not None}:"
+                               f" {mism} mismatching bytes")
+        # timed as the main path runs it: out_len = L, with a qual table
+        qg = torch.from_numpy(qtable).to(dev)
+        kw = dict(classes=classes, L=L, out_len=L, **KW)
+        plain, kern = _alternate(
+            torch, lambda: vote.vote_window_plain(*gpu, qg, class_args, **kw),
+            lambda: vote.vote_window(*gpu, qg, class_args, **kw), 2, 20)
+        n_bytes, n_ops, n_members = _window_bound(
+            np, class_args, classes, N, L, Jw, L, qtable)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        ms = sum(kern) / 2
+        per_k.append({"K": K, "J": J, "L": L, "N": N,
+                      "sum_counts": n_members, "variants": variants,
+                      "ms": ms, "ms_runs": kern,
+                      "plain_ms": sum(plain) / 2, "plain_ms_runs": plain,
+                      "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
+                      "bound_by": b_by, "share_of_bound": b_ms / ms})
+    emit({"phase": "2b", "name": "gc_vote_window vs vote_window_plain",
+          "ok": True, "tolerance": "exact (0 mismatching bytes)",
+          "plain": "vote_window_plain on CUDA tensors (csrc/vote.cu + "
+                   "plain-torch epilogue and concat)",
+          "per_k": per_k})
+    return worst
 
 
 def _cli(args):
@@ -211,14 +368,23 @@ def _cli(args):
     return rc, err.getvalue()
 
 
+@contextlib.contextmanager
+def _patched(module, name, fn):
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
 def phase_small(torch):
     from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.tools import workloads
     from gencore_tpu_torch.tools.make_golden import (digest_records,
                                                      digest_report)
     d = os.path.join(WORK, "small")
-    os.makedirs(d, exist_ok=True)
-    bam, fa = os.path.join(d, "in.bam"), os.path.join(d, "ref.fa")
-    n_reads = _small_workload(bam, fa)
+    bam, fa, n_reads = workloads.small_panel(d)
     calls = {"pallas_vote_window": 0, "pallas_vote_gathered": 0,
              "pallas_vote": 0}
     originals = {k: getattr(vote, k) for k in calls}
@@ -229,18 +395,17 @@ def phase_small(torch):
             return originals[name](*a, **k)
         return f
 
-    for k in calls:
-        setattr(vote, k, counted(k))
-    l0 = vote.LAUNCHES
-    try:
+    with contextlib.ExitStack() as stack:
+        for k in calls:
+            stack.enter_context(_patched(vote, k, counted(k)))
+        vote.LAUNCHES = 0
+        vote.WINDOW_LAUNCHES = 0
         rc, _ = _cli(["-i", bam, "-o", os.path.join(d, "port.bam"), "-r", fa,
                       "-j", os.path.join(d, "port.json"),
                       "--html", os.path.join(d, "port.html"),
                       "--device", "cuda"])
-    finally:
-        for k, f in originals.items():
-            setattr(vote, k, f)
-    launches = vote.LAUNCHES - l0
+        torch.cuda.synchronize()
+        launches = {"vote": vote.LAUNCHES, "vote_window": vote.WINDOW_LAUNCHES}
     rc_o, _ = _cli(["-i", bam, "-o", os.path.join(d, "oracle.bam"), "-r", fa,
                     "-j", os.path.join(d, "oracle.json"),
                     "--html", os.path.join(d, "oracle.html"), "--oracle"])
@@ -250,70 +415,215 @@ def phase_small(torch):
     o = digest_records(os.path.join(d, "oracle.bam"))
     rep_eq = (digest_report(os.path.join(d, "port.json"))
               == digest_report(os.path.join(d, "oracle.json")))
-    ok = p == o and rep_eq and launches > 0 and all(calls.values())
+    ok = (p == o and rep_eq and all(launches.values())
+          and all(calls.values()))
     emit({"phase": 3, "name": "small end to end vs oracle", "ok": ok,
           "reads_in": n_reads, "records_out": p[0],
           "records_equal": p == o, "report_stats_equal": rep_eq,
-          "vote_launches": launches, "entry_calls": calls})
+          "kernel_launches": launches, "entry_calls": calls})
     if not ok:
-        fail(3, "port output differs from the oracle or a vote path "
-                "did not run")
+        fail(3, "port output differs from the oracle, or a vote kernel or "
+                "entry point did not run")
+    return launches
 
 
-def phase_full(torch):
-    import bench
-
-    from gencore_tpu_torch.core import vote
-    from gencore_tpu_torch.tools.make_golden import (GOLDEN, digest_records,
+def _deep_panel_run(torch, bam, fa, d, golden):
+    """One CLI run of the deep panel on cuda; returns (rc, stderr, wall s,
+    output and report equal to the golden digests)."""
+    from gencore_tpu_torch.tools.make_golden import (digest_records,
                                                      digest_report)
-    with open(GOLDEN) as f:
-        golden = json.load(f)
-    t0 = time.perf_counter()
-    bam, fa = bench.make_workload()
-    t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    n_in, h_in = digest_records(bam)
-    t_setup = time.perf_counter() - t0
-    d = os.path.join(WORK, "full")
     os.makedirs(d, exist_ok=True)
     out = os.path.join(d, "out.bam")
     js = os.path.join(d, "report.json")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    vote.LAUNCHES = 0
     t0 = time.perf_counter()
     rc, err = _cli(["-i", bam, "-o", out, "-r", fa, "-j", js,
                     "--html", os.path.join(d, "report.html"), "--debug",
                     "--device", "cuda"])
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
-    launches = vote.LAUNCHES
+    if rc:
+        return rc, err, t_run, None, False, False
+    n_out, h_out = digest_records(out)
+    output_ok = (n_out, h_out) == (golden["output"]["records"],
+                                   golden["output"]["sha256"])
+    report_ok = digest_report(js) == golden["report_stats_sha256"]
+    return rc, err, t_run, n_out, output_ok, report_ok
+
+
+def phase_full(torch, np):
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.tools import workloads
+    from gencore_tpu_torch.tools.make_golden import GOLDEN, digest_records
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    t0 = time.perf_counter()
+    bam, fa = workloads.deep_panel(os.path.join(WORK, "workloads"))
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_in, h_in = digest_records(bam)
+    t_setup = time.perf_counter() - t0
+    input_ok = (n_in, h_in) == (golden["input"]["records"],
+                                golden["input"]["sha256"])
+    if not input_ok:
+        fail(4, "the generated input differs from the golden input")
+
+    per_launch = []
+    largest = {"sum_counts": -1}
+    orig = vote.pallas_vote_window
+
+    def recorded(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
+                 qtable, class_args, **kw):
+        info = [[K, J, int(np.asarray(class_args[4 * ci + 1])
+                         .astype(np.int64).sum())]
+                for ci, (K, J) in enumerate(kw["classes"])]
+        per_launch.append(info)
+        tot = sum(x[2] for x in info)
+        if tot > largest["sum_counts"]:
+            largest.update(
+                sum_counts=tot, classes=info,
+                args=[t.clone() for t in (seq_dev, qual_dev, score_dev)]
+                + [genome] + [np.array(a) for a in (gp, hr, hm, jp)]
+                + [None if qtable is None else np.array(qtable),
+                   [np.array(a) for a in class_args]], kw=dict(kw))
+        return orig(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
+                    qtable, class_args, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _patched(vote, "pallas_vote_window", recorded):
+        vote.LAUNCHES = 0
+        vote.WINDOW_LAUNCHES = 0
+        rc, err, t_run, n_out, output_ok, report_ok = _deep_panel_run(
+            torch, bam, fa, os.path.join(WORK, "full"), golden)
+        launches = {"vote_window": vote.WINDOW_LAUNCHES, "vote": vote.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     if rc:
         fail(4, f"CLI exit code {rc}: {err[-2000:]}")
-    n_out, h_out = digest_records(out)
-    rep = digest_report(js)
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"\[stage\] (\S+): ([0-9.]+)s", err)}
-    input_ok = (n_in, h_in) == (golden["input"]["records"],
-                                golden["input"]["sha256"])
-    output_ok = (n_out, h_out) == (golden["output"]["records"],
-                                   golden["output"]["sha256"])
-    report_ok = rep == golden["report_stats_sha256"]
-    ok = output_ok and report_ok and launches > 0
+    ok = (output_ok and report_ok and launches["vote_window"] > 0
+          and launches["vote_window"] == len(per_launch))
     emit({"phase": 4, "name": "full-size deep panel vs golden", "ok": ok,
           "workload": golden["workload"], "reads_in": n_in,
           "records_out": n_out, "generate_s": t_gen, "setup_s": t_setup,
           "run_s": t_run, "reads_per_s": n_in / t_run,
-          "max_memory_allocated": peak, "vote_launches": launches,
+          "max_memory_allocated": peak, "kernel_launches": launches,
+          "window_launches_K_J_sumcounts": per_launch,
           "input_digest_equal": input_ok, "output_digest_equal": output_ok,
           "report_stats_equal": report_ok, "stage_seconds": stages})
-    if not input_ok:
-        fail(4, "the generated input differs from the golden input")
     if not ok:
-        fail(4, "output differs from the golden digests or the vote "
-                "kernel never launched")
-    return launches
+        fail(4, "output differs from the golden digests, or the fused "
+                "window kernel's launches do not match the window calls")
+    return bam, fa, golden, launches, largest
+
+
+def phase_replay(torch, np, largest):
+    """The deep panel's largest window launch, replayed."""
+    from gencore_tpu_torch.core import vote
+    (seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
+     class_args) = largest["args"]
+    kw = largest["kw"]
+    dev = seq_dev.device
+    refbase_dev = vote._window_refbase(genome, gp, hr, hm, jp, kw["L"], dev)
+    qt = None if qtable is None else vote.to_device(qtable, dev)
+    mats = (seq_dev, qual_dev, score_dev, refbase_dev)
+    got = vote.vote_window(*mats, qt, class_args, **kw)
+    torch.cuda.synchronize()
+    want = vote.vote_window_plain(*[t.cpu() for t in mats],
+                                  None if qt is None else qt.cpu(),
+                                  class_args, **kw)
+    mism, err = _compare_window(torch, got, want)
+    if mism:
+        fail(5, f"vote_window kernel != twin on the deep panel's largest "
+                f"launch: {mism} mismatching bytes")
+    plain, kern = _alternate(
+        torch, lambda: vote.vote_window_plain(*mats, qt, class_args, **kw),
+        lambda: vote.vote_window(*mats, qt, class_args, **kw), 5, 50)
+    N, L = seq_dev.shape
+    n_bytes, n_ops, n_members = _window_bound(
+        np, class_args, kw["classes"], N, L, refbase_dev.shape[0],
+        kw["out_len"] or L, qtable)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    ms = sum(kern) / 2
+    res = {"classes_K_J_sumcounts": largest["classes"], "N": N, "L": L,
+           "out_len": kw["out_len"], "qtable": qtable is not None,
+           "mismatches": mism, "max_abs_err": err, "ms": ms,
+           "ms_runs": kern, "plain_ms": sum(plain) / 2,
+           "plain_ms_runs": plain, "bytes": n_bytes, "int_ops": n_ops,
+           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+    emit({"phase": 5, "name": "largest deep-panel window launch, replayed",
+          "ok": True, **res})
+    return res
+
+
+def _device_activity(trace_path):
+    """From a torch.profiler Chrome trace: kernel, memcpy and memset counts,
+    the union of their intervals (device busy, ms), and the vote kernels'
+    summed time."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    iv = []
+    counts = {"kernel": 0, "gpu_memcpy": 0, "gpu_memset": 0}
+    vote_us = 0.0
+    for e in events:
+        cat = e.get("cat")
+        if cat in counts and "ts" in e and "dur" in e:
+            counts[cat] += 1
+            iv.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            if cat == "kernel" and "vote" in e.get("name", ""):
+                vote_us += float(e["dur"])
+    iv.sort()
+    busy = 0.0
+    end = None
+    for a, b in iv:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span = (iv[-1][1] - iv[0][0]) if iv else 0.0
+    return {"kernels": counts["kernel"], "memcpys": counts["gpu_memcpy"],
+            "memsets": counts["gpu_memset"], "device_busy_ms": busy / 1e3,
+            "device_span_ms": span / 1e3, "vote_kernels_ms": vote_us / 1e3}
+
+
+def phase_busy(torch, bam, fa, golden):
+    """One profiled deep-panel run with the plain composition (before the
+    fused kernel) and one with the fused kernel (after)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gencore_tpu_torch.core import vote
+    res = {}
+    for tag in ("before", "after"):
+        d = os.path.join(WORK, f"busy_{tag}")
+        os.makedirs(d, exist_ok=True)
+        with contextlib.ExitStack() as stack:
+            if tag == "before":
+                stack.enter_context(_patched(vote, "pallas_vote_window",
+                                             vote.pallas_vote_window_plain))
+            vote.LAUNCHES = 0
+            vote.WINDOW_LAUNCHES = 0
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                rc, err, t_run, _n, out_ok, rep_ok = _deep_panel_run(
+                    torch, bam, fa, d, golden)
+            counted = {"vote": vote.LAUNCHES,
+                       "vote_window": vote.WINDOW_LAUNCHES}
+        if rc or not (out_ok and rep_ok):
+            fail(6, f"profiled deep-panel run ({tag}) failed or differs "
+                    f"from the golden digests: rc={rc} {err[-1000:]}")
+        trace = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(trace)
+        res[tag] = {"wall_s_profiled": t_run, "kernel_launches": counted,
+                    **_device_activity(trace)}
+        os.remove(trace)
+    emit({"phase": 6, "name": "deep-panel device busy, before/after",
+          "ok": True,
+          "before": "pallas_vote_window_plain (csrc/vote.cu + plain-torch "
+                    "epilogue), substituted for this run only",
+          "after": "pallas_vote_window (csrc/vote_window.cu)", **res})
+    return res
 
 
 def main() -> int:
@@ -324,26 +634,42 @@ def main() -> int:
         return 2
     import numpy as np
     sys.path.insert(0, REPO)
-    # bench.py and the workloads import `tests.datagen`: bind `tests` to
-    # this checkout's directory, ahead of any installed package that is
-    # also named `tests`
-    tests_pkg = types.ModuleType("tests")
-    tests_pkg.__path__ = [os.path.join(REPO, "tests")]
-    sys.modules["tests"] = tests_pkg
     os.makedirs(WORK, exist_ok=True)
+    t_start = time.perf_counter()
     card = phase_env(torch)
     phase_build()
-    kern = phase_kernel(torch, np, card)
-    phase_small(torch)
-    launches = phase_full(torch)
-    emit({"kernels": [{
-        "name": "vote", "route": "cuda",
-        "source": "gencore_tpu_torch/csrc/vote.cu",
-        "replaces": "gencore_tpu/core/pallas_vote.py:178",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "shape": "sum over K in " + str(list(K_CLASSES))
-                 + ", J=4096, L=160"}]})
+    vk = phase_vote_kernel(torch, np)
+    win_err = phase_window_kernel(torch, np)
+    small = phase_small(torch)
+    bam, fa, golden, launches, largest = phase_full(torch, np)
+    rep = phase_replay(torch, np, largest)
+    phase_busy(torch, bam, fa, golden)
+    emit({"kernels": [
+        {"name": "vote_window", "route": "cuda",
+         "source": "gencore_tpu_torch/csrc/vote_window.cu",
+         "replaces": "gencore_tpu/core/pallas_vote.py:390",
+         "launches": launches["vote_window"],
+         "launches_in": "phase 4, the deep panel",
+         "max_abs_err": max(win_err, rep["max_abs_err"]),
+         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+         "library_ms": None,
+         "shape": f"the deep panel's largest window launch: classes "
+                  f"(K, J, sum counts) {rep['classes_K_J_sumcounts']}, "
+                  f"N={rep['N']}, L={rep['L']}"},
+        {"name": "vote", "route": "cuda",
+         "source": "gencore_tpu_torch/csrc/vote.cu",
+         "replaces": "gencore_tpu/core/pallas_vote.py:178",
+         "launches": small["vote"],
+         "launches_in": "phase 3 (the gathered and pre-gathered paths; "
+                        "the deep panel takes the window path only)",
+         "max_abs_err": vk["max_abs_err"],
+         "ms": vk["ms"], "plain_ms": vk["plain_ms"],
+         "bound_ms": vk["bound_ms"], "bound_by": vk["bound_by"],
+         "library_ms": None,
+         "shape": "sum over K in " + str(list(K_CLASSES))
+                  + f", J={J_PHASE2}, L={L_PHASE2}, N={N_PHASE2}"}],
+        "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,7 @@ import argparse
 import sys
 import time
 
-from gencore_tpu.options import OptionError, Options
+from gencore_tpu_torch.options import OptionError, Options
 from gencore_tpu_torch import __version__
 
 
@@ -105,7 +105,7 @@ def options_from_args(args) -> Options:
 
 def run_unit_tests() -> bool:
     """`gencore test` equivalent (reference main.cpp:18-22, unittest.cpp:10-16)."""
-    from gencore_tpu.utils.umi import get_umi_from_qname, umi_diff, is_duplex
+    from gencore_tpu_torch.utils.umi import get_umi_from_qname, umi_diff, is_duplex
     ok = True
     vectors = [
         ("NB551106:8:H5Y57BGX2:1:13304:3538:1404", "", ""),
@@ -165,13 +165,13 @@ def main(argv=None) -> int:
     stdin_keeper = None
     stdin_is_bam = True
     if opt.input == "-":
-        from gencore_tpu.io.sam import spool_stdin
+        from gencore_tpu_torch.io.sam import spool_stdin
         opt.input, stdin_keeper, stdin_is_bam = spool_stdin()
 
-    from gencore_tpu.io import bam as bamio
-    from gencore_tpu.io.bed import BedRegions
-    from gencore_tpu.io.fasta import FastaRef
-    from gencore_tpu.report import write_html_report, write_json_report
+    from gencore_tpu_torch.io import bam as bamio
+    from gencore_tpu_torch.io.bed import BedRegions
+    from gencore_tpu_torch.io.fasta import FastaRef
+    from gencore_tpu_torch.report import write_html_report, write_json_report
 
     fasta = None
     if opt.ref_file:
@@ -195,7 +195,7 @@ def main(argv=None) -> int:
     # for a single-shot run); explicit --stream honors it
     if (not use_stream and stream_ok and args.windows != 1
             and not os.environ.get("GENCORE_NO_STREAM")):
-        from gencore_tpu.io import native as _nat
+        from gencore_tpu_torch.io import native as _nat
         from gencore_tpu_torch.parallel.streaming import \
             DEFAULT_STREAM_THRESHOLD
         thr = int(os.environ.get("GENCORE_STREAM_THRESHOLD",
@@ -221,7 +221,7 @@ def main(argv=None) -> int:
             sb0 = None  # auto-selected but not BGZF: in-memory path below
             use_stream = False
     if use_stream:
-        from gencore_tpu.io.bed import BedRegions
+        from gencore_tpu_torch.io.bed import BedRegions
         buf0, _ = sb0._read_span(0, min(1 << 20, sb0.total))
         sb0._parse_header(buf0)
         bed = None
@@ -257,7 +257,7 @@ def main(argv=None) -> int:
               f"{t2 - t1:.1f} seconds", file=sys.stderr)
         return 0
 
-    from gencore_tpu.io.sam import open_alignment
+    from gencore_tpu_torch.io.sam import open_alignment
     reader = open_alignment(opt.input)
     header = reader.header
 
@@ -278,7 +278,7 @@ def main(argv=None) -> int:
     _trace_ctx = maybe_trace()
     _trace_ctx.__enter__()
     if args.oracle:
-        from gencore_tpu.core.oracle import OracleEngine as EngineCls
+        from gencore_tpu_torch.core.oracle import OracleEngine as EngineCls
         engine = EngineCls(opt, header, fasta=fasta, bed=bed)
         outs = engine.run(reader.read_all())
     else:
@@ -287,7 +287,7 @@ def main(argv=None) -> int:
         use_pipeline = (args.windows != 1 and opt.max_contig == 0
                         and (args.windows > 1 or batch.n >= 80_000))
         if use_pipeline:
-            from gencore_tpu.io import native as _native
+            from gencore_tpu_torch.io import native as _native
             from gencore_tpu_torch.parallel import pipeline as pipe
             stage_sum = {} if opt.debug else None
             out_writer = None
@@ -333,7 +333,7 @@ def main(argv=None) -> int:
 
     if outs is not None:
         if sam_out:
-            from gencore_tpu.io.sam import SamWriter
+            from gencore_tpu_torch.io.sam import SamWriter
             writer = SamWriter(opt.output, header)
         else:
             writer = bamio.BamWriter(opt.output, header)

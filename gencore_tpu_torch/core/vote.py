@@ -1,21 +1,31 @@
-"""Consensus vote: the hand-written CUDA kernel, its plain twin, and the
-device programs around it (port of gencore_tpu/core/pallas_vote.py).
+"""Consensus vote: the hand-written CUDA kernels, their plain twins, and
+the device programs around them (port of gencore_tpu/core/pallas_vote.py).
 
+* `pallas_vote_window` — EVERY fast vote bucket of one window, the main
+  path. On CUDA tensors it launches `csrc/vote_window.cu` once per window:
+  vote, rollback, nibble packing and the sparse wire encoding fused, one
+  block per job (`vote_window`). On CPU tensors it runs the kernel's plain
+  twin `vote_window_plain`, the same function composed of `vote_core`,
+  `_epilogue_core` and `concat_sparse` (a port of _pallas_window_all).
+  `pallas_vote_window_plain` runs that composition on any device: what the
+  window path ran on the card before the fused kernel.
 * `vote_core` — the vote of Group::makeConsensus (group.cpp:369-526) over K
   member rows read by index from the device-resident [N, L] matrices. On a
   CUDA tensor it launches `csrc/vote.cu`; on a CPU tensor it runs
   `vote_core_plain`, the same computation in plain PyTorch (a port of the
-  Pallas `_vote_block`). Nothing else selects between the two.
+  Pallas `_vote_block`). The gathered and pre-gathered entry points use it.
 * `_epilogue_core` — per-read rollback (group.cpp:538-566), nibble packing
   and the sparse wire encoding, in plain PyTorch (XLA in the JAX package).
-* `pallas_vote_window`, `pallas_vote_gathered`, `pallas_vote` — the entry
-  points the engine calls, with the JAX package's names and layouts at
-  their boundaries so each can be held against its counterpart.
+* `pallas_vote_gathered`, `pallas_vote` — the per-bucket entry points, with
+  the JAX package's names and layouts at their boundaries so each can be
+  held against its counterpart.
 
+Only the device of the tensors selects between a kernel and its twin.
 The kernel library builds at first use from `gencore_tpu_torch/csrc/*.cu`
 with nvcc for sm_90a into `build/gencore_tpu_torch/` (keyed by a hash of
-the sources) and is bound with ctypes. A missing nvcc or a failed build
-raises with the compiler's output.
+the sources, headers included; one nvcc per source, run in parallel) and
+is bound with ctypes. A missing nvcc or a failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -41,15 +51,17 @@ NEG_INF = -0x7FFFFFFF
 SPARSE_DIFFS = 4
 SPARSE_RUNS = 10
 
-# kernel launches made by `vote_core` (CUDA tensors only)
+# kernel launches: `vote_core` (csrc/vote.cu) and `pallas_vote_window`
+# (csrc/vote_window.cu), CUDA tensors only
 LAUNCHES = 0
+WINDOW_LAUNCHES = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "gencore_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -71,14 +83,53 @@ def _find_nvcc() -> str:
     return nvcc
 
 
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
 def library_path() -> str:
     """Path of the kernel library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))):
+    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                      + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libgencore_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _compile(path: str) -> str:
+    """One nvcc per source, all started together, then one link; returns
+    the compilers' stderr (ptxas register/spill report)."""
+    nvcc = _find_nvcc()
+    tmp = f"{path}.tmp{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    log = []
+    failed = []
+    for cmd, pr in zip(cmds, procs):
+        _, err = pr.communicate()
+        log.append(err)
+        if pr.returncode != 0:
+            failed.append(f"nvcc failed (exit {pr.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            failed.append(f"nvcc link failed (exit {r.returncode}):\n"
+                          f"{' '.join(cmd)}\n{r.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    os.replace(tmp, path)
+    return "".join(log)
 
 
 def build_library() -> ctypes.CDLL:
@@ -90,20 +141,14 @@ def build_library() -> ctypes.CDLL:
         path = library_path()
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.tmp{os.getpid()}"
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{r.stderr}")
-            os.replace(tmp, path)
-            BUILD_LOG = r.stderr
+            BUILD_LOG = _compile(path)
         lib = ctypes.CDLL(path)
         P = ctypes.c_void_p
         I = ctypes.c_int
         lib.gc_vote.argtypes = [P] * 10 + [I] * 10 + [P]
         lib.gc_vote.restype = ctypes.c_int
+        lib.gc_vote_window.argtypes = [P] * 10 + [I] * 12 + [P]
+        lib.gc_vote_window.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -402,29 +447,75 @@ def _clamp_rows(idx, n):
     return idx.to(torch.int64).clamp(0, n - 1)
 
 
+def wire_size(n_jobs, n_classes, qtable):
+    """Bytes of the flat wire buffer [qv | qs | nr | sp | sb | nd | df | mc |
+    bads] of n_jobs jobs in n_classes buckets (qv nibble-paired when a
+    qtable is given)."""
+    qvw = SPARSE_RUNS // 2 if qtable is not None else SPARSE_RUNS
+    per_job = qvw + SPARSE_RUNS + 1 + SPARSE_DIFFS + SPARSE_DIFFS // 2 + 1 + 4
+    return n_jobs * per_job + 4 * n_classes
+
+
 def pallas_vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
                        qtable, class_args, *, classes, L, hi, mod, lo,
                        base_score_req, ratio_num, ratio_den, out_len):
     """EVERY fast vote bucket of one window (port of _pallas_window_all):
-    refbase assembly (genome slice-gather + host rows), per-k-class vote
-    over rows base..base+K-1, rollback/sparse-encode epilogue, and the
-    cross-class wire concat. Returns (flat u8 wire buffer, refbase_dev,
+    refbase assembly (genome slice-gather + host rows), then per k-class
+    (K, J) the vote of each job over its rows base..base+count-1, the
+    rollback/sparse-encode epilogue, and the cross-class wire concat.
+    class_args holds (base_row, counts, job_len, refbase row) per class.
+    Returns (flat u8 wire buffer, refbase_dev, [per-class (pseq, qual)
+    dense fallbacks]). CUDA tensors launch the fused kernel
+    (csrc/vote_window.cu, `vote_window`) once; CPU tensors run its plain
+    twin `vote_window_plain`."""
+    dev = seq_dev.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"pallas_vote_window: unsupported device {dev}")
+    refbase_dev = _window_refbase(genome, gp, hr, hm, jp, L, dev)
+    qtable = None if qtable is None else to_device(qtable, dev)
+    fn = vote_window if dev.type == "cuda" else vote_window_plain
+    flat, dense = fn(seq_dev, qual_dev, score_dev, refbase_dev, qtable,
+                     class_args, classes=classes, L=L, hi=hi, mod=mod, lo=lo,
+                     base_score_req=base_score_req, ratio_num=ratio_num,
+                     ratio_den=ratio_den, out_len=out_len)
+    return flat, refbase_dev, dense
+
+
+def pallas_vote_window_plain(seq_dev, qual_dev, score_dev, genome, gp, hr, hm,
+                             jp, qtable, class_args, **kw):
+    """pallas_vote_window with the plain composition on any device (on a
+    CUDA tensor `vote_core` launches csrc/vote.cu): what the window path
+    ran before the fused kernel, kept for on-card comparisons."""
+    dev = seq_dev.device
+    refbase_dev = _window_refbase(genome, gp, hr, hm, jp, kw["L"], dev)
+    qtable = None if qtable is None else to_device(qtable, dev)
+    flat, dense = vote_window_plain(seq_dev, qual_dev, score_dev, refbase_dev,
+                                    qtable, class_args, **kw)
+    return flat, refbase_dev, dense
+
+
+def _window_refbase(genome, gp, hr, hm, jp, L, dev):
+    I32 = torch.int32
+    return refbase_combine(genome, to_device(gp, dev, I32), to_device(hr, dev),
+                           to_device(hm, dev, I32), to_device(jp, dev, I32), L)
+
+
+def vote_window_plain(seq_dev, qual_dev, score_dev, refbase_dev, qtable,
+                      class_args, *, classes, L, hi, mod, lo, base_score_req,
+                      ratio_num, ratio_den, out_len):
+    """The fused window kernel's plain twin: per k-class, `vote_core` over
+    rows base..base+K-1 masked by the member count, `_epilogue_core` with
+    the sparse encoding, then `concat_sparse` (the composition the JAX
+    package's _pallas_window_all makes). Returns (flat u8 wire buffer,
     [per-class (pseq, qual) dense fallbacks])."""
     dev = seq_dev.device
     I32 = torch.int32
     kw = dict(hi=hi, mod=mod, lo=lo, base_score_req=base_score_req,
               ratio_num=ratio_num, ratio_den=ratio_den)
-    gp = to_device(gp, dev, I32)
-    hr = to_device(hr, dev)
-    hm32 = to_device(hm, dev, I32)
-    jp = to_device(jp, dev, I32)
-    qtable = None if qtable is None else to_device(qtable, dev)
-    refbase_dev = refbase_combine(genome, gp, hr, hm32, jp, L)
-
     n_pad = seq_dev.shape[0]
     encs = []
     dense = []
-    for ci, (K, _J2) in enumerate(classes):
+    for ci, (K, _J) in enumerate(classes):
         base_row, counts, jl, ridx = (to_device(a, dev, I32) for a in
                                       class_args[4 * ci:4 * ci + 4])
         k_iota = torch.arange(K, dtype=I32, device=dev)[:, None]
@@ -440,7 +531,112 @@ def pallas_vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
                              qtable=qtable)
         encs.append(res[4])
         dense.append((res[0], res[1]))
-    return concat_sparse(encs), refbase_dev, dense
+    return concat_sparse(encs), dense
+
+
+def _host_i64(a):
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a).astype(np.int64).reshape(-1)
+
+
+def window_job_table(class_args, classes):
+    """The fused kernel's job table, int32 [Jt, 6]: per job of every class
+    in order, (base row, member count clipped to [0, K], job length,
+    refbase row, class index, K)."""
+    parts = []
+    for ci, (K, J) in enumerate(classes):
+        base_row, counts, jl, ridx = (_host_i64(a) for a in
+                                      class_args[4 * ci:4 * ci + 4])
+        if not len(base_row) == len(counts) == len(jl) == len(ridx) == J:
+            raise ValueError(f"vote_window: class {ci} needs {J} jobs in "
+                             "each of its four arguments")
+        parts.append(np.stack([base_row, np.clip(counts, 0, K), jl, ridx,
+                               np.full(J, ci), np.full(J, K)], axis=1))
+    tab = (np.concatenate(parts) if parts
+           else np.zeros((0, 6), dtype=np.int64))
+    if tab.size and (tab.min() < -2**31 or tab.max() >= 2**31):
+        raise ValueError("vote_window: a job field does not fit int32")
+    return tab.astype(np.int32)
+
+
+def vote_window(seq_dev, qual_dev, score_dev, refbase_dev, qtable, class_args,
+                *, classes, L, hi, mod, lo, base_score_req, ratio_num,
+                ratio_den, out_len):
+    """Launch csrc/vote_window.cu over every class of one window: returns
+    (flat u8 wire buffer, [per-class (pseq, qual) dense fallbacks]), equal
+    byte for byte to vote_window_plain's. CUDA tensors only."""
+    dev = seq_dev.device
+    if dev.type != "cuda":
+        raise ValueError(f"vote_window: needs CUDA tensors, got {dev}")
+    N, Lm = seq_dev.shape
+    if Lm != L:
+        raise ValueError(f"vote_window: matrices are {Lm} wide, L={L}")
+    Jw = refbase_dev.shape[0]
+    for name, t, dt, shape in (
+            ("seq_dev", seq_dev, torch.uint8, (N, L)),
+            ("qual_dev", qual_dev, torch.uint8, (N, L)),
+            ("score_dev", score_dev, torch.int8, (N, L)),
+            ("refbase_dev", refbase_dev, torch.uint8, (Jw, L)),
+            ("qtable", qtable, torch.uint8, (16,))):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"vote_window: {name} on {t.device}, expected {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"vote_window: {name} is {t.dtype}, expected {dt}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"vote_window: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"vote_window: {name} is not contiguous")
+    if L % 16 or not 0 < L <= 256:
+        raise ValueError(f"vote_window: L={L} must be a multiple of 16 in "
+                         "(0, 256] (one block per job, 16-byte row copies)")
+    for name, t in (("seq_dev", seq_dev), ("qual_dev", qual_dev),
+                    ("score_dev", score_dev)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"vote_window: {name} is not 16-byte aligned")
+    ol = L if out_len is None else min(out_len, L)
+    if ol < 2 or ol % 2:
+        raise ValueError(f"vote_window: output length {ol} must be even, >= 2")
+    if N == 0 or Jw == 0:
+        raise ValueError("vote_window: needs at least one source and refbase row")
+    if N >= 2**31 or Jw >= 2**31:
+        raise ValueError("vote_window: a dimension does not fit the kernel's int")
+    nb = len(classes)
+    tab = window_job_table(class_args, classes)
+    Jt = tab.shape[0]
+    flat = torch.empty(wire_size(Jt, nb, qtable), dtype=torch.uint8,
+                       device=dev)
+    pseq = torch.empty((Jt, ol // 2), dtype=torch.uint8, device=dev)
+    qual = torch.empty((Jt, ol), dtype=torch.uint8, device=dev)
+    if Jt:
+        jobs = torch.from_numpy(tab).to(dev)
+        scratch = torch.empty(nb + 1, dtype=torch.int32, device=dev)
+        lib = build_library()
+        th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.gc_vote_window(
+                seq_dev.data_ptr(), qual_dev.data_ptr(), score_dev.data_ptr(),
+                refbase_dev.data_ptr(), jobs.data_ptr(),
+                None if qtable is None else qtable.data_ptr(),
+                flat.data_ptr(), pseq.data_ptr(), qual.data_ptr(),
+                scratch.data_ptr(), N, L, Jw, Jt, nb, ol, th["hi"], th["mod"],
+                th["lo"], th["bsr"], th["rnum"], th["rden"], stream)
+        if err != 0:
+            raise RuntimeError(f"gc_vote_window launch failed: cudaError_t {err}")
+        global WINDOW_LAUNCHES
+        WINDOW_LAUNCHES += 1
+    else:
+        flat.zero_()
+    dense = []
+    off = 0
+    for _K, J in classes:
+        dense.append((pseq[off:off + J], qual[off:off + J]))
+        off += J
+    return flat, dense
 
 
 def refbase_combine(genome, gpos, host_rows, host_map, jl, L):

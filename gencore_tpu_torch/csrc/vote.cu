@@ -18,8 +18,9 @@
 //   * the ~30 bin accumulators (6 bins x count/score/qual-sum/top-qual, plus
 //     total score and the ref-match evidence) are registers, unrolled over
 //     the six bins; nothing is staged in shared memory.
-// Making it fast (several jobs per block, vector loads, fusing the rollback
-// epilogue) is later work; this version is the simple, exact one.
+// The vote rules themselves live in vote_rules.cuh, shared with the fused
+// window kernel (vote_window.cu), which serves the main path; this kernel
+// serves the gathered and pre-gathered entry points.
 //
 // Semantics carried over exactly from the Pallas kernel:
 //   * an invalid member, k = 0 included, reads as seq = 255 (SENTINEL),
@@ -36,20 +37,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vote_rules.cuh"
+
 namespace {
 
-constexpr int kSentinel = 255;
-constexpr int kNegInf = -0x7FFFFFFF;
-constexpr int kBins = 6;
-
-__device__ __forceinline__ int bin_code(int bi) {
-  // BINS = (0, 1, 2, 4, 8, 15): the non-empty nt16 bins of =ACGTN data
-  return bi == 0 ? 0 : (bi == 5 ? 15 : (1 << (bi - 1)));
-}
-
-__device__ __forceinline__ int wrap_mul(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
-}
+using gc_vote_rules::kSentinel;
+using gc_vote_rules::VoteAcc;
+using gc_vote_rules::VoteOut;
 
 __global__ void vote_kernel(const uint8_t* __restrict__ seq,
                             const uint8_t* __restrict__ qual,
@@ -67,20 +61,11 @@ __global__ void vote_kernel(const uint8_t* __restrict__ seq,
   const int pos = blockIdx.x * blockDim.x + threadIdx.x;
   if (pos >= L) return;
   for (int j = blockIdx.y; j < J; j += gridDim.y) {
-    int cnt[kBins], ssum[kBins], qsum[kBins], topq[kBins];
-#pragma unroll
-    for (int bi = 0; bi < kBins; ++bi) {
-      cnt[bi] = 0;
-      ssum[bi] = 0;
-      qsum[bi] = 0;
-      topq[bi] = 0;
-    }
-    int total = 0;
-    int ref_qual = 0;
-    int high_ref = 0;
     const size_t out_at = static_cast<size_t>(j) * L + pos;
     const int rb = refbase[out_at];
     const bool has_ref = rb != 0;
+    VoteAcc acc;
+    acc.init();
     int out_base = kSentinel;
 
     for (int k = 0; k < K; ++k) {
@@ -99,91 +84,15 @@ __global__ void vote_kernel(const uint8_t* __restrict__ seq,
         }
       }
       if (k == 0) out_base = s;
-      total += sc;
-#pragma unroll
-      for (int bi = 0; bi < kBins; ++bi) {
-        if (s == bin_code(bi)) {
-          cnt[bi] += 1;
-          ssum[bi] += sc;
-          qsum[bi] += q;
-          topq[bi] = max(topq[bi], q);
-        }
-      }
-      if (has_ref && s == rb) {
-        ref_qual = max(ref_qual, q);
-        high_ref |= q >= hi;
-      }
+      acc.add(s, q, sc, rb, has_ref, hi);
     }
 
-    // top election: lexmax of (score, qual sum, bin)
-    int top_base = 0, top_score = kNegInf, top_qs = 0;
-#pragma unroll
-    for (int bi = 0; bi < kBins; ++bi) {
-      if (ssum[bi] > top_score || (ssum[bi] == top_score && qsum[bi] >= top_qs)) {
-        top_base = bin_code(bi);
-        top_score = ssum[bi];
-        top_qs = qsum[bi];
-      }
-    }
-    if (0 > top_score || (top_score == 0 && top_qs <= 0 && top_base < 14)) {
-      top_base = 14;
-      top_score = 0;
-      top_qs = 0;
-    }
-    // second election, skipping the top bin
-    int sec_base = 0, sec_score = kNegInf, sec_qs = 0;
-#pragma unroll
-    for (int bi = 0; bi < kBins; ++bi) {
-      if (top_base != bin_code(bi) &&
-          (ssum[bi] > sec_score || (ssum[bi] == sec_score && qsum[bi] >= sec_qs))) {
-        sec_base = bin_code(bi);
-        sec_score = ssum[bi];
-        sec_qs = qsum[bi];
-      }
-    }
-    const int vidx = top_base == 14 ? 13 : 14;
-    if (0 > sec_score || (sec_score == 0 && sec_qs <= 0 && sec_base < vidx)) {
-      sec_base = vidx;
-      sec_score = 0;
-      sec_qs = 0;
-    }
-
-    // per-bin lookups; the virtual bins read as empty
-    int top_num = 0, top_qual = 0, sec_num = 0, sec_qsum = 0;
-#pragma unroll
-    for (int bi = 0; bi < kBins; ++bi) {
-      if (top_base == bin_code(bi)) {
-        top_num = cnt[bi];
-        top_qual = topq[bi];
-      }
-      if (sec_base == bin_code(bi)) {
-        sec_num = cnt[bi];
-        sec_qsum = qsum[bi];
-      }
-    }
-
-    const bool accept_early = sec_num == 0 && top_score >= bsr && top_qual >= mod;
-    bool need_ref = sec_num == 0 && !accept_early;
-    if (sec_num == 1) {
-      need_ref |= sec_qsum <= lo ? (top_num < 2 && top_qual < hi)
-                                 : (top_num < 3 || top_qual < hi);
-    }
-    if (sec_num > 1) {
-      need_ref |= wrap_mul(top_score, rden) < wrap_mul(rnum, total) || top_qual < mod;
-    }
-    need_ref |= top_score < bsr || top_qual <= lo;
-    const bool do_ref = need_ref && has_ref && !accept_early;
-
-    int top_base2 = (do_ref && high_ref) ? rb : top_base;
-    top_base2 = (do_ref && top_qual < mod) ? rb : top_base2;
-    const int top_qual2 = (do_ref && top_base2 == rb) ? ref_qual : top_qual;
-
-    const bool changed = !accept_early && out_base != top_base2;
-    const int inner = out_base == rb ? 1 : (top_base2 == rb ? -1 : 0);
-    cand_seq[out_at] = changed ? top_base2 : out_base;
-    cand_qual[out_at] = accept_early ? top_qual : top_qual2;
-    changed_out[out_at] = changed ? 1 : 0;
-    minc_out[out_at] = (changed && has_ref) ? inner : 0;
+    const VoteOut o = gc_vote_rules::vote_decide(acc, out_base, rb, has_ref,
+                                                 hi, mod, lo, bsr, rnum, rden);
+    cand_seq[out_at] = o.cand_seq;
+    cand_qual[out_at] = o.cand_qual;
+    changed_out[out_at] = o.changed;
+    minc_out[out_at] = o.minc_pos;
   }
 }
 

@@ -2,7 +2,7 @@
 gencore_tpu/engine.py).
 
 Same batch dataflow as the JAX engine, whose host stages are carried over
-unchanged (copied: `gencore_tpu.engine` cannot be imported without JAX):
+unchanged (copied, as the port imports nothing of `gencore_tpu`):
 
   1. columnar decode (io.bam.RecordBatch, native BGZF core)
   2. vectorized pre-stats + cluster-key computation
@@ -12,8 +12,8 @@ unchanged (copied: `gencore_tpu.engine` cannot be imported without JAX):
      (core.cigartable) with a python fallback for mixed-cigar groups
   5. two device launches per window on `device`: the fused upload
      reconstruction + overlap scoring (plain torch, core.kernels), and the
-     whole-window vote (core.vote: the CUDA vote kernel plus its plain-torch
-     epilogue); the host downloads one flat wire buffer
+     whole-window vote (core.vote: the fused CUDA kernel of vote, rollback
+     and sparse encoding); the host downloads one flat wire buffer
   6. shared per-cluster duplex/threshold flow (core.postmerge)
   7. ordered output assembly + post-stats
 
@@ -29,17 +29,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gencore_tpu.core import umivec
-from gencore_tpu.core.cigartable import CigarTable
-from gencore_tpu.core.grouping import greedy_umi_groups
-from gencore_tpu.core.oracle import OPair, RefLookup
-from gencore_tpu.core.output import OutBlock, OutRead, OutputTable
-from gencore_tpu.core.postmerge import duplex_merge_rows, postprocess_cluster
-from gencore_tpu.io import bam as bamio
-from gencore_tpu.options import Options
-from gencore_tpu.stats import MAX_SUPPORTING_READS, Stats
-from gencore_tpu.utils import cigar as cig
-from gencore_tpu.utils.tracing import StageTimer
+from gencore_tpu_torch.core import umivec
+from gencore_tpu_torch.core.cigartable import CigarTable
+from gencore_tpu_torch.core.grouping import greedy_umi_groups
+from gencore_tpu_torch.core.oracle import OPair, RefLookup
+from gencore_tpu_torch.core.output import OutBlock, OutRead, OutputTable
+from gencore_tpu_torch.core.postmerge import duplex_merge_rows, postprocess_cluster
+from gencore_tpu_torch.io import bam as bamio
+from gencore_tpu_torch.options import Options
+from gencore_tpu_torch.stats import MAX_SUPPORTING_READS, Stats
+from gencore_tpu_torch.utils import cigar as cig
+from gencore_tpu_torch.utils.tracing import StageTimer
 from gencore_tpu_torch.core import kernels, vote
 from gencore_tpu_torch.core.vote import to_device
 from gencore_tpu_torch.device import resolve_device
@@ -637,7 +637,7 @@ class VectorEngine:
                         msk = wcl >= 0
                         grp_rank[msk] = (pair_ukey_id[msk]
                                          != wcl[msk]).astype(np.int64)
-                from gencore_tpu.io import native as _nat
+                from gencore_tpu_torch.io import native as _nat
                 _glib = _nat.get_lib()
                 for ci in np.nonzero(n_per_cl > 2)[0]:
                     lo, hi = int(c_pair_start[ci]), int(c_pair_end[ci])
@@ -819,7 +819,7 @@ class VectorEngine:
         if work.seq_mode == "2bit":
             full_bins = False
         else:
-            from gencore_tpu.io import native as _nat2
+            from gencore_tpu_torch.io import native as _nat2
             seen = (_nat2.nib_seen(work.seq_packed, work.lens)
                     if work.seq_packed.flags.c_contiguous else None)
             if seen is not None:
@@ -904,7 +904,7 @@ class VectorEngine:
         d = batch.data
         if len(d) < 4 or len(cidx) == 0:
             return np.zeros(0, dtype=np.int64)
-        from gencore_tpu.io import native as _nat
+        from gencore_tpu_torch.io import native as _nat
         if d.flags.c_contiguous:
             flags = _nat.mi_flags(d, batch.aux_off, batch.end)
             if flags is not None:
@@ -1809,7 +1809,7 @@ class VectorEngine:
         work = getattr(self, "work", None)
         if work is None or work.qual_table is None:
             return None
-        from gencore_tpu.io import native
+        from gencore_tpu_torch.io import native
         if native.get_lib() is None:
             return None
         v = np.unique(work.qtable16[work.qtable16 > 0])
@@ -1827,7 +1827,7 @@ class VectorEngine:
         The fused window's flat wire buffer is already copying into pinned
         host memory; per-bucket outputs are concatenated on device and
         downloaded in ONE transfer per array, then decoded vectorized."""
-        from gencore_tpu.io import native
+        from gencore_tpu_torch.io import native
         _T = self.timer.stage
         wflat = [p for p in pending
                  if isinstance(p[0], str) and p[0] == "wflat"]
@@ -1935,7 +1935,7 @@ class VectorEngine:
         densely (rare). entries: [(jlist, (pseq_dev, qual_dev), rows0)].
 
         Returns (ds, dq, df, mc) shaped like the dense path's outputs."""
-        from gencore_tpu.io import native
+        from gencore_tpu_torch.io import native
         C = vote.SPARSE_DIFFS
         R = vote.SPARSE_RUNS
         J2s = [len(rows0) for _, _, rows0 in entries]
@@ -2236,7 +2236,7 @@ class VectorEngine:
                                       tpj[rjc[bsel]])
             # canonical duplex identity: exactly-two-part '_' split;
             # partner = reversed parts (cluster.cpp:246-258)
-            from gencore_tpu.utils.umi import _split_nonempty
+            from gencore_tpu_torch.utils.umi import _split_nonempty
             key_id = np.full(G, -1, dtype=np.int64)
             partner_id = np.full(G, -1, dtype=np.int64)
             interned: dict = {}
@@ -2668,7 +2668,7 @@ class VectorEngine:
         patch = np.full(n, -1, dtype=np.int64)
         if n == 0:
             return out, patch
-        from gencore_tpu.io import native as _natnm
+        from gencore_tpu_torch.io import native as _natnm
         if batch.data.flags.c_contiguous:
             got = _natnm.nm_extract(batch.data, batch.aux_off, batch.end)
             if got is not None:
@@ -2703,7 +2703,7 @@ class VectorEngine:
     def _qname_matrix(self, batch, idx: np.ndarray):
         lens = batch.l_read_name[idx].astype(np.int64) - 1
         w = max(int(lens.max()) if len(lens) else 1, 1)
-        from gencore_tpu.io import native
+        from gencore_tpu_torch.io import native
         if native.get_lib() is not None and batch.data.flags.c_contiguous:
             m = np.zeros((len(idx), w), dtype=np.uint8)
             native.gather_rows_into(batch.data, batch.qname_off[idx], lens, m)
@@ -3139,7 +3139,7 @@ class _WorkArrays:
         self.lens = np.zeros(n_pad, dtype=np.int32)
         self.lens[:n] = np.minimum(batch.l_qseq[cidx], w_host)
         pw = w_host // 2
-        from gencore_tpu.io import native
+        from gencore_tpu_torch.io import native
         use_native = (native.get_lib() is not None
                       and batch.data.flags.c_contiguous)
         # 4-bit packed seq rows straight from the BAM payload (threaded row
@@ -3302,7 +3302,7 @@ class _WorkArrays:
         # where EVERY row qualifies ship NO dense head at all (slots are
         # 4-byte genome offsets). Mixed/ineligible segments keep the
         # head-dense + member-diff scheme below. ----
-        from gencore_tpu.io import native
+        from gencore_tpu_torch.io import native
         cap = _SPARSE_SEQ_CAP
         import os as _os3
         red = None
@@ -3495,7 +3495,7 @@ class _WorkArrays:
             s2 = np.zeros((nd, ow), dtype=np.uint8)
             st = -1
             if use_native:
-                from gencore_tpu.io import native
+                from gencore_tpu_torch.io import native
                 st = native.pack2_rows(np.ascontiguousarray(sub), sub_lens,
                                        _NIB2B, _PAIR_ACGT, _HI_ACGT, s2[1:])
             if st == -1:

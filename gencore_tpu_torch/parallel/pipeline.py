@@ -26,9 +26,9 @@ import threading
 
 import numpy as np
 
-from gencore_tpu.io import bam as bamio
-from gencore_tpu.options import Options
-from gencore_tpu.stats import Stats
+from gencore_tpu_torch.io import bam as bamio
+from gencore_tpu_torch.options import Options
+from gencore_tpu_torch.stats import Stats
 from gencore_tpu_torch.engine import VectorEngine
 from gencore_tpu_torch.parallel.windows import (cluster_left_keys,
                                                 global_checkpoint,
@@ -103,7 +103,7 @@ def merged_payload(tables) -> np.ndarray:
     the 5-field keys preserves (window, within-window) order for ties —
     the same order windows.merged_records produces, record-equivalent to a
     single-shot run."""
-    from gencore_tpu.core.output import multi_slice_indices
+    from gencore_tpu_torch.core.output import multi_slice_indices
     tables = [t for t in tables if len(t)]
     if not tables:
         return np.zeros(0, dtype=np.uint8)
@@ -128,7 +128,7 @@ def merged_payload(tables) -> np.ndarray:
     do = np.zeros(len(sl), dtype=np.int64)
     np.cumsum(sl[:-1], out=do[1:])
     out = np.empty(int(sl.sum()), dtype=np.uint8)
-    from gencore_tpu.io import native
+    from gencore_tpu_torch.io import native
     if not native.gather_slices(big, so, sl, out, do):
         out = big[multi_slice_indices(so, sl)]
     return out
@@ -194,9 +194,9 @@ def flush_ready(pending: list, boundary, writer):
     do = np.zeros(len(sl), dtype=np.int64)
     np.cumsum(sl[:-1], out=do[1:])
     out = np.empty(int(sl.sum()), dtype=np.uint8)
-    from gencore_tpu.io import native
+    from gencore_tpu_torch.io import native
     if not native.gather_slices(big, so, sl, out, do):
-        from gencore_tpu.core.output import multi_slice_indices
+        from gencore_tpu_torch.core.output import multi_slice_indices
         out = big[multi_slice_indices(so, sl)]
     writer.write_payload(out)
 

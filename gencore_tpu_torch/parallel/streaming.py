@@ -1,6 +1,6 @@
 """Bounded-memory streaming over coordinate windows (port of
-gencore_tpu/parallel/streaming.py, copied: that module cannot be imported
-without JAX).
+gencore_tpu/parallel/streaming.py, copied, as the port imports nothing of
+gencore_tpu).
 
 The reference streams one record at a time at O(window) memory
 (gencore.cpp:205). This module bounds residency with a two-pass design
@@ -29,10 +29,10 @@ import threading
 
 import numpy as np
 
-from gencore_tpu.io import bam as bamio
-from gencore_tpu.io import native
-from gencore_tpu.options import Options
-from gencore_tpu.stats import Stats
+from gencore_tpu_torch.io import bam as bamio
+from gencore_tpu_torch.io import native
+from gencore_tpu_torch.options import Options
+from gencore_tpu_torch.stats import Stats
 from gencore_tpu_torch.engine import VectorEngine
 from gencore_tpu_torch.parallel.pipeline import (plan_windows,
                                                  _merge_window_stats,

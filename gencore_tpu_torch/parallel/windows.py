@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from gencore_tpu.io import bam as bamio
+from gencore_tpu_torch.io import bam as bamio
 from gencore_tpu_torch.engine import PAIR_GAP_LIMIT, TICK
 
 

@@ -6,14 +6,16 @@ by the reference package on the CPU:
 
     python -m gencore_tpu_torch.tools.make_golden
 
-generates (or reuses) `bench.make_workload()` — the 240k-read deep panel,
-40,000 fragments on 2 x 8 Mb contigs, cached in bench_data/ — runs
+generates (or reuses) `workloads.deep_panel()` — the 240k-read deep
+panel, 40,000 fragments on 2 x 8 Mb contigs (bench.make_workload's
+recipe), cached in build/workloads/ — runs
 `python -m gencore_tpu.cli` on it in a subprocess (JAX on the CPU, its
 default path), and writes gencore_tpu_torch/testdata/deep_panel_40k.json:
 sha256 and count of the ordered decoded input and output records, and a
 sha256 of the JSON report without its `command` line.
 
-This module imports no JAX itself; the digest helpers serve chip_smoke.py.
+This module imports neither JAX nor the JAX package (the reference run is
+a subprocess); the digest helpers serve chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -30,12 +32,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 GOLDEN = os.path.join(REPO, "gencore_tpu_torch", "testdata",
                       "deep_panel_40k.json")
+WORKLOAD_DIR = os.path.join(REPO, "build", "workloads")
 
 
 def digest_records(bam_path: str) -> tuple[int, str]:
     """(record count, sha256 of the records' decoded bytes in file order,
     each prefixed by its length)."""
-    from gencore_tpu.io import bam as bamio
+    from gencore_tpu_torch.io import bam as bamio
     b = bamio.BamReader(bam_path).read_all()
     h = hashlib.sha256()
     for i in range(b.n):
@@ -57,9 +60,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=GOLDEN)
     args = ap.parse_args(argv)
-    sys.path.insert(0, REPO)
-    import bench
-    bam_path, fa_path = bench.make_workload()
+    from gencore_tpu_torch.tools import workloads
+    bam_path, fa_path = workloads.deep_panel(WORKLOAD_DIR)
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "out.bam")
         js = os.path.join(d, "report.json")
@@ -74,7 +76,7 @@ def main(argv=None) -> int:
         rep = digest_report(js)
     golden = {
         "workload": f"bench.make_workload() with N_FRAGMENTS="
-                    f"{bench.N_FRAGMENTS}",
+                    f"{workloads.DEEP_PANEL_FRAGMENTS}",
         "made_by": "python -m gencore_tpu.cli (JAX package, CPU, default "
                    "path)",
         "input": {"records": n_in, "sha256": h_in},

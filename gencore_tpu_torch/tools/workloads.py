@@ -1,0 +1,221 @@
+"""Synthetic sorted-BAM workloads for the port's on-card checks.
+
+`SyntheticBam` is a copy of the test suite's generator (tests/datagen.py),
+writing through this package's io: the same seed and calls give the same
+bytes (tests/test_torch_host_copies.py holds the two to that). Two recipes
+build on it:
+
+  * `deep_panel` — the 240k-read deep panel: 40,000 duplex-UMI fragments
+    on 2 x 8 Mb contigs, ~3 duplicates each (the recipe of
+    bench.make_workload, seed 7);
+  * `small_panel` — ~3k reads: duplex UMIs, 40-pair clusters and
+    lenDiff-shifted right reads, so every vote entry point runs.
+
+Both write `<out_dir>/{name}.bam` and `<out_dir>/{name}_ref.fa`.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from gencore_tpu_torch.io import bam
+from gencore_tpu_torch.io.bam import BamHeader, BamWriter, encode_record
+from gencore_tpu_torch.utils import cigar as cig
+
+BASES = "ACGT"
+CODE = {"A": 1, "C": 2, "G": 4, "T": 8, "N": 15}
+
+
+def random_ref(rng: np.random.Generator, length: int) -> str:
+    return "".join(BASES[i] for i in rng.integers(0, 4, size=length))
+
+
+class SyntheticBam:
+    """Builds a sorted BAM + matching FASTA in memory, then writes both."""
+
+    def __init__(self, seed: int = 0, contig_len: int = 200_000, n_contigs: int = 1):
+        self.rng = np.random.default_rng(seed)
+        self.contigs = [random_ref(self.rng, contig_len) for _ in range(n_contigs)]
+        self.names = [f"chr{i+1}" for i in range(n_contigs)]
+        self.header = BamHeader(
+            text=("\n".join(
+                [f"@SQ\tSN:{n}\tLN:{len(c)}" for n, c in zip(self.names, self.contigs)]
+            ) + "\n").encode(),
+            names=list(self.names),
+            lengths=[len(c) for c in self.contigs],
+        )
+        self.records = []  # (tid, pos, body_builder_args)
+        self._serial = 0
+
+    def write_fasta(self, path: str):
+        with open(path, "w") as f:
+            for n, c in zip(self.names, self.contigs):
+                f.write(f">{n}\n")
+                for i in range(0, len(c), 70):
+                    f.write(c[i:i + 70] + "\n")
+
+    def _qname(self, umi: str | None) -> str:
+        self._serial += 1
+        base = f"SIM:1:FC:1:{self._serial:06d}:{self.rng.integers(1000,9999)}:{self.rng.integers(1000,9999)}"
+        if umi:
+            return f"{base}:UMI_{umi}"
+        return base
+
+    def read_seq(self, tid: int, pos: int, length: int, n_errors: int = 0,
+                 softclip_left: int = 0) -> tuple[str, str]:
+        """Sequence drawn from the reference with optional random errors.
+        Returns (seq, cigar_str)."""
+        ref = self.contigs[tid]
+        core = ref[pos:pos + length - softclip_left]
+        clip = "".join(BASES[i] for i in self.rng.integers(0, 4, size=softclip_left))
+        seq = list(clip + core)
+        for _ in range(n_errors):
+            i = int(self.rng.integers(softclip_left, length))
+            cur = seq[i]
+            seq[i] = BASES[(BASES.index(cur) + 1 + int(self.rng.integers(0, 3))) % 4] \
+                if cur in BASES else "A"
+        cigar_str = (f"{softclip_left}S" if softclip_left else "") + f"{length - softclip_left}M"
+        return "".join(seq), cigar_str
+
+    def add_pair(self, tid: int, pos1: int, pos2: int, read_len: int = 100,
+                 umi: str | None = None, n_errors: int = 0, qual: int = 35,
+                 qual2: int | None = None, softclip_left: int = 0,
+                 nm: int | None = None):
+        """Add a proper FR pair; pos1 <= pos2. TLEN spans fragment."""
+        qname = self._qname(umi)
+        tlen = pos2 + read_len - pos1
+        seq1, cg1 = self.read_seq(tid, pos1, read_len, n_errors, softclip_left)
+        seq2, cg2 = self.read_seq(tid, pos2, read_len, n_errors)
+        q2 = qual if qual2 is None else qual2
+        nm1 = n_errors if nm is None else nm
+        self._add(tid, pos1, qname, 99, cg1, tid, pos2, tlen, seq1, qual, nm1)
+        self._add(tid, pos2, qname, 147, cg2, tid, pos1, -tlen, seq2, q2, nm1)
+
+    def add_single(self, tid: int, pos: int, read_len: int = 100, umi: str | None = None,
+                   flag: int = 0, mtid: int = -1, mpos: int = -1, tlen: int = 0,
+                   n_errors: int = 0, qual: int = 35, nm: int | None = None,
+                   cigar: str | None = None):
+        qname = self._qname(umi)
+        if tid >= 0:
+            seq, cg = self.read_seq(tid, pos, read_len, n_errors)
+        else:
+            seq = "".join(BASES[i] for i in self.rng.integers(0, 4, size=read_len))
+            cg = ""
+        if cigar is not None:
+            cg = cigar
+        self._add(tid, pos, qname, flag, cg, mtid, mpos, tlen, seq, qual,
+                  n_errors if nm is None else nm)
+
+    def add_cross_pair(self, tid1: int, pos1: int, tid2: int, pos2: int,
+                       read_len: int = 100, umi: str | None = None,
+                       n_errors: int = 0, qual: int = 35):
+        """Mates on different contigs (isize 0): the reference clusters each
+        end separately with a negative surrogate right key (gencore.cpp:311)."""
+        qname = self._qname(umi)
+        seq1, cg1 = self.read_seq(tid1, pos1, read_len, n_errors)
+        seq2, cg2 = self.read_seq(tid2, pos2, read_len, n_errors)
+        self._add(tid1, pos1, qname, 97, cg1, tid2, pos2, 0, seq1, qual, n_errors)
+        self._add(tid2, pos2, qname, 145, cg2, tid1, pos1, 0, seq2, qual, n_errors)
+
+    def add_pair_mi(self, tid: int, pos1: int, pos2: int, mi: str,
+                    read_len: int = 100, n_errors: int = 0, qual: int = 35):
+        """Pair carrying the UMI in an MI:Z: aux tag (bamutil.cpp:23-38)."""
+        qname = self._qname(None)
+        tlen = pos2 + read_len - pos1
+        seq1, cg1 = self.read_seq(tid, pos1, read_len, n_errors)
+        seq2, cg2 = self.read_seq(tid, pos2, read_len, n_errors)
+        mi_aux = b"MIZ" + mi.encode() + b"\x00"
+        self._add(tid, pos1, qname, 99, cg1, tid, pos2, tlen, seq1, qual,
+                  n_errors, extra_aux=mi_aux)
+        self._add(tid, pos2, qname, 147, cg2, tid, pos1, -tlen, seq2, qual,
+                  n_errors, extra_aux=mi_aux)
+
+    def _add(self, tid, pos, qname, flag, cigar_str, mtid, mpos, tlen, seq,
+             qual, nm, extra_aux: bytes = b""):
+        codes = bam.seq_str_to_codes(seq)
+        cg = cig.from_string(cigar_str) if cigar_str else np.zeros(0, dtype=np.uint32)
+        if isinstance(qual, int):
+            quals = np.full(len(seq), qual, dtype=np.uint8)
+        else:
+            quals = np.asarray(qual, dtype=np.uint8)
+        aux = b"NMC" + bytes([nm & 0xFF]) + extra_aux
+        body = encode_record(tid, pos, qname.encode(), flag, 60, cg, mtid, mpos,
+                             tlen, codes, quals, aux)
+        self.records.append((tid if tid >= 0 else 1 << 30, pos, len(self.records), body))
+
+    def write_bam(self, path: str):
+        w = BamWriter(path, self.header)
+        for _, _, _, body in sorted(self.records, key=lambda r: (r[0], r[1], r[2])):
+            w.write_record(body)
+        w.close()
+
+
+DEEP_PANEL_FRAGMENTS = 40_000
+DEEP_PANEL_DUP_MEAN = 3   # mean duplicates per fragment -> ~240k reads
+
+
+def deep_panel(out_dir: str, n_fragments: int = DEEP_PANEL_FRAGMENTS):
+    """The deep panel (bench.make_workload's recipe); reuses the files
+    when both exist. Returns (bam_path, fasta_path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    bam_path = os.path.join(out_dir, f"deep_panel_{n_fragments}.bam")
+    fa_path = os.path.join(out_dir, "deep_panel_ref.fa")
+    if os.path.exists(bam_path) and os.path.exists(fa_path):
+        return bam_path, fa_path
+    rng = np.random.default_rng(7)
+    sb = SyntheticBam(seed=7, contig_len=8_000_000, n_contigs=2)
+    umis = ["AAAA", "CCCC", "GGGG", "TTTT", "ACGT", "TGCA", "GATC", "CTAG"]
+    for k in range(n_fragments):
+        tid = int(rng.integers(0, 2))
+        pos1 = int(rng.integers(100, 7_900_000))
+        frag = int(rng.integers(160, 340))
+        read_len = 150
+        pos2 = max(pos1, pos1 + frag - read_len)
+        a, b = rng.choice(umis, size=2, replace=False)
+        umi = f"{a}_{b}"
+        ndup = 1 + int(rng.poisson(DEEP_PANEL_DUP_MEAN - 1))
+        for _ in range(ndup):
+            n_err = int(rng.random() < 0.3) * int(rng.integers(1, 3))
+            sb.add_pair(tid, pos1, pos2, read_len=read_len, umi=umi,
+                        n_errors=n_err, qual=int(rng.choice([18, 30, 36])))
+    sb.write_bam(bam_path)
+    sb.write_fasta(fa_path)
+    return bam_path, fa_path
+
+
+def small_panel(out_dir: str):
+    """~3k reads that take every vote entry point: the fused window,
+    the per-bucket gathered vote (40-pair clusters of mixed UMIs) and the
+    pre-gathered vote of lenDiff-shifted right reads. Returns
+    (bam_path, fasta_path, n_reads)."""
+    os.makedirs(out_dir, exist_ok=True)
+    bam_path = os.path.join(out_dir, "small_panel.bam")
+    fa_path = os.path.join(out_dir, "small_panel_ref.fa")
+    sb = SyntheticBam(seed=11, contig_len=400_000, n_contigs=2)
+    rng = np.random.default_rng(12)
+    umis = ["AAAA", "CCCC", "GGGG", "TTTT", "ACGT", "TGCA"]
+    for k in range(560):
+        tid = k % 2
+        pos1 = 1000 + 600 * (k // 2)
+        pos2 = pos1 + int(rng.integers(20, 160))
+        a, b = rng.choice(umis, size=2, replace=False)
+        deep = k % 60 == 0
+        for _ in range(40 if deep else int(rng.integers(1, 4))):
+            umi = f"{a}_{b}" if rng.random() < 0.5 else f"{b}_{a}"
+            sb.add_pair(tid, pos1, pos2, read_len=150, umi=umi,
+                        n_errors=int(rng.random() < 0.3) * 2,
+                        qual=int(rng.choice([18, 30, 36])))
+    for k in range(30):   # right reads of mixed length, same right end
+        pos1 = 380_000 + 400 * k
+        end2 = pos1 + 240
+        sb.add_pair(0, pos1, end2 - 100, read_len=100, umi="ACGT_TTGA")
+        qname = sb._qname("ACGT_TTGA")
+        seq1, cg1 = sb.read_seq(0, pos1, 100)
+        seq2, cg2 = sb.read_seq(0, end2 - 80, 80)
+        sb._add(0, pos1, qname, 99, cg1, 0, end2 - 80, 240, seq1, 35, 0)
+        sb._add(0, end2 - 80, qname, 147, cg2, 0, pos1, -240, seq2, 35, 0)
+    sb.write_bam(bam_path)
+    sb.write_fasta(fa_path)
+    return bam_path, fa_path, len(sb.records)

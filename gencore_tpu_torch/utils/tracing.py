@@ -1,16 +1,42 @@
-"""Optional device trace of a run (port of
-gencore_tpu/utils/tracing.maybe_jax_trace).
+"""Per-stage timing and an optional device trace of a run (port of
+gencore_tpu/utils/tracing.py).
 
-Per-stage wall time is gencore_tpu.utils.tracing.StageTimer, reused as is.
-Set GENCORE_TRACE_DIR to capture a torch.profiler trace (CPU ops, plus
-CUDA kernels on a CUDA run) of the traced region, written there as a
-Chrome trace (`trace.json`) with a kernel-time table (`kernels.txt`).
+  * `StageTimer` accumulates wall time per named stage; the CLI prints the
+    table under --debug (the JAX package's class, copied);
+  * set GENCORE_TRACE_DIR to capture a torch.profiler trace (CPU ops, plus
+    CUDA kernels on a CUDA run) of the traced region, written there as a
+    Chrome trace (`trace.json`) with a kernel-time table (`kernels.txt`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import time
+
+
+class StageTimer:
+    def __init__(self):
+        self.totals: dict = {}
+        self.counts: dict = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report_lines(self) -> list:
+        total = sum(self.totals.values())
+        lines = [f"stage timings (total {total:.3f}s):"]
+        for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            pct = 100.0 * t / total if total else 0.0
+            lines.append(f"  {name:<22} {t:8.3f}s {pct:5.1f}%  x{self.counts[name]}")
+        return lines
 
 
 @contextlib.contextmanager

@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from gencore_tpu import cli as jax_cli
-from gencore_tpu.io import native
 from gencore_tpu_torch import cli as port_cli
+from gencore_tpu_torch.io import native
 from tests.test_engine_equivalence import make_random_workload
 
 torch.set_num_threads(1)

@@ -1,12 +1,13 @@
-"""Tests of the CUDA vote kernel: they need an NVIDIA card and skip
+"""Tests of the CUDA vote kernels: they need an NVIDIA card and skip
 elsewhere. Run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (--noconftest: tests/conftest.py imports JAX, which a CUDA-only install lacks.)
 
-The kernel is held to its plain twin (vote_core_plain) on the same inputs
-with 0 mismatches, and the engine on CUDA to the oracle."""
+Each kernel is held to its plain twin on the same inputs with 0
+mismatches (csrc/vote.cu to vote_core_plain, csrc/vote_window.cu to
+vote_window_plain, byte for byte), and the engine on CUDA to the oracle."""
 
 import importlib.util
 import pathlib
@@ -99,12 +100,88 @@ def test_epilogue_cuda_matches_cpu(cuda):
         assert torch.equal(a.cpu(), b)
 
 
+def _window_args(rng, classes, L, N, Jw):
+    """Per-class (base_row, counts, job_len, refbase row) as the engine
+    stages them, with empty jobs, full classes, member rows running past
+    the matrix (they clamp) and job lengths up to L."""
+    args = []
+    for K, J in classes:
+        base = rng.integers(0, N, size=J).astype(np.uint16)
+        base[:4] = N - 2
+        kmax = min(K, 255)            # counts are uint8
+        counts = rng.integers(0, kmax + 1, size=J).astype(np.uint8)
+        counts[::11] = 0
+        counts[1::13] = kmax
+        jl = rng.integers(0, L + 1, size=J).astype(np.uint16)
+        jl[::7] = L
+        ridx = rng.integers(0, Jw, size=J).astype(np.uint16)
+        args.extend((base, counts, jl, ridx))
+    return args
+
+
+@pytest.mark.parametrize("with_qtable", [False, True])
+@pytest.mark.parametrize("out_len", [160, 136])
+def test_vote_window_kernel_matches_twin(cuda, with_qtable, out_len):
+    """gc_vote_window's flat wire buffer and dense fallback equal the
+    plain composition's (vote_window_plain on CPU copies) byte for byte,
+    every class of a window in one launch."""
+    rng = np.random.default_rng(3 + with_qtable + out_len)
+    L, N, Jw = 160, 3000, 900
+    classes = ((4, 300), (16, 200), (64, 120), (256, 40))
+    codes = np.array([0, 1, 2, 4, 8, 15, vote.SENTINEL], dtype=np.uint8)
+    seq = codes[rng.choice(7, size=(N, L), p=[.04, .23, .23, .23, .23, .03,
+                                              .01])]
+    qual = rng.choice(np.array([2, 12, 18, 25, 30, 36, 41], np.uint8),
+                      size=(N, L))
+    score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
+    refbase = np.array([0, 1, 2, 4, 8], np.uint8)[
+        rng.integers(0, 5, size=(Jw, L))]
+    refbase[::4] = 0
+    class_args = _window_args(rng, classes, L, N, Jw)
+    qtable = None
+    if with_qtable:
+        qtable = np.zeros(16, dtype=np.uint8)
+        qtable[1:7] = [2, 12, 18, 25, 30, 36]   # 41 escapes
+        qtable[9] = 30                           # the last match wins
+    kw = dict(classes=classes, L=L, out_len=out_len, **KW)
+    cpu = [torch.from_numpy(a) for a in (seq, qual, score, refbase)]
+    qt = None if qtable is None else torch.from_numpy(qtable)
+    want_flat, want_dense = vote.vote_window_plain(*cpu, qt, class_args, **kw)
+    n0 = vote.WINDOW_LAUNCHES
+    got_flat, got_dense = vote.vote_window(
+        *[t.to(cuda) for t in cpu], None if qt is None else qt.to(cuda),
+        class_args, **kw)
+    torch.cuda.synchronize(cuda)
+    assert vote.WINDOW_LAUNCHES == n0 + 1
+    assert got_flat.cpu().numpy().tobytes() == want_flat.numpy().tobytes()
+    for (gp, gq), (wp, wq) in zip(got_dense, want_dense):
+        assert torch.equal(gp.cpu(), wp)
+        assert torch.equal(gq.cpu(), wq)
+    if with_qtable:   # the escape counts are not all zero
+        assert want_flat[-4 * len(classes):].any()
+
+
+def test_vote_window_rejects_bad_inputs(cuda):
+    L, N = 40, 10     # L not a multiple of 16
+    seq = torch.zeros((N, L), dtype=torch.uint8, device=cuda)
+    ref = torch.zeros((2, L), dtype=torch.uint8, device=cuda)
+    args = [np.zeros(3, np.int32)] * 4
+    kw = dict(classes=((4, 3),), L=L, out_len=L, **KW)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        vote.vote_window(seq, seq, seq.to(torch.int8), ref, None, args, **kw)
+    with pytest.raises(TypeError):
+        vote.vote_window(seq, seq, seq, ref, None, args, **kw)
+
+
 def test_engine_on_cuda_matches_oracle(cuda, tmp_path):
     from gencore_tpu.core.oracle import OracleEngine
     from gencore_tpu.io import bam
     from gencore_tpu.io.fasta import FastaRef
     from gencore_tpu.options import Options
     from gencore_tpu_torch.engine import VectorEngine
+    from gencore_tpu_torch.io import bam as tbam
+    from gencore_tpu_torch.io.fasta import FastaRef as TFastaRef
+    from gencore_tpu_torch.options import Options as TOptions
 
     # by path: an installed package named
     # `tests` would shadow this directory
@@ -128,8 +205,11 @@ def test_engine_on_cuda_matches_oracle(cuda, tmp_path):
     ref = FastaRef.load(str(tmp_path / "ref.fa"))
     oeng = OracleEngine(Options(), reader.header, fasta=ref)
     want = sorted(r.encode() for r in oeng.run(reader.read_all()))
-    n0 = vote.LAUNCHES
-    eng = VectorEngine(Options(), reader.header, fasta=ref, device=cuda)
-    got = sorted(eng.run(reader.read_all()).encoded_records())
-    assert vote.LAUNCHES > n0
+    treader = tbam.BamReader(str(tmp_path / "in.bam"))
+    n0 = vote.WINDOW_LAUNCHES
+    eng = VectorEngine(TOptions(), treader.header,
+                       fasta=TFastaRef.load(str(tmp_path / "ref.fa")),
+                       device=cuda)
+    got = sorted(eng.run(treader.read_all()).encoded_records())
+    assert vote.WINDOW_LAUNCHES > n0
     assert got == want

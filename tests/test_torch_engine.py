@@ -1,7 +1,9 @@
 """The port's engine on the CPU (plain twins of every device program)
 against the scalar oracle and against the JAX engine on its Pallas path
 (GENCORE_FORCE_PALLAS=interp, as tests/test_engine_pallas.py runs it):
-records byte-equal and stats equal."""
+records byte-equal and stats equal. Each side reads the same files with
+its own package's reader, options and reference (the port keeps its own
+copies of those modules)."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,10 @@ from gencore_tpu.io import bam
 from gencore_tpu.io.fasta import FastaRef
 from gencore_tpu.options import Options
 from gencore_tpu_torch.engine import VectorEngine
+from gencore_tpu_torch.io import bam as tbam
+from gencore_tpu_torch.io.fasta import FastaRef as TFastaRef
+from gencore_tpu_torch.options import Options as TOptions
+from gencore_tpu_torch.tools.workloads import SyntheticBam as TSyntheticBam
 from tests.datagen import SyntheticBam
 from tests.test_engine_equivalence import (STAT_FIELDS, _enc_list,
                                            assert_equivalent,
@@ -27,11 +33,13 @@ def run_three(sb, tmp_path, monkeypatch, opt_kwargs=None, use_fasta=True):
     bam_path = str(tmp_path / "in.bam")
     sb.write_bam(bam_path)
     reader = bam.BamReader(bam_path)
-    ref = None
+    treader = tbam.BamReader(bam_path)
+    ref = tref = None
     if use_fasta:
         fa = str(tmp_path / "ref.fa")
         sb.write_fasta(fa)
         ref = FastaRef.load(fa)
+        tref = TFastaRef.load(fa)
     kw = opt_kwargs or {}
     oeng = OracleEngine(Options(**kw), reader.header, fasta=ref)
     oout = oeng.run(reader.read_all())
@@ -39,9 +47,9 @@ def run_three(sb, tmp_path, monkeypatch, opt_kwargs=None, use_fasta=True):
     jeng = JaxEngine(Options(**kw), reader.header, fasta=ref)
     jout = jeng.run(reader.read_all())
     monkeypatch.delenv("GENCORE_FORCE_PALLAS")
-    teng = VectorEngine(Options(**kw), reader.header, fasta=ref,
+    teng = VectorEngine(TOptions(**kw), treader.header, fasta=tref,
                         device="cpu")
-    tout = teng.run(reader.read_all())
+    tout = teng.run(treader.read_all())
     assert_equivalent((oeng, oout), (teng, tout))
     assert _enc_list(tout) == _enc_list(jout)
     for f in STAT_FIELDS:
@@ -134,8 +142,8 @@ def test_port_engine_rejects_full_bins_data(tmp_path):
         sb._add(0, 1150 + 300 * k, qname + "b", 147, cg2, 0, 1000 + 300 * k,
                 -250, seq2, 30, 0)
     sb.write_bam(str(tmp_path / "in.bam"))
-    reader = bam.BamReader(str(tmp_path / "in.bam"))
-    eng = VectorEngine(Options(), reader.header, device="cpu")
+    reader = tbam.BamReader(str(tmp_path / "in.bam"))
+    eng = VectorEngine(TOptions(), reader.header, device="cpu")
     with pytest.raises(NotImplementedError, match="K9"):
         eng.run(reader.read_all())
 
@@ -143,12 +151,12 @@ def test_port_engine_rejects_full_bins_data(tmp_path):
 def test_port_engine_default_device_needs_cuda():
     """The default device is CUDA; without one the engine raises rather
     than running on the CPU."""
-    sb = SyntheticBam(seed=1, contig_len=10_000)
+    sb = TSyntheticBam(seed=1, contig_len=10_000)
     if torch.cuda.is_available():
-        assert VectorEngine(Options(), sb.header).device.type == "cuda"
+        assert VectorEngine(TOptions(), sb.header).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            VectorEngine(Options(), sb.header)
+            VectorEngine(TOptions(), sb.header)
 
 
 @pytest.mark.parametrize("switch", ["GENCORE_NO_SPARSE_UP", "GENCORE_NO_SPARSE",
@@ -166,6 +174,9 @@ def test_port_engine_off_main_branches(tmp_path, monkeypatch, switch):
     oeng = OracleEngine(Options(), reader.header, fasta=ref)
     oout = oeng.run(reader.read_all())
     monkeypatch.setenv(switch, "1")
-    teng = VectorEngine(Options(), reader.header, fasta=ref, device="cpu")
-    tout = teng.run(reader.read_all())
+    treader = tbam.BamReader(str(tmp_path / "in.bam"))
+    teng = VectorEngine(TOptions(), treader.header,
+                        fasta=TFastaRef.load(str(tmp_path / "ref.fa")),
+                        device="cpu")
+    tout = teng.run(treader.read_all())
     assert_equivalent((oeng, oout), (teng, tout))

@@ -1,6 +1,8 @@
-"""gencore_tpu_torch imports and runs with JAX blocked: a subprocess sets
-sys.modules["jax"] = None, imports every module of the package and runs
-the port's CLI with --device cpu on a tiny BAM."""
+"""gencore_tpu_torch stands alone: a subprocess blocks JAX and the JAX
+package (sys.modules["jax"] = sys.modules["gencore_tpu"] = None), imports
+every module of the port and runs its CLI with --device cpu on a tiny BAM;
+and no source of the port, nor chip_smoke.py, imports JAX, the JAX package,
+bench.py or the test suite."""
 
 import os
 import pathlib
@@ -16,6 +18,7 @@ _CHILD = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+sys.modules["gencore_tpu"] = None
 import gencore_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
     gencore_tpu_torch.__path__, "gencore_tpu_torch."))
@@ -24,7 +27,8 @@ for n in names:
 from gencore_tpu_torch.cli import main
 rc = main(sys.argv[1:])
 loaded = sorted(k for k, v in sys.modules.items()
-                if v is not None and k.split(".")[0] in ("jax", "jaxlib"))
+                if v is not None and k.split(".")[0] in
+                ("jax", "jaxlib", "gencore_tpu", "bench", "tests"))
 print("MODULES", len(names), "JAX", loaded)
 sys.exit(rc)
 """
@@ -52,10 +56,23 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert (tmp_path / "out.bam").stat().st_size > 0
 
 
+def _port_sources():
+    return sorted((REPO / "gencore_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
 def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    hits = [str(p) for p in (REPO / "gencore_tpu_torch").rglob("*.py")
-            if pat.search(p.read_text())]
-    hits += [str(REPO / "chip_smoke.py")] if pat.search(
-        (REPO / "chip_smoke.py").read_text()) else []
+    hits = [str(p) for p in _port_sources() if pat.search(p.read_text())]
+    assert hits == []
+
+
+def test_port_sources_never_import_the_jax_package_bench_or_tests():
+    """The port keeps its own copies of the host modules it shares with
+    gencore_tpu; chip_smoke.py makes its workloads through the port."""
+    pat = re.compile(
+        r"^\s*(?:from|import)\s+(?:gencore_tpu|bench|tests)\b(?!_)"
+        r"|import_module\(\s*['\"](?:gencore_tpu|bench|tests)\b(?!_)", re.M)
+    hits = [f"{p}: {m.group(0).strip()}" for p in _port_sources()
+            for m in pat.finditer(p.read_text())]
     assert hits == []

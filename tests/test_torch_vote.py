@@ -188,3 +188,32 @@ def test_epilogue_first_index_semantics():
     assert list(nr) == [1, 1, 2]
     assert list(qs[2][:3]) == [0, 4, 0]
     assert list(qv[2][:3]) == [30, 12, 30]
+
+
+@pytest.mark.parametrize("with_qtable", [False, True])
+def test_window_kernel_host_side(with_qtable):
+    """What the fused window kernel's wrapper computes on the host: the
+    buffer size it allocates equals the plain composition's, and its job
+    table lists every class's jobs in order, counts clipped to [0, K]."""
+    rng = np.random.default_rng(30 + with_qtable)
+    L, out_len = 128, 104
+    classes = ((4, 16), (16, 8), (32, 5))
+    (seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
+     class_args) = _window_inputs(rng, L, out_len, classes)
+    class_args[1] = class_args[1].copy()
+    class_args[1][0] = 9          # more members than the class holds
+    qtable = np.arange(16, dtype=np.uint8) if with_qtable else None
+    flat, _ref, dense = vote.pallas_vote_window(
+        _t(seq_dev), _t(qual_dev), _t(score_dev), _t(genome), gp, hr, hm, jp,
+        qtable, class_args, classes=classes, L=L, out_len=out_len, **KW)
+    assert flat.numel() == vote.wire_size(29, len(classes), qtable)
+    assert [d[0].shape for d in dense] == [(16, 52), (8, 52), (5, 52)]
+    tab = vote.window_job_table(class_args, classes)
+    assert tab.dtype == np.int32 and tab.shape == (29, 6)
+    assert list(tab[:, 4]) == [0] * 16 + [1] * 8 + [2] * 5
+    assert list(tab[:, 5]) == [4] * 16 + [16] * 8 + [32] * 5
+    assert tab[0, 1] == 4
+    assert (tab[16:24, 0] == class_args[4]).all()
+    assert (tab[16:24, 3] == class_args[7]).all()
+    with pytest.raises(ValueError, match="class 1 needs 9 jobs"):
+        vote.window_job_table(class_args, ((4, 16), (16, 9), (32, 5)))
