@@ -15,8 +15,10 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
       2b gc_vote_window (csrc/vote_window.cu) against vote_window_plain,
          member counts 0..K, job lengths <= L, out_len = L and 136, with
          and without a qual table;
-    with each kernel's time, its plain version's time on the card, its
-    bound and its share of the bound;
+    with each kernel's device time (torch.profiler) and its wrapper's time
+    per call, its plain version's time per call on the card (CUDA events,
+    in turns plain, kernel, kernel, plain), its bound and its share of the
+    bound;
   3 a ~3k-read workload (duplex UMIs, deep clusters, lenDiff-shifted right
     reads) through the port's CLI on cuda, against the scalar oracle:
     records and report stats equal, and both kernels launched (the window
@@ -30,8 +32,8 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     the card, with its bound;
   6 device busy time and launch count of one deep-panel run (torch.profiler)
     before, with the plain composition put back for that run only
-    (pallas_vote_window_plain: csrc/vote.cu plus plain-torch epilogue), and
-    after, with the fused kernel.
+    (vote_window_plain on CUDA tensors: csrc/vote.cu plus the plain-torch
+    epilogue and concat), and after, with the fused kernel.
 Then the kernels line and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -148,13 +150,42 @@ def _time_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def _alternate(torch, plain, kern, plain_reps, kern_reps):
-    """plain, kernel, kernel, plain: ([plain ms x2], [kernel ms x2])."""
-    p1 = _time_ms(torch, plain, plain_reps)
-    k1 = _time_ms(torch, kern, kern_reps)
-    k2 = _time_ms(torch, kern, kern_reps)
-    p2 = _time_ms(torch, plain, plain_reps)
-    return [p1, p2], [k1, k2]
+def _device_ms(torch, fn, reps, name):
+    """Per call of fn, from a torch.profiler trace of `reps` calls: (device
+    ms of the kernels whose name holds `name`, device ms of all kernels,
+    kernels launched)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(WORK, "timing_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    ker = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    sel = sum(float(e["dur"]) for e in ker if name in e.get("name", ""))
+    tot = sum(float(e["dur"]) for e in ker)
+    return sel / reps / 1e3, tot / reps / 1e3, len(ker) / reps
+
+
+def _timings(torch, plain, kern, name, plain_reps, kern_reps):
+    """The kernel's device time (profiler), and the wall time per call of
+    the kernel's wrapper and of the plain version (CUDA events, in turns
+    plain, kernel, kernel, plain), with the plain version's device time
+    and kernel count per call."""
+    ms, _, _ = _device_ms(torch, kern, kern_reps, name)
+    p1, k1, k2, p2 = (_time_ms(torch, f, r) for f, r in (
+        (plain, plain_reps), (kern, kern_reps), (kern, kern_reps),
+        (plain, plain_reps)))
+    _, plain_dev, plain_kernels = _device_ms(torch, plain, plain_reps, name)
+    return {"ms": ms, "call_ms": (k1 + k2) / 2, "call_ms_runs": [k1, k2],
+            "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+            "plain_device_ms": plain_dev,
+            "plain_kernels_per_call": plain_kernels}
 
 
 def _matrices(np, rng, L, N):
@@ -209,20 +240,17 @@ def phase_vote_kernel(torch, np):
         err = max(int((g.cpu().long() - w.long()).abs().max())
                   for g, w in zip(got, want))
         worst = max(worst, err)
-        plain, kern = _alternate(
-            torch, lambda: vote.vote_core_plain(*gpu, **th),
-            lambda: vote.vote_core(*gpu, **KW), 2, 20)
+        t = _timings(torch, lambda: vote.vote_core_plain(*gpu, **th),
+                     lambda: vote.vote_core(*gpu, **KW), "vote_kernel", 2, 20)
         _, _, _, rows, valid, _ = arrs
         n_rows = len(np.unique(rows[valid.astype(bool)]))
         n_bytes = n_rows * 3 * L + K * J * 5 + J * L + 16 * J * L
         n_ops = OPS_PER_MEMBER_POS * K * J * L
         b_ms, b_by = bound(n_bytes, n_ops)
-        ms = sum(kern) / 2
         per_k.append({"K": K, "J": J, "L": L, "N": N, "mismatches": mism,
-                      "max_abs_err": err, "ms": ms, "ms_runs": kern,
-                      "plain_ms": sum(plain) / 2, "plain_ms_runs": plain,
-                      "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
-                      "bound_by": b_by, "share_of_bound": b_ms / ms})
+                      "max_abs_err": err, **t, "bytes": n_bytes,
+                      "int_ops": n_ops, "bound_ms": b_ms, "bound_by": b_by,
+                      "share_of_bound": b_ms / t["ms"]})
         if mism:
             fail("2a", f"vote kernel != plain twin at K={K}: {mism} "
                        "mismatches")
@@ -232,6 +260,7 @@ def phase_vote_kernel(torch, np):
     n_ops = sum(p["int_ops"] for p in per_k)
     b_ms, b_by = bound(n_bytes, n_ops)
     return {"ms": sum(p["ms"] for p in per_k),
+            "call_ms": sum(p["call_ms"] for p in per_k),
             "plain_ms": sum(p["plain_ms"] for p in per_k),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst}
 
@@ -282,7 +311,7 @@ def _window_bound(np, class_args, classes, N, L, Jw, out_len, qtable):
     return n_bytes, OPS_PER_MEMBER_POS * n_members * L, n_members
 
 
-def _compare_window(torch, got, want):
+def _compare_window(got, want):
     """(mismatching bytes, max abs difference) of two (flat, dense)."""
     pairs = [(got[0], want[0])] + [
         (g, w) for gd, wd in zip(got[1], want[1]) for g, w in zip(gd, wd)]
@@ -326,7 +355,7 @@ def phase_window_kernel(torch, np):
                                        qc.to(dev), class_args, **kw)
                 torch.cuda.synchronize(dev)
                 want = vote.vote_window_plain(*cpu, qc, class_args, **kw)
-                mism, err = _compare_window(torch, got, want)
+                mism, err = _compare_window(got, want)
                 worst = max(worst, err)
                 variants.append({"out_len": out_len,
                                  "qtable": qt is not None,
@@ -338,19 +367,17 @@ def phase_window_kernel(torch, np):
         # timed as the main path runs it: out_len = L, with a qual table
         qg = torch.from_numpy(qtable).to(dev)
         kw = dict(classes=classes, L=L, out_len=L, **KW)
-        plain, kern = _alternate(
+        t = _timings(
             torch, lambda: vote.vote_window_plain(*gpu, qg, class_args, **kw),
-            lambda: vote.vote_window(*gpu, qg, class_args, **kw), 2, 20)
+            lambda: vote.vote_window(*gpu, qg, class_args, **kw),
+            "vote_window_kernel", 2, 20)
         n_bytes, n_ops, n_members = _window_bound(
             np, class_args, classes, N, L, Jw, L, qtable)
         b_ms, b_by = bound(n_bytes, n_ops)
-        ms = sum(kern) / 2
         per_k.append({"K": K, "J": J, "L": L, "N": N,
-                      "sum_counts": n_members, "variants": variants,
-                      "ms": ms, "ms_runs": kern,
-                      "plain_ms": sum(plain) / 2, "plain_ms_runs": plain,
+                      "sum_counts": n_members, "variants": variants, **t,
                       "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
-                      "bound_by": b_by, "share_of_bound": b_ms / ms})
+                      "bound_by": b_by, "share_of_bound": b_ms / t["ms"]})
     emit({"phase": "2b", "name": "gc_vote_window vs vote_window_plain",
           "ok": True, "tolerance": "exact (0 mismatching bytes)",
           "plain": "vote_window_plain on CUDA tensors (csrc/vote.cu + "
@@ -532,25 +559,24 @@ def phase_replay(torch, np, largest):
     want = vote.vote_window_plain(*[t.cpu() for t in mats],
                                   None if qt is None else qt.cpu(),
                                   class_args, **kw)
-    mism, err = _compare_window(torch, got, want)
+    mism, err = _compare_window(got, want)
     if mism:
         fail(5, f"vote_window kernel != twin on the deep panel's largest "
                 f"launch: {mism} mismatching bytes")
-    plain, kern = _alternate(
+    t = _timings(
         torch, lambda: vote.vote_window_plain(*mats, qt, class_args, **kw),
-        lambda: vote.vote_window(*mats, qt, class_args, **kw), 5, 50)
+        lambda: vote.vote_window(*mats, qt, class_args, **kw),
+        "vote_window_kernel", 5, 50)
     N, L = seq_dev.shape
     n_bytes, n_ops, n_members = _window_bound(
         np, class_args, kw["classes"], N, L, refbase_dev.shape[0],
         kw["out_len"] or L, qtable)
     b_ms, b_by = bound(n_bytes, n_ops)
-    ms = sum(kern) / 2
     res = {"classes_K_J_sumcounts": largest["classes"], "N": N, "L": L,
            "out_len": kw["out_len"], "qtable": qtable is not None,
-           "mismatches": mism, "max_abs_err": err, "ms": ms,
-           "ms_runs": kern, "plain_ms": sum(plain) / 2,
-           "plain_ms_runs": plain, "bytes": n_bytes, "int_ops": n_ops,
-           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+           "mismatches": mism, "max_abs_err": err, **t, "bytes": n_bytes,
+           "int_ops": n_ops, "bound_ms": b_ms, "bound_by": b_by,
+           "share_of_bound": b_ms / t["ms"]}
     emit({"phase": 5, "name": "largest deep-panel window launch, replayed",
           "ok": True, **res})
     return res
@@ -600,8 +626,8 @@ def phase_busy(torch, bam, fa, golden):
         os.makedirs(d, exist_ok=True)
         with contextlib.ExitStack() as stack:
             if tag == "before":
-                stack.enter_context(_patched(vote, "pallas_vote_window",
-                                             vote.pallas_vote_window_plain))
+                stack.enter_context(_patched(vote, "vote_window",
+                                             vote.vote_window_plain))
             vote.LAUNCHES = 0
             vote.WINDOW_LAUNCHES = 0
             torch.cuda.synchronize()
@@ -620,8 +646,8 @@ def phase_busy(torch, bam, fa, golden):
         os.remove(trace)
     emit({"phase": 6, "name": "deep-panel device busy, before/after",
           "ok": True,
-          "before": "pallas_vote_window_plain (csrc/vote.cu + plain-torch "
-                    "epilogue), substituted for this run only",
+          "before": "vote_window_plain (csrc/vote.cu + plain-torch "
+                    "epilogue and concat), substituted for this run only",
           "after": "pallas_vote_window (csrc/vote_window.cu)", **res})
     return res
 
@@ -651,7 +677,8 @@ def main() -> int:
          "launches": launches["vote_window"],
          "launches_in": "phase 4, the deep panel",
          "max_abs_err": max(win_err, rep["max_abs_err"]),
-         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+         "ms": rep["ms"], "call_ms": rep["call_ms"],
+         "plain_ms": rep["plain_ms"],
          "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
          "library_ms": None,
          "shape": f"the deep panel's largest window launch: classes "
@@ -664,7 +691,8 @@ def main() -> int:
          "launches_in": "phase 3 (the gathered and pre-gathered paths; "
                         "the deep panel takes the window path only)",
          "max_abs_err": vk["max_abs_err"],
-         "ms": vk["ms"], "plain_ms": vk["plain_ms"],
+         "ms": vk["ms"], "call_ms": vk["call_ms"],
+         "plain_ms": vk["plain_ms"],
          "bound_ms": vk["bound_ms"], "bound_by": vk["bound_by"],
          "library_ms": None,
          "shape": "sum over K in " + str(list(K_CLASSES))

@@ -2,7 +2,7 @@
 consensus pipeline, used as the golden model for the vectorized/TPU engine.
 
 Every routine documents the reference source it models (file:line under
-/root/reference/src). This is an independent implementation from the
+the reference gencore's src/). This is an independent implementation from the
 published behavior — the TPU engine is validated against it, and it is
 validated against the reference's own unit-test vectors and documented
 semantics.

@@ -6,9 +6,9 @@ the device programs around them (port of gencore_tpu/core/pallas_vote.py).
   vote, rollback, nibble packing and the sparse wire encoding fused, one
   block per job (`vote_window`). On CPU tensors it runs the kernel's plain
   twin `vote_window_plain`, the same function composed of `vote_core`,
-  `_epilogue_core` and `concat_sparse` (a port of _pallas_window_all).
-  `pallas_vote_window_plain` runs that composition on any device: what the
-  window path ran on the card before the fused kernel.
+  `_epilogue_core` and `concat_sparse` (a port of _pallas_window_all); on
+  CUDA tensors that composition is what the window path ran before the
+  fused kernel (`vote_core` launches csrc/vote.cu).
 * `vote_core` — the vote of Group::makeConsensus (group.cpp:369-526) over K
   member rows read by index from the device-resident [N, L] matrices. On a
   CUDA tensor it launches `csrc/vote.cu`; on a CPU tensor it runs
@@ -481,19 +481,6 @@ def pallas_vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
     return flat, refbase_dev, dense
 
 
-def pallas_vote_window_plain(seq_dev, qual_dev, score_dev, genome, gp, hr, hm,
-                             jp, qtable, class_args, **kw):
-    """pallas_vote_window with the plain composition on any device (on a
-    CUDA tensor `vote_core` launches csrc/vote.cu): what the window path
-    ran before the fused kernel, kept for on-card comparisons."""
-    dev = seq_dev.device
-    refbase_dev = _window_refbase(genome, gp, hr, hm, jp, kw["L"], dev)
-    qtable = None if qtable is None else to_device(qtable, dev)
-    flat, dense = vote_window_plain(seq_dev, qual_dev, score_dev, refbase_dev,
-                                    qtable, class_args, **kw)
-    return flat, refbase_dev, dense
-
-
 def _window_refbase(genome, gp, hr, hm, jp, L, dev):
     I32 = torch.int32
     return refbase_combine(genome, to_device(gp, dev, I32), to_device(hr, dev),
@@ -534,30 +521,42 @@ def vote_window_plain(seq_dev, qual_dev, score_dev, refbase_dev, qtable,
     return concat_sparse(encs), dense
 
 
-def _host_i64(a):
-    if isinstance(a, torch.Tensor):
-        a = a.cpu().numpy()
-    return np.asarray(a).astype(np.int64).reshape(-1)
+def _host(a):
+    return (a.cpu().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a)).reshape(-1)
 
 
-def window_job_table(class_args, classes):
-    """The fused kernel's job table, int32 [Jt, 6]: per job of every class
-    in order, (base row, member count clipped to [0, K], job length,
-    refbase row, class index, K)."""
-    parts = []
-    for ci, (K, J) in enumerate(classes):
-        base_row, counts, jl, ridx = (_host_i64(a) for a in
-                                      class_args[4 * ci:4 * ci + 4])
-        if not len(base_row) == len(counts) == len(jl) == len(ridx) == J:
+def window_job_table(class_args, classes, out=None):
+    """The fused kernel's job table, int32 [6, Jt] (one row per field):
+    per job of every class in order, base row, member count clipped to
+    [0, K], job length, refbase row, class index and K. Filled into `out`
+    when given."""
+    cols = [[_host(a) for a in class_args[4 * ci:4 * ci + 4]]
+            for ci in range(len(classes))]
+    for ci, ((_K, J), c) in enumerate(zip(classes, cols)):
+        if not all(len(a) == J for a in c):
             raise ValueError(f"vote_window: class {ci} needs {J} jobs in "
                              "each of its four arguments")
-        parts.append(np.stack([base_row, np.clip(counts, 0, K), jl, ridx,
-                               np.full(J, ci), np.full(J, K)], axis=1))
-    tab = (np.concatenate(parts) if parts
-           else np.zeros((0, 6), dtype=np.int64))
-    if tab.size and (tab.min() < -2**31 or tab.max() >= 2**31):
-        raise ValueError("vote_window: a job field does not fit int32")
-    return tab.astype(np.int32)
+        for a in c:
+            if (a.size and np.iinfo(a.dtype).max >= 2**31
+                    and (int(a.min()) < -2**31 or int(a.max()) >= 2**31)):
+                raise ValueError("vote_window: a job field does not fit "
+                                 "int32")
+    Jt = sum(J for _K, J in classes)
+    tab = np.empty((6, Jt), dtype=np.int32) if out is None else out
+    off = 0
+    for ci, ((K, J), (base_row, counts, jl, ridx)) in enumerate(
+            zip(classes, cols)):
+        t = tab[:, off:off + J]
+        t[0] = base_row
+        t[1] = counts
+        np.clip(t[1], 0, K, out=t[1])
+        t[2] = jl
+        t[3] = ridx
+        t[4] = ci
+        t[5] = K
+        off += J
+    return tab
 
 
 def vote_window(seq_dev, qual_dev, score_dev, refbase_dev, qtable, class_args,
@@ -605,14 +604,16 @@ def vote_window(seq_dev, qual_dev, score_dev, refbase_dev, qtable, class_args,
     if N >= 2**31 or Jw >= 2**31:
         raise ValueError("vote_window: a dimension does not fit the kernel's int")
     nb = len(classes)
-    tab = window_job_table(class_args, classes)
-    Jt = tab.shape[0]
+    Jt = sum(J for _K, J in classes)
+    # the job table goes up from pinned memory without a host sync
+    staged = torch.empty((6, Jt), dtype=torch.int32, pin_memory=True)
+    window_job_table(class_args, classes, out=staged.numpy())
     flat = torch.empty(wire_size(Jt, nb, qtable), dtype=torch.uint8,
                        device=dev)
     pseq = torch.empty((Jt, ol // 2), dtype=torch.uint8, device=dev)
     qual = torch.empty((Jt, ol), dtype=torch.uint8, device=dev)
     if Jt:
-        jobs = torch.from_numpy(tab).to(dev)
+        jobs = staged.to(dev, non_blocking=True)
         scratch = torch.empty(nb + 1, dtype=torch.int32, device=dev)
         lib = build_library()
         th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)

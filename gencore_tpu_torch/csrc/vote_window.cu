@@ -15,14 +15,18 @@
 // sum, top qual, total, ref match); per job it writes ~27 sparse bytes
 // plus the 1.5 B/position dense fallback. Against the H100's 3.35 TB/s and
 // ~16.7 T int32 op/s (132 SMs x 64 lanes x 1.98 GHz), large member counts
-// are bound by integer issue, small ones by the bytes and by the fixed
-// per-job cost of the epilogue.
+// are bound by integer issue, small ones by the bytes. On an H100 SXM
+// (chip_smoke.py phases 2b and 5) the kernel reaches 10-17% of that bound:
+// what the bound leaves out dominates at a few members per job, namely the
+// per-position decision and epilogue (several times the member work at
+// 3 members)
+// and each block's latency chain (job row, staged members, barriers).
 //
 // Design, against what vote.cu did on this path:
 //   * one block per job, one thread per position (L <= 256), so every
 //     per-row reduction of the epilogue is a block reduction and nothing
 //     round-trips through device memory: vote.cu wrote four int32 [J, L]
-//     arrays (16 B per position) that ~100 plain-torch launches per class
+//     arrays (16 B per position) that ~164 plain-torch launches per class
 //     read back;
 //   * the loop runs to the job's member count, not to the class size K
 //     (a 5-member job in class 16 did 11 empty iterations); absent members
@@ -69,7 +73,6 @@ constexpr int kChunk = 8;      // members per shared-memory stage
 constexpr int kDiffs = 4;      // SPARSE_DIFFS (even: bases pack 2 per byte)
 constexpr int kRuns = 10;      // SPARSE_RUNS (even: table indices pack 2 per byte)
 constexpr int kMaxWarps = 8;   // L <= 256
-constexpr int kJobCols = 6;    // base, count, job_len, refbase row, class, K
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -141,9 +144,10 @@ __global__ void __launch_bounds__(256) vote_window_kernel(
   const int nwarps = blockDim.x >> 5;
   const bool live = p < L;
 
-  const int32_t* jr = jobs + static_cast<size_t>(g) * kJobCols;
-  const int base = jr[0], cnt = jr[1], jl = jr[2], ridx = jr[3];
-  const int cls = jr[4], K = jr[5];
+  const int32_t* jr = jobs + g;  // field f of job g at jobs[f * Jt + g]
+  const size_t js = static_cast<size_t>(Jt);
+  const int base = jr[0], cnt = jr[js], jl = jr[2 * js], ridx = jr[3 * js];
+  const int cls = jr[4 * js], K = jr[5 * js];
 
   // members: chunk 0 goes in flight before anything else is read
   const int nchunks = (cnt + kChunk - 1) / kChunk;
@@ -333,8 +337,9 @@ __global__ void __launch_bounds__(256) vote_window_kernel(
 
 // Launch on `stream`; returns a cudaError_t (0 = success).
 // seq/qual u8 [N, L], score i8 [N, L] (16-byte aligned, L % 16 == 0,
-// L <= 256); refbase u8 [Jw, L]; jobs i32 [Jt, 6] = (base row, member
-// count <= K, job length, refbase row, class index < nb, class size K);
+// L <= 256); refbase u8 [Jw, L]; jobs i32 [6, Jt], one row per field:
+// base row, member count <= K, job length, refbase row, class index < nb,
+// class size K;
 // qtable u8 [16] or null; outputs: flat u8 (the wire buffer of all Jt
 // jobs and nb classes), pseq u8 [Jt, ol/2], qual_out u8 [Jt, ol];
 // scratch i32 [nb + 1] (zeroed here). 2 <= ol <= L, ol even.

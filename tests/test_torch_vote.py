@@ -197,11 +197,12 @@ def test_window_kernel_host_side(with_qtable):
     table lists every class's jobs in order, counts clipped to [0, K]."""
     rng = np.random.default_rng(30 + with_qtable)
     L, out_len = 128, 104
-    classes = ((4, 16), (16, 8), (32, 5))
+    classes = ((4, 16), (16, 8), (256, 5))
     (seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
      class_args) = _window_inputs(rng, L, out_len, classes)
     class_args[1] = class_args[1].copy()
     class_args[1][0] = 9          # more members than the class holds
+    class_args[9][0] = 255        # uint8 counts of the 256 class
     qtable = np.arange(16, dtype=np.uint8) if with_qtable else None
     flat, _ref, dense = vote.pallas_vote_window(
         _t(seq_dev), _t(qual_dev), _t(score_dev), _t(genome), gp, hr, hm, jp,
@@ -209,11 +210,12 @@ def test_window_kernel_host_side(with_qtable):
     assert flat.numel() == vote.wire_size(29, len(classes), qtable)
     assert [d[0].shape for d in dense] == [(16, 52), (8, 52), (5, 52)]
     tab = vote.window_job_table(class_args, classes)
-    assert tab.dtype == np.int32 and tab.shape == (29, 6)
-    assert list(tab[:, 4]) == [0] * 16 + [1] * 8 + [2] * 5
-    assert list(tab[:, 5]) == [4] * 16 + [16] * 8 + [32] * 5
-    assert tab[0, 1] == 4
-    assert (tab[16:24, 0] == class_args[4]).all()
-    assert (tab[16:24, 3] == class_args[7]).all()
+    assert tab.dtype == np.int32 and tab.shape == (6, 29)
+    assert list(tab[4]) == [0] * 16 + [1] * 8 + [2] * 5
+    assert list(tab[5]) == [4] * 16 + [16] * 8 + [256] * 5
+    assert tab[1, 0] == 4 and tab[1, 24] == 255
+    assert (tab[0, 16:24] == class_args[4]).all()
+    assert (tab[2, 16:24] == class_args[6]).all()
+    assert (tab[3, 16:24] == class_args[7]).all()
     with pytest.raises(ValueError, match="class 1 needs 9 jobs"):
-        vote.window_job_table(class_args, ((4, 16), (16, 9), (32, 5)))
+        vote.window_job_table(class_args, ((4, 16), (16, 9), (256, 5)))
