@@ -8,21 +8,31 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     decides between the streaming and the in-memory window path);
   1 build: the CUDA kernels from gencore_tpu_torch/csrc (one nvcc per
     source, in parallel, sm_90a), registers and spills per kernel;
-  2 each kernel against its plain twin on CPU copies of the same inputs,
-    exact (0 mismatches), at J=4096, L=160, N=40960 for every k-class K in
-    {4, 16, 32, 64, 128, 256}:
-      2a gc_vote (csrc/vote.cu) against vote_core_plain;
-      2b gc_vote_window (csrc/vote_window.cu) against vote_window_plain,
-         member counts 0..K, job lengths <= L, out_len = L and 136, with
-         and without a qual table;
+  2 each kernel against its plain twin on the same inputs, exact (0
+    mismatches):
+      2a gc_vote (csrc/vote.cu, Bins6) against vote_core_plain at J=4096,
+         L=160, N=40960 for every k-class K in {4, 16, 32, 64, 128, 256};
+      2b gc_vote_window (csrc/vote_window.cu) against vote_window_plain at
+         the same shapes, member counts 0..K, job lengths <= L, out_len =
+         L and 136, with and without a qual table;
+      2c gc_vote at the deep-pile shapes J in {8, 32, 128}, K in {512,
+         2048, 4096}, L=160 (disjoint member groups, K/2 < count <= K),
+         with the cluster size each launch used;
+      2d gc_vote_full (csrc/vote.cu, Bins16: kernels.fused_vote_kernel on
+         CUDA tensors) against kernels.fused_vote_plain on the card, all 16
+         nt16 codes, lenDiff shifts, job lengths <= L;
     with each kernel's device time (torch.profiler) and its wrapper's time
     per call, its plain version's time per call on the card (CUDA events,
-    in turns plain, kernel, kernel, plain), its bound and its share of the
-    bound;
+    in turns plain, kernel, kernel, plain) where the kernels line needs
+    it, its bound and its share of the bound;
   3 a ~3k-read workload (duplex UMIs, deep clusters, lenDiff-shifted right
     reads) through the port's CLI on cuda, against the scalar oracle:
     records and report stats equal, and both kernels launched (the window
     path and the gathered paths);
+  3b the full-bins panel (workloads.full_bins_panel: IUPAC codes, duplex
+    UMIs, shifted right reads) through the CLI on cuda, against the port's
+    --oracle and the golden digests; the 16-bin launches counted beside
+    the 6-bin ones;
   4 the 240k-read deep panel (workloads.deep_panel) through the port's CLI
     on cuda with its default path selection, against the golden digests
     that the JAX package made (gencore_tpu_torch/testdata), with each
@@ -33,12 +43,18 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   6 device busy time and launch count of one deep-panel run (torch.profiler)
     before, with the plain composition put back for that run only
     (vote_window_plain on CUDA tensors: csrc/vote.cu plus the plain-torch
-    epilogue and concat), and after, with the fused kernel.
+    epilogue and concat), and after, with the fused kernel;
+  7 the ultra-deep pile (workloads.ultradeep: 40 loci x 1,500 pairs, UMI
+    grouping off) through the CLI on cuda against its golden digests: wall
+    seconds and reads/s, then a profiled run with each gathered vote
+    launch's (K, J), cluster size, device time and share of its bound.
 Then the kernels line and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+`--only 2c,2d,...` runs the named phases after 0 and 1 and prints no ok
+line.
 
 Bounds: the bytes each input is read once and each output written once
-over 3.35 TB/s, and ~10 int32 operations per (member, position) over
+over 3.35 TB/s, and ~10 int32 operations per (valid member, position) over
 16.7 T op/s (132 SMs x 64 INT32 lanes x 1.98 GHz); the larger one binds.
 
 JAX and the JAX package are blocked for the whole run: nothing here may
@@ -68,6 +84,8 @@ J_PHASE2, L_PHASE2, N_PHASE2 = 4096, 160, 40960
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_MEMBER_POS = 10
+DEEP_SHAPES = tuple((J, K) for J in (8, 32, 128) for K in (512, 2048, 4096))
+DEEP_TIMED = (32, 2048)   # the ultradeep run's gathered buckets: K=2048
 
 
 def emit(obj):
@@ -127,7 +145,8 @@ def phase_build():
     kernels = {}
     for m in re.finditer(r"Compiling entry function '(\S+)'(.*?)Used (\d+) "
                          r"registers", vote.BUILD_LOG, re.S):
-        name = "vote_window" if "vote_window" in m.group(1) else "vote"
+        name = ("vote_window" if "vote_window" in m.group(1) else
+                "vote (16 bins)" if "Bins16" in m.group(1) else "vote")
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         kernels[name] = {"registers": int(m.group(3)),
                          "spill_store_bytes": int(spill.group(1)) if spill
@@ -152,40 +171,63 @@ def _time_ms(torch, fn, reps):
 
 def _device_ms(torch, fn, reps, name):
     """Per call of fn, from a torch.profiler trace of `reps` calls: (device
-    ms of the kernels whose name holds `name`, device ms of all kernels,
-    kernels launched)."""
+    ms of the kernels whose name holds `name`, each launched once per
+    call; device ms of all kernels; kernels launched). A kernel counts its
+    median duration (times its launches per call, for the totals): the
+    profiler now and then delivers a session's kernel records late, so a
+    trace may lack them or hold the previous session's too. A trace
+    without a record of `name` is taken again, up to three times."""
+    from statistics import median
+
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    path = os.path.join(WORK, "timing_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    os.remove(path)
-    ker = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    sel = sum(float(e["dur"]) for e in ker if name in e.get("name", ""))
-    tot = sum(float(e["dur"]) for e in ker)
-    return sel / reps / 1e3, tot / reps / 1e3, len(ker) / reps
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        path = os.path.join(WORK, "timing_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        os.remove(path)
+        by_name = {}
+        for e in events:
+            if e.get("cat") == "kernel" and "dur" in e:
+                by_name.setdefault(e.get("name", ""), []).append(
+                    float(e["dur"]))
+        if any(name in k for k in by_name):
+            break
+    per_call = {k: median(d) * max(1, round(len(d) / reps)) / 1e3
+                for k, d in by_name.items()}
+    n = sum(max(1, round(len(d) / reps)) for d in by_name.values())
+    return (sum(median(d) / 1e3 for k, d in by_name.items() if name in k),
+            sum(per_call.values()), n)
 
 
-def _timings(torch, plain, kern, name, plain_reps, kern_reps):
+def _timings(torch, plain, kern, name, plain_reps, kern_reps,
+             profile_plain=True):
     """The kernel's device time (profiler), and the wall time per call of
     the kernel's wrapper and of the plain version (CUDA events, in turns
     plain, kernel, kernel, plain), with the plain version's device time
-    and kernel count per call."""
+    and kernel count per call unless profile_plain is False (a plain
+    version of tens of thousands of launches per call overflows the
+    profiler's buffers)."""
     ms, _, _ = _device_ms(torch, kern, kern_reps, name)
+    if not ms > 0:
+        fail(2, f"no {name} kernel in the profiler's trace")
     p1, k1, k2, p2 = (_time_ms(torch, f, r) for f, r in (
         (plain, plain_reps), (kern, kern_reps), (kern, kern_reps),
         (plain, plain_reps)))
-    _, plain_dev, plain_kernels = _device_ms(torch, plain, plain_reps, name)
-    return {"ms": ms, "call_ms": (k1 + k2) / 2, "call_ms_runs": [k1, k2],
-            "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
-            "plain_device_ms": plain_dev,
-            "plain_kernels_per_call": plain_kernels}
+    res = {"ms": ms, "call_ms": (k1 + k2) / 2, "call_ms_runs": [k1, k2],
+           "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
+    if profile_plain:
+        _, plain_dev, plain_kernels = _device_ms(torch, plain, plain_reps,
+                                                 name)
+        res.update(plain_device_ms=plain_dev,
+                   plain_kernels_per_call=plain_kernels)
+    return res
 
 
 def _matrices(np, rng, L, N):
@@ -242,10 +284,7 @@ def phase_vote_kernel(torch, np):
         worst = max(worst, err)
         t = _timings(torch, lambda: vote.vote_core_plain(*gpu, **th),
                      lambda: vote.vote_core(*gpu, **KW), "vote_kernel", 2, 20)
-        _, _, _, rows, valid, _ = arrs
-        n_rows = len(np.unique(rows[valid.astype(bool)]))
-        n_bytes = n_rows * 3 * L + K * J * 5 + J * L + 16 * J * L
-        n_ops = OPS_PER_MEMBER_POS * K * J * L
+        n_bytes, n_ops = _vote_bound(np, arrs[3], arrs[4], K, J, L)
         b_ms, b_by = bound(n_bytes, n_ops)
         per_k.append({"K": K, "J": J, "L": L, "N": N, "mismatches": mism,
                       "max_abs_err": err, **t, "bytes": n_bytes,
@@ -263,6 +302,239 @@ def phase_vote_kernel(torch, np):
             "call_ms": sum(p["call_ms"] for p in per_k),
             "plain_ms": sum(p["plain_ms"] for p in per_k),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst}
+
+
+def _pile_inputs(np, K, J, L, seed):
+    """A bucket of deep piles as the gathered path gives it to
+    csrc/vote.cu: J jobs whose members are disjoint groups of rows (job j
+    owns rows j*K..j*K+count-1), K/2 < count <= K as in a next-pow2
+    bucket, absent members pointing at a dummy row, stored sentinels,
+    negative scores, jobs without a reference base."""
+    rng = np.random.default_rng(seed)
+    N = J * K + 1
+    seq, qual, score = _matrices(np, rng, L, N)
+    counts = rng.integers(K // 2 + 1, K + 1, size=J)
+    k = np.arange(K)[:, None]
+    valid = k < counts[None, :]
+    rows = np.where(valid, np.arange(J)[None, :] * K + k, N - 1)
+    refbase = np.array([0, 1, 2, 4, 8], np.uint8)[
+        rng.integers(0, 5, size=(J, L))]
+    refbase[::4] = 0
+    return (seq, qual, score, rows.astype(np.int32),
+            valid.astype(np.uint8), refbase)
+
+
+def _vote_bound(np, rows, valid, K, J, L):
+    """(bytes, int ops) of a vote over these members: each valid member
+    row read once, the row indices, flags and refbase read once, four
+    int32 [J, L] outputs written once; 10 ops per (valid member,
+    position)."""
+    v = valid.astype(bool)
+    n_rows = len(np.unique(rows[v]))
+    n_bytes = n_rows * 3 * L + K * J * 5 + J * L + 16 * J * L
+    return n_bytes, OPS_PER_MEMBER_POS * int(v.sum()) * L
+
+
+def phase_deep_piles(torch, np):
+    """2c: gc_vote at the deep-pile shapes against vote_core_plain (on the
+    card), with its device time, bound and share."""
+    from gencore_tpu_torch.core import vote
+    dev = torch.device("cuda", 0)
+    th = dict(hi=KW["hi"], mod=KW["mod"], lo=KW["lo"],
+              bsr=KW["base_score_req"], rnum=KW["ratio_num"],
+              rden=KW["ratio_den"])
+    per_shape = []
+    for J, K in DEEP_SHAPES:
+        arrs = _pile_inputs(np, K, J, L_PHASE2, J + K)
+        gpu = [torch.from_numpy(a).to(dev) for a in arrs]
+        got = vote.vote_core(*gpu, **KW)
+        want = vote.vote_core_plain(*gpu, **th)
+        torch.cuda.synchronize(dev)
+        mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        if mism:
+            fail("2c", f"vote kernel != plain twin at J={J}, K={K}: {mism} "
+                       "mismatches")
+        if (J, K) == DEEP_TIMED:   # the ultradeep run's shape: with plain
+            t = _timings(torch, lambda: vote.vote_core_plain(*gpu, **th),
+                         lambda: vote.vote_core(*gpu, **KW), "vote_kernel",
+                         1, 5, profile_plain=False)
+        else:
+            t = {"ms": _device_ms(torch, lambda: vote.vote_core(*gpu, **KW),
+                                  5, "vote_kernel")[0],
+                 "call_ms": _time_ms(torch,
+                                     lambda: vote.vote_core(*gpu, **KW), 5)}
+        ms = t["ms"]
+        if not ms > 0:
+            fail("2c", f"no vote kernel in the profiler's trace at J={J}, "
+                       f"K={K}")
+        n_bytes, n_ops = _vote_bound(np, arrs[3], arrs[4], K, J, L_PHASE2)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        per_shape.append({"J": J, "K": K, "L": L_PHASE2, "N": len(arrs[0]),
+                          "cluster": vote.LAST_CLUSTER,
+                          "members": int(arrs[4].sum()), "mismatches": mism,
+                          "max_abs_err": err, **t,
+                          "bytes": n_bytes, "int_ops": n_ops,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "share_of_bound": b_ms / ms})
+        del gpu, got, want
+    emit({"phase": "2c", "name": "gc_vote at deep-pile shapes vs "
+                                 "vote_core_plain", "ok": True,
+          "tolerance": "exact (0 mismatches)", "per_shape": per_shape})
+    return per_shape
+
+
+def _clocks():
+    """The card's SM and memory clocks, power draw and temperature now."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                        "power.draw,temperature.gpu", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    return r.stdout.strip()
+
+
+def phase_split_ab(torch, np):
+    """2e: the cluster merge against the two-pass split-K alternative
+    (gc_vote_two_pass: the same CTAs per job, partial accumulators through
+    device memory, then a decide kernel) at the deep-pile shapes, device
+    time in turns cluster, two-pass, two-pass, cluster; outputs equal."""
+    import ctypes
+
+    from gencore_tpu_torch.core import vote
+    dev = torch.device("cuda", 0)
+    lib = vote.build_library()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.gc_vote_two_pass.argtypes = [P] * 10 + [I] * 11 + [P, P]
+    lib.gc_vote_two_pass.restype = I
+    rows_out = []
+    clocks = [_clocks()]
+    for J, K in DEEP_SHAPES + ((4096, 256),):
+        arrs = _pile_inputs(np, K, J, L_PHASE2, J + K)
+        gpu = [torch.from_numpy(a).to(dev) for a in arrs]
+        L, N = L_PHASE2, len(arrs[0])
+        C = vote.cluster_size(K, J)
+        part = torch.empty((C, J, 27, L), dtype=torch.int32, device=dev)
+        outs = [torch.empty((J, L), dtype=torch.int32, device=dev)
+                for _ in range(4)]
+
+        def two_pass():
+            err = lib.gc_vote_two_pass(
+                *[t.data_ptr() for t in (*gpu, *outs)], K, J, L, N,
+                KW["hi"], KW["mod"], KW["lo"], KW["base_score_req"],
+                KW["ratio_num"], KW["ratio_den"], C, part.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail("2e", f"gc_vote_two_pass failed: cudaError_t {err}")
+
+        got = vote.vote_core(*gpu, **KW)
+        two_pass()
+        torch.cuda.synchronize()
+        mism = sum(int((g != w).sum()) for g, w in zip(outs, got))
+        if mism:
+            fail("2e", f"two-pass != cluster at J={J}, K={K}: {mism}")
+        runs = []
+        for f in ("cluster", "two_pass", "two_pass", "cluster"):
+            fn = (lambda: vote.vote_core(*gpu, **KW)) if f == "cluster" \
+                else two_pass
+            runs.append(_device_ms(torch, fn, 5, "_kernel")[0])
+        rows_out.append({"J": J, "K": K, "C": C, "mismatches": mism,
+                         "cluster_ms": (runs[0] + runs[3]) / 2,
+                         "two_pass_ms": (runs[1] + runs[2]) / 2,
+                         "runs_cluster_two_two_cluster": runs})
+        del gpu, part, outs
+    clocks.append(_clocks())
+    emit({"phase": "2e", "name": "cluster merge vs two-pass split-K "
+                                 "(device ms per call)", "ok": True,
+          "clocks_sm_mem_power_temp_before_after": clocks,
+          "per_shape": rows_out})
+
+
+FULL_SHAPES = ((4096, 16), (4096, 64), (1024, 256), (32, 2048), (8, 4096))
+
+
+def _full_inputs(np, K, J, L, seed):
+    """A full-bins bucket as the engine gives it to csrc/vote.cu's Bins16
+    instantiation: [J, K] members in disjoint groups of rows, all 16 nt16
+    codes and stored sentinels, lenDiff shifts on a third of the members,
+    K/2 < count <= K, job lengths <= L, jobs without a reference base."""
+    rng = np.random.default_rng(seed)
+    N = J * K + 1
+    seq = rng.integers(0, 16, size=(N, L)).astype(np.uint8)
+    seq[rng.random((N, L)) < 0.01] = 255
+    qual = rng.choice(np.array([2, 12, 18, 25, 30, 36, 41], np.uint8),
+                      size=(N, L))
+    score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
+    counts = rng.integers(K // 2 + 1, K + 1, size=J)
+    k = np.arange(K)[None, :]
+    valid = k < counts[:, None]
+    rows = np.where(valid, np.arange(J)[:, None] * K + k, N - 1)
+    shifts = np.where(rng.random((J, K)) < 0.3,
+                      rng.integers(0, 20, size=(J, K)), 0)
+    job_len = rng.integers(L // 2, L + 1, size=J)
+    job_len[::3] = L
+    refbase = np.array([0, 1, 2, 4, 8, 5, 12], np.uint8)[
+        rng.integers(0, 7, size=(J, L))]
+    refbase[::4] = 0
+    return (seq, qual, score, rows.astype(np.int32), shifts.astype(np.int32),
+            valid.astype(np.uint8), job_len.astype(np.int32), refbase)
+
+
+def _full_bound(np, rows, valid, job_len, K, J, L):
+    """(bytes, int ops) of a full-bins vote: each valid member row read
+    once, rows, shifts, flags, job lengths and refbase read once, new_seq,
+    new_qual, diff and minc written once; 10 ops per valid member and
+    position below the job length."""
+    v = valid.astype(bool)
+    n_rows = len(np.unique(rows[v]))
+    n_bytes = (n_rows * 3 * L + J * K * 9 + J * 4 + J * L + 2 * J * L
+               + 8 * J)
+    n_ops = OPS_PER_MEMBER_POS * int((v.sum(axis=1)
+                                      * np.minimum(job_len, L)).sum())
+    return n_bytes, n_ops
+
+
+def phase_full_kernel(torch, np):
+    """2d: csrc/vote.cu's Bins16 instantiation (kernels.fused_vote_kernel
+    on CUDA tensors) against its plain twin kernels.fused_vote_plain on the
+    card, exact, with device time, bound and share."""
+    from gencore_tpu_torch.core import kernels, vote
+    dev = torch.device("cuda", 0)
+    per_shape = []
+    for J, K in FULL_SHAPES:
+        arrs = _full_inputs(np, K, J, L_PHASE2, 3 * J + K)
+        gpu = [torch.from_numpy(a).to(dev) for a in arrs]
+
+        def kern():
+            return kernels.fused_vote_kernel(*gpu, **KW, full_bins=True)
+
+        def plain():
+            return kernels.fused_vote_plain(*gpu, **KW, full_bins=True)
+
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize(dev)
+        mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        if mism:
+            fail("2d", f"Bins16 kernel != twin at J={J}, K={K}: {mism} "
+                       "mismatches")
+        t = _timings(torch, plain, kern, "Bins16", 1, 5)
+        cluster = vote.LAST_CLUSTER
+        n_bytes, n_ops = _full_bound(np, arrs[3], arrs[5], arrs[6], K, J,
+                                     L_PHASE2)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        per_shape.append({"J": J, "K": K, "L": L_PHASE2, "cluster": cluster,
+                          "members": int(arrs[5].sum()), "mismatches": mism,
+                          "max_abs_err": err, **t, "bytes": n_bytes,
+                          "int_ops": n_ops, "bound_ms": b_ms,
+                          "bound_by": b_by, "share_of_bound": b_ms / t["ms"]})
+        del gpu, got, want
+        torch.cuda.empty_cache()
+    emit({"phase": "2d", "name": "gc_vote_full (Bins16) vs "
+                                 "kernels.fused_vote_plain", "ok": True,
+          "tolerance": "exact (0 mismatches)", "per_shape": per_shape})
+    return per_shape
 
 
 def _window_class_args(np, rng, K, J, N, Jw, L):
@@ -455,8 +727,9 @@ def phase_small(torch):
 
 
 def _deep_panel_run(torch, bam, fa, d, golden):
-    """One CLI run of the deep panel on cuda; returns (rc, stderr, wall s,
-    output and report equal to the golden digests)."""
+    """One CLI run of a golden workload on cuda (with the golden's CLI
+    arguments); returns (rc, stderr, wall s, records out, output and
+    report equal to the golden digests)."""
     from gencore_tpu_torch.tools.make_golden import (digest_records,
                                                      digest_report)
     os.makedirs(d, exist_ok=True)
@@ -465,7 +738,7 @@ def _deep_panel_run(torch, bam, fa, d, golden):
     t0 = time.perf_counter()
     rc, err = _cli(["-i", bam, "-o", out, "-r", fa, "-j", js,
                     "--html", os.path.join(d, "report.html"), "--debug",
-                    "--device", "cuda"])
+                    "--device", "cuda", *golden.get("cli_args", [])])
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     if rc:
@@ -475,6 +748,136 @@ def _deep_panel_run(torch, bam, fa, d, golden):
                                    golden["output"]["sha256"])
     report_ok = digest_report(js) == golden["report_stats_sha256"]
     return rc, err, t_run, n_out, output_ok, report_ok
+
+
+def _golden_workload(name, phase):
+    """(bam, fasta, golden, input records, generate s) of a golden
+    workload, generated here and held to the golden input digest."""
+    from gencore_tpu_torch.tools.make_golden import (digest_records,
+                                                     golden_path,
+                                                     make_workload)
+    with open(golden_path(name)) as f:
+        golden = json.load(f)
+    t0 = time.perf_counter()
+    bam, fa = make_workload(name, os.path.join(WORK, "workloads"))
+    t_gen = time.perf_counter() - t0
+    n_in, h_in = digest_records(bam)
+    if (n_in, h_in) != (golden["input"]["records"],
+                        golden["input"]["sha256"]):
+        fail(phase, f"the generated {name} input differs from the golden "
+                    "input")
+    return bam, fa, golden, n_in, t_gen
+
+
+def _counters(vote):
+    return {"vote": vote.LAUNCHES, "vote_full": vote.FULL_LAUNCHES,
+            "vote_window": vote.WINDOW_LAUNCHES}
+
+
+def _zero_counters(vote):
+    vote.LAUNCHES = 0
+    vote.FULL_LAUNCHES = 0
+    vote.WINDOW_LAUNCHES = 0
+
+
+def phase_full_bins(torch):
+    """3b: reads with IUPAC codes (nt16 codes outside =ACGTN) through the
+    port's CLI on cuda, against the port's --oracle and the golden digests
+    of the JAX CLI; the full-bins vote (csrc/vote.cu, Bins16) must launch."""
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.tools.make_golden import (digest_records,
+                                                     digest_report)
+    bam, fa, golden, n_in, t_gen = _golden_workload("full_bins", "3b")
+    d = os.path.join(WORK, "full_bins")
+    _zero_counters(vote)
+    rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
+        torch, bam, fa, d, golden)
+    launches = _counters(vote)
+    rc_o, _ = _cli(["-i", bam, "-o", os.path.join(d, "oracle.bam"), "-r", fa,
+                    "-j", os.path.join(d, "oracle.json"),
+                    "--html", os.path.join(d, "oracle.html"), "--oracle"])
+    if rc or rc_o:
+        fail("3b", f"CLI exit codes port={rc} oracle={rc_o}: {err[-2000:]}")
+    oracle_eq = (digest_records(os.path.join(d, "out.bam"))
+                 == digest_records(os.path.join(d, "oracle.bam"))
+                 and digest_report(os.path.join(d, "report.json"))
+                 == digest_report(os.path.join(d, "oracle.json")))
+    ok = out_ok and rep_ok and oracle_eq and launches["vote_full"] > 0
+    emit({"phase": "3b", "name": "full-bins data end to end vs oracle and "
+                                 "golden", "ok": ok,
+          "workload": golden["workload"], "reads_in": n_in,
+          "records_out": n_out, "generate_s": t_gen, "run_s": t_run,
+          "kernel_launches": launches,
+          "kernel_launches_note": "vote_full = 16-bin (Bins16) launches; "
+                                  "vote and vote_window = 6-bin launches "
+                                  "(none: the one window holds IUPAC codes)",
+          "output_digest_equal": out_ok, "report_stats_equal": rep_ok,
+          "equal_to_oracle": oracle_eq})
+    if not ok:
+        fail("3b", "full-bins output differs from the golden digests or the "
+                   "oracle, or the 16-bin kernel did not launch")
+    return launches
+
+
+def phase_ultradeep(torch, np):
+    """7: the ultra-deep amplicon pile (bench.make_ultradeep_workload, 40
+    loci x 1,500 pairs, UMI grouping off) through the CLI on cuda against
+    its golden digests: wall seconds and reads/s of one run, then a run
+    that records each gathered vote launch's inputs, replayed for its
+    (K, J), cluster size, device time and share of its bound."""
+    from gencore_tpu_torch.core import vote
+    bam, fa, golden, n_in, t_gen = _golden_workload("ultradeep", 7)
+    _zero_counters(vote)
+    rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
+        torch, bam, fa, os.path.join(WORK, "ultradeep"), golden)
+    launches = _counters(vote)
+    if rc or not (out_ok and rep_ok) or launches["vote"] == 0:
+        fail(7, f"ultradeep run failed, differs from the golden digests, or "
+                f"launched no gathered vote: rc={rc} {launches} {err[-1500:]}")
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[stage\] (\S+): ([0-9.]+)s", err)}
+
+    # a second run records each gathered launch's inputs, replayed after
+    calls = []
+    orig = vote.vote_core
+
+    def recorded(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append(([t.clone() for t in args], dict(kw),
+                      vote.LAST_CLUSTER))
+        return out
+
+    with _patched(vote, "vote_core", recorded):
+        rc, err, t_rec, _n, out_ok2, rep_ok2 = _deep_panel_run(
+            torch, bam, fa, os.path.join(WORK, "ultradeep_rec"), golden)
+    if rc or not (out_ok2 and rep_ok2):
+        fail(7, f"recorded ultradeep run failed or differs: rc={rc}")
+    per_launch = []
+    for args, kw, cluster in calls:
+        K, J = args[3].shape
+        ms = _device_ms(torch, lambda: vote.vote_core(*args, **kw), 5,
+                        "vote_kernel")[0]
+        if not ms > 0:
+            fail(7, f"no vote kernel in the profiler's trace (K={K}, J={J})")
+        r = args[3].cpu().numpy()
+        v = args[4].cpu().numpy()
+        b_ms, b_by = bound(*_vote_bound(np, r, v, K, J, args[0].shape[1]))
+        per_launch.append({"K": K, "J": J,
+                           "members": int(v.astype(bool).sum()),
+                           "cluster": cluster, "ms": ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "share_of_bound": b_ms / ms})
+    del calls
+    res = {"phase": 7, "name": "ultra-deep pile vs golden", "ok": True,
+           "workload": golden["workload"],
+           "cli_args": golden.get("cli_args", []), "reads_in": n_in,
+           "records_out": n_out, "generate_s": t_gen, "run_s": t_run,
+           "reads_per_s": n_in / t_run, "run_s_recorded": t_rec,
+           "kernel_launches": launches, "gathered_launches": per_launch,
+           "gathered_vote_ms": sum(p["ms"] for p in per_launch),
+           "output_digest_equal": out_ok, "report_stats_equal": rep_ok,
+           "stage_seconds": stages}
+    emit(res)
+    return res
 
 
 def phase_full(torch, np):
@@ -652,7 +1055,14 @@ def phase_busy(torch, bam, fa, golden):
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                             "NVIDIA card")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after 0 and 1 "
+                         "(e.g. 2c); no ok line. Default: every phase")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -664,12 +1074,33 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_env(torch)
     phase_build()
+    if args.only:
+        only = {
+            "2a": lambda: phase_vote_kernel(torch, np),
+            "2b": lambda: phase_window_kernel(torch, np),
+            "2c": lambda: phase_deep_piles(torch, np),
+            "2d": lambda: phase_full_kernel(torch, np),
+            "2e": lambda: phase_split_ab(torch, np),
+            "3b": lambda: phase_full_bins(torch),
+            "7": lambda: phase_ultradeep(torch, np)}
+        for ph in args.only.split(","):
+            only[ph]()
+        print(card, flush=True)
+        return 1
     vk = phase_vote_kernel(torch, np)
     win_err = phase_window_kernel(torch, np)
-    small = phase_small(torch)
+    piles = phase_deep_piles(torch, np)
+    full = phase_full_kernel(torch, np)
+    phase_small(torch)
+    full_bins = phase_full_bins(torch)
     bam, fa, golden, launches, largest = phase_full(torch, np)
     rep = phase_replay(torch, np, largest)
     phase_busy(torch, bam, fa, golden)
+    ud = phase_ultradeep(torch, np)
+    pile = next(p for p in piles if (p["J"], p["K"]) == DEEP_TIMED)
+    n_bytes = sum(p["bytes"] for p in full)
+    n_ops = sum(p["int_ops"] for p in full)
+    full_bound, full_by = bound(n_bytes, n_ops)
     emit({"kernels": [
         {"name": "vote_window", "route": "cuda",
          "source": "gencore_tpu_torch/csrc/vote_window.cu",
@@ -685,18 +1116,32 @@ def main() -> int:
                   f"(K, J, sum counts) {rep['classes_K_J_sumcounts']}, "
                   f"N={rep['N']}, L={rep['L']}"},
         {"name": "vote", "route": "cuda",
-         "source": "gencore_tpu_torch/csrc/vote.cu",
+         "source": "gencore_tpu_torch/csrc/vote.cu (Bins6)",
          "replaces": "gencore_tpu/core/pallas_vote.py:178",
-         "launches": small["vote"],
-         "launches_in": "phase 3 (the gathered and pre-gathered paths; "
-                        "the deep panel takes the window path only)",
-         "max_abs_err": vk["max_abs_err"],
-         "ms": vk["ms"], "call_ms": vk["call_ms"],
-         "plain_ms": vk["plain_ms"],
-         "bound_ms": vk["bound_ms"], "bound_by": vk["bound_by"],
+         "launches": ud["kernel_launches"]["vote"],
+         "launches_in": "phase 7, the ultra-deep pile (gathered path)",
+         "max_abs_err": max(vk["max_abs_err"],
+                            max(p["max_abs_err"] for p in piles)),
+         "ms": pile["ms"], "call_ms": pile["call_ms"],
+         "plain_ms": pile["plain_ms"],
+         "bound_ms": pile["bound_ms"], "bound_by": pile["bound_by"],
          "library_ms": None,
-         "shape": "sum over K in " + str(list(K_CLASSES))
-                  + f", J={J_PHASE2}, L={L_PHASE2}, N={N_PHASE2}"}],
+         "shape": f"phase 2c, J={pile['J']}, K={pile['K']}, L={pile['L']}, "
+                  f"cluster {pile['cluster']}; phase 2a sum over K in "
+                  f"{list(K_CLASSES)} at J={J_PHASE2}: {vk['ms']} ms"},
+        {"name": "vote (16 bins)", "route": "cuda",
+         "source": "gencore_tpu_torch/csrc/vote.cu (Bins16)",
+         "replaces": "gencore_tpu/core/kernels.py:421 (fused_vote_kernel, "
+                     "the XLA program K9; no Pallas kernel)",
+         "launches": full_bins["vote_full"],
+         "launches_in": "phase 3b, the full-bins panel",
+         "max_abs_err": max(p["max_abs_err"] for p in full),
+         "ms": sum(p["ms"] for p in full),
+         "call_ms": sum(p["call_ms"] for p in full),
+         "plain_ms": sum(p["plain_ms"] for p in full),
+         "bound_ms": full_bound, "bound_by": full_by, "library_ms": None,
+         "shape": f"phase 2d, sum over (J, K) in {list(FULL_SHAPES)}, "
+                  f"L={L_PHASE2}"}],
         "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,15 +1,20 @@
-"""Overlap scoring in plain PyTorch (port of gencore_tpu/core/kernels.py).
+"""Overlap scoring and the [J, K, L] vote (port of
+gencore_tpu/core/kernels.py).
 
-Pair::computeScore (pair.cpp:88-172) as a per-row map: every read row
-looks up its mate row and computes its own scores and rewritten quals.
-These were XLA programs in the JAX package (no Pallas kernel), so they
-are plain tensor code here. The mate shift is a direct index gather; the
-JAX version's log2(L) lane-roll ladder existed only because a per-element
-gather scalarizes on a TPU. The gather index (j + shift) mod L is exactly
-what that roll ladder computed.
-
-The [J, K, L] full-bins vote (`_vote_core`/`fused_vote_kernel`, for data
-with nt16 codes outside =ACGTN) is not ported yet: ROADMAP queue 2, K9.
+* `score_map_kernel` — Pair::computeScore (pair.cpp:88-172) as a per-row
+  map: every read row looks up its mate row and computes its own scores
+  and rewritten quals. An XLA program in the JAX package (no Pallas
+  kernel), so plain tensor code here. The mate shift is a direct index
+  gather; the JAX version's log2(L) lane-roll ladder existed only because
+  a per-element gather scalarizes on a TPU. The gather index
+  (j + shift) mod L is exactly what that roll ladder computed.
+* `fused_vote_kernel` / `_vote_core` — Group::makeConsensus over members
+  gathered from the device matrices with per-member lenDiff shifts, with
+  all 16 nt16 bins (`full_bins=True`, data with codes outside =ACGTN) or
+  the six =ACGTN bins. On CPU tensors it is the plain PyTorch translation
+  of the JAX functions; on CUDA tensors `full_bins=True` launches the
+  hand-written kernel (`vote.vote_full`, csrc/vote.cu with the Bins16
+  rules), whose twin is this plain version.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from __future__ import annotations
 from fractions import Fraction
 
 import torch
+
+from gencore_tpu_torch.core import vote
 
 I32 = torch.int32
 
@@ -87,3 +94,185 @@ def score_map_kernel_packed(seq_all, qual_all, lens_dev, mate_row, meta, *,
         (meta >> 16) & 0x1FF, lens_dev, ((meta >> 25) & 1).bool(),
         ((meta >> 26) & 1).bool(), hi=hi, mod=mod, lo=lo, s_hi=s_hi,
         s_mod=s_mod, s_lo=s_lo, s_bad=s_bad)
+
+
+NT16_BINS = tuple(range(16))
+ACGTN_BINS = vote.BINS   # (0, 1, 2, 4, 8, 15)
+
+
+def _vote_core(seq, qual, score, valid, pos_valid, refbase, hi, mod, lo,
+               base_score_req, ratio_num, ratio_den, full_bins):
+    """The vote of gencore_tpu.core.kernels._vote_core, line for line.
+
+    seq/qual u8 [J, K, L], score int [J, K, L], valid bool [J, K],
+    pos_valid bool [J, L], refbase u8 [J, L] (0 = no reference base).
+    What sets it apart from the Pallas vote (`vote.vote_core_plain`):
+    members count where valid & pos_valid (no sentinel), a stored 255
+    falls in no bin but its score counts in the total, `full_bins=True`
+    elects over all 16 bins with no virtual empty bin, `changed` is masked
+    by pos_valid (outside it the template's qual is kept), and diff, minc
+    and the rollback (minc > 5) are per job. Returns (new_seq u8 [J, L],
+    new_qual u8 [J, L], diff i32 [J], minc i32 [J])."""
+    J, K, L = seq.shape
+    dev = seq.device
+    present = valid.bool()[:, :, None] & pos_valid.bool()[:, None, :]
+    zero = torch.zeros((), dtype=I32, device=dev)
+    sc = torch.where(present, score.to(I32), zero)
+    ql = torch.where(present, qual.to(I32), zero)
+    bins = NT16_BINS if full_bins else ACGTN_BINS
+
+    counts_b, scores_b, quals_b, topq_b = [], [], [], []
+    for b in bins:
+        m = present & (seq == b)
+        counts_b.append(m.sum(dim=1, dtype=I32))
+        scores_b.append(torch.where(m, sc, zero).sum(dim=1, dtype=I32))
+        mq = torch.where(m, ql, zero)
+        quals_b.append(mq.sum(dim=1, dtype=I32))
+        topq_b.append(mq.amax(dim=1))
+    total_score = sc.sum(dim=1, dtype=I32)
+
+    def full(x):
+        return torch.full((J, L), x, dtype=I32, device=dev)
+
+    neg_inf = full(-0x7FFFFFFF)
+    # top election: lexmax of (score, qual sum, bin), later bins win ties
+    # (group.cpp:394-402)
+    top_base, top_score, top_qs = full(0), neg_inf, full(0)
+    for bi, b in enumerate(bins):
+        better = (scores_b[bi] > top_score) | (
+            (scores_b[bi] == top_score) & (quals_b[bi] >= top_qs))
+        top_base = torch.where(better, full(b), top_base)
+        top_score = torch.where(better, scores_b[bi], top_score)
+        top_qs = torch.where(better, quals_b[bi], top_qs)
+    if not full_bins:
+        # the always-empty bins as one virtual candidate (score 0, qual 0,
+        # bin 14)
+        vb = (top_score < 0) | ((top_score == 0) & (top_qs <= 0)
+                                & (top_base < 14))
+        top_base = torch.where(vb, full(14), top_base)
+        top_score = torch.where(vb, zero, top_score)
+        top_qs = torch.where(vb, zero, top_qs)
+
+    # second election, skipping the top bin (group.cpp:407-416)
+    sec_base, sec_score, sec_qs = full(0), neg_inf, full(0)
+    for bi, b in enumerate(bins):
+        better = (top_base != b) & ((scores_b[bi] > sec_score) | (
+            (scores_b[bi] == sec_score) & (quals_b[bi] >= sec_qs)))
+        sec_base = torch.where(better, full(b), sec_base)
+        sec_score = torch.where(better, scores_b[bi], sec_score)
+        sec_qs = torch.where(better, quals_b[bi], sec_qs)
+    if not full_bins:
+        vidx = torch.where(top_base == 14, full(13), full(14))
+        vb = (sec_score < 0) | ((sec_score == 0) & (sec_qs <= 0)
+                                & (sec_base < vidx))
+        sec_base = torch.where(vb, vidx, sec_base)
+        sec_score = torch.where(vb, zero, sec_score)
+
+    def take_bin(arrs, idx):
+        out = full(0)
+        for bi, b in enumerate(bins):
+            out = torch.where(idx == b, arrs[bi], out)
+        return out
+
+    top_num = take_bin(counts_b, top_base)
+    top_qual = take_bin(topq_b, top_base)
+    sec_num = take_bin(counts_b, sec_base)
+    sec_qual_sum = take_bin(quals_b, sec_base)
+
+    # early accept and the needToCheckRef rules (group.cpp:419-467), the
+    # ratio test as an exact integer cross-multiplication
+    accept_early = ((sec_num == 0) & (top_score >= base_score_req)
+                    & (top_qual >= mod))
+    need_ref = (sec_num == 0) & ~accept_early
+    need_ref |= (sec_num == 1) & torch.where(
+        sec_qual_sum <= lo, (top_num < 2) & (top_qual < hi),
+        (top_num < 3) | (top_qual < hi))
+    need_ref |= (sec_num > 1) & ((top_score * ratio_den
+                                  < ratio_num * total_score)
+                                 | (top_qual < mod))
+    need_ref |= (top_score < base_score_req) | (top_qual <= lo)
+    has_ref = refbase != 0
+    do_ref = need_ref & has_ref & ~accept_early
+
+    # ref-consistent evidence (group.cpp:470-501)
+    ref_m = present & (seq == refbase[:, None, :])
+    rq = torch.where(ref_m, ql, zero)
+    ref_base_qual = rq.amax(dim=1)
+    any_high_ref = (rq >= hi).any(dim=1) & ref_m.any(dim=1)
+
+    rb = refbase.to(I32)
+    top_base2 = torch.where(do_ref & any_high_ref, rb, top_base)
+    top_base2 = torch.where(do_ref & (top_qual < mod), rb, top_base2)
+    top_qual2 = torch.where(do_ref & (top_base2 == rb), ref_base_qual,
+                            top_qual)
+
+    pv = pos_valid.bool()
+    out_base = seq[:, 0, :].to(I32)
+    out_qual_orig = qual[:, 0, :].to(I32)
+    changed = ~accept_early & (out_base != top_base2) & pv
+    cand_seq = torch.where(changed, top_base2, out_base)
+    cand_qual = torch.where(pv, torch.where(accept_early, top_qual,
+                                            top_qual2), out_qual_orig)
+    diff = changed.sum(dim=1, dtype=I32)
+    inner = torch.where(out_base == rb, full(1),
+                        torch.where(top_base2 == rb, full(-1), zero))
+    minc = torch.where(changed & has_ref, inner, zero).sum(dim=1, dtype=I32)
+    rollback = (minc > 5)[:, None]
+    new_seq = torch.where(rollback, out_base, cand_seq).to(torch.uint8)
+    new_qual = torch.where(rollback, out_qual_orig, cand_qual).to(torch.uint8)
+    return new_seq, new_qual, diff, minc
+
+
+def fused_vote_kernel(seq_all, qual_all, score_all, rows, shifts, valid,
+                      job_len, refbase, *, hi, mod, lo, base_score_req,
+                      ratio_num, ratio_den, full_bins=True):
+    """Gather each job's members from the device matrices with their
+    lenDiff shifts (group.cpp:376-385) and vote; the final rows (template
+    row with the voted prefix, rolled back where minc > 5) plus diff and
+    minc, as gencore_tpu.core.kernels.fused_vote_kernel returns them.
+
+    seq_all/qual_all u8 [N, L], score_all i8 [N, L]; rows/shifts int
+    [J, K] (member rows; shift >= 0), valid bool [J, K], job_len int [J],
+    refbase u8 [J, L]. Member loads read clip(shift + pos, 0, L-1) of row
+    clamp(rows, 0, N-1): the JAX version's take would fill for a row
+    outside the matrix, which no caller passes.
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (`vote.vote_full`, full_bins=True only: =ACGTN data takes the
+    six-bin `vote.vote_core`)."""
+    dev = seq_all.device
+    if dev.type == "cuda":
+        if not full_bins:
+            raise ValueError("fused_vote_kernel: on CUDA only full_bins=True "
+                             "has a kernel (=ACGTN data votes through "
+                             "vote.vote_core)")
+        return vote.vote_full(
+            seq_all, qual_all, score_all, rows, shifts, valid, job_len,
+            refbase, hi=hi, mod=mod, lo=lo, base_score_req=base_score_req,
+            ratio_num=ratio_num, ratio_den=ratio_den)
+    if dev.type != "cpu":
+        raise ValueError(f"fused_vote_kernel: unsupported device {dev}")
+    return fused_vote_plain(seq_all, qual_all, score_all, rows, shifts,
+                            valid, job_len, refbase, hi=hi, mod=mod, lo=lo,
+                            base_score_req=base_score_req,
+                            ratio_num=ratio_num, ratio_den=ratio_den,
+                            full_bins=full_bins)
+
+
+def fused_vote_plain(seq_all, qual_all, score_all, rows, shifts, valid,
+                     job_len, refbase, *, hi, mod, lo, base_score_req,
+                     ratio_num, ratio_den, full_bins=True):
+    """fused_vote_kernel in plain PyTorch on any device: the twin of the
+    Bins16 kernel."""
+    N, L = seq_all.shape
+    dev = seq_all.device
+    l = torch.arange(L, dtype=torch.int64, device=dev)
+    idx = (shifts.to(torch.int64)[:, :, None] + l).clamp(0, L - 1)
+    flat = rows.to(torch.int64).clamp(0, N - 1)[:, :, None] * L + idx
+    gseq = seq_all.reshape(-1)[flat]
+    gqual = qual_all.reshape(-1)[flat]
+    gscore = score_all.reshape(-1)[flat].to(I32)
+    pos_valid = (torch.arange(L, dtype=I32, device=dev)[None, :]
+                 < job_len.to(I32)[:, None])
+    return _vote_core(gseq, gqual, gscore, valid.bool(), pos_valid,
+                      refbase.to(torch.uint8), hi, mod, lo, base_score_req,
+                      ratio_num, ratio_den, full_bins)

@@ -11,9 +11,15 @@ the device programs around them (port of gencore_tpu/core/pallas_vote.py).
   fused kernel (`vote_core` launches csrc/vote.cu).
 * `vote_core` — the vote of Group::makeConsensus (group.cpp:369-526) over K
   member rows read by index from the device-resident [N, L] matrices. On a
-  CUDA tensor it launches `csrc/vote.cu`; on a CPU tensor it runs
-  `vote_core_plain`, the same computation in plain PyTorch (a port of the
-  Pallas `_vote_block`). The gathered and pre-gathered entry points use it.
+  CUDA tensor it launches `csrc/vote.cu` (the Bins6 rules, each job's
+  members split across a cluster of up to 16 CTAs, `cluster_size`); on a
+  CPU tensor it runs `vote_core_plain`, the same computation in plain
+  PyTorch (a port of the Pallas `_vote_block`). The gathered and
+  pre-gathered entry points use it.
+* `vote_full` — the full-bins vote of kernels.fused_vote_kernel (K9: all
+  16 nt16 bins, lenDiff shifts, per-job rollback) through the Bins16
+  instantiation of the same kernel; CUDA tensors only (its twin is
+  kernels.fused_vote_plain).
 * `_epilogue_core` — per-read rollback (group.cpp:538-566), nibble packing
   and the sparse wire encoding, in plain PyTorch (XLA in the JAX package).
 * `pallas_vote_gathered`, `pallas_vote` — the per-bucket entry points, with
@@ -51,10 +57,16 @@ NEG_INF = -0x7FFFFFFF
 SPARSE_DIFFS = 4
 SPARSE_RUNS = 10
 
-# kernel launches: `vote_core` (csrc/vote.cu) and `pallas_vote_window`
-# (csrc/vote_window.cu), CUDA tensors only
+# kernel launches, CUDA tensors only: `vote_core` (csrc/vote.cu, Bins6),
+# `vote_full` (csrc/vote.cu, Bins16) and `pallas_vote_window`
+# (csrc/vote_window.cu); the cluster size of the last vote.cu launch
 LAUNCHES = 0
+FULL_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+LAST_CLUSTER = 0
+
+SMS = 132           # H100 SXM streaming multiprocessors
+MAX_CLUSTER = 16    # non-portable cluster size limit on Hopper
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -145,8 +157,10 @@ def build_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         P = ctypes.c_void_p
         I = ctypes.c_int
-        lib.gc_vote.argtypes = [P] * 10 + [I] * 10 + [P]
+        lib.gc_vote.argtypes = [P] * 10 + [I] * 11 + [P, P]
         lib.gc_vote.restype = ctypes.c_int
+        lib.gc_vote_full.argtypes = [P] * 12 + [I] * 11 + [P, P]
+        lib.gc_vote_full.restype = ctypes.c_int
         lib.gc_vote_window.argtypes = [P] * 10 + [I] * 12 + [P]
         lib.gc_vote_window.restype = ctypes.c_int
         _lib = lib
@@ -156,6 +170,59 @@ def build_library() -> ctypes.CDLL:
 def _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den):
     return dict(hi=int(hi), mod=int(mod), lo=int(lo), bsr=int(base_score_req),
                 rnum=int(ratio_num), rden=int(ratio_den))
+
+
+def cluster_size(K, J):
+    """CTAs per job for csrc/vote.cu: 1 for buckets of K <= 64, else the
+    least power of two that gives J * C >= two waves of the card's SMs,
+    while each CTA keeps >= 32 members, at most MAX_CLUSTER."""
+    c = 1
+    if K > 64:
+        while c < MAX_CLUSTER and J * c < 2 * SMS and K // (2 * c) >= 32:
+            c *= 2
+    return c
+
+
+def _check(fn, specs, dev):
+    """Device, dtype, shape and contiguity of each (name, tensor, dtype,
+    shape) the kernel reads."""
+    for name, t, dt, shape in specs:
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} on {t.device}, expected {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dt}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+
+
+def _check_rows(fn, seq_src, qual_src, score_src, K, J):
+    N, L = seq_src.shape
+    if N == 0 or K == 0:
+        raise ValueError(f"{fn}: needs at least one source row and member")
+    if max(K, J, L, N) >= 2**31:
+        raise ValueError(f"{fn}: a dimension does not fit the kernel's int")
+    if L % 16:
+        raise ValueError(f"{fn}: L={L} must be a multiple of 16 (16-byte "
+                         "row copies)")
+    for name, t in (("seq_src", seq_src), ("qual_src", qual_src),
+                    ("score_src", score_src)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+
+
+def _launch(fn, lib_fn, ptrs, ints, K, J, dev):
+    global LAST_CLUSTER
+    used = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib_fn(*ptrs, *ints, cluster_size(K, J), ctypes.byref(used),
+                     stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+    LAST_CLUSTER = used.value
 
 
 def vote_core(seq_src, qual_src, score_src, rows, valid, refbase, *, hi, mod,
@@ -177,41 +244,71 @@ def vote_core(seq_src, qual_src, score_src, rows, valid, refbase, *, hi, mod,
         raise ValueError(f"vote_core: unsupported device {dev}")
     K, J = rows.shape
     N, L = seq_src.shape
-    for name, t, dt, shape in (
-            ("seq_src", seq_src, torch.uint8, (N, L)),
-            ("qual_src", qual_src, torch.uint8, (N, L)),
-            ("score_src", score_src, torch.int8, (N, L)),
-            ("rows", rows, torch.int32, (K, J)),
-            ("valid", valid, torch.uint8, (K, J)),
-            ("refbase", refbase, torch.uint8, (J, L))):
-        if t.device != dev:
-            raise ValueError(f"vote_core: {name} on {t.device}, expected {dev}")
-        if t.dtype != dt:
-            raise TypeError(f"vote_core: {name} is {t.dtype}, expected {dt}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"vote_core: {name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"vote_core: {name} is not contiguous")
-    if N == 0 or K == 0:
-        raise ValueError("vote_core: needs at least one source row and member")
-    if max(K, J, L, N) >= 2**31:
-        raise ValueError("vote_core: a dimension does not fit the kernel's int")
+    _check("vote_core", (
+        ("seq_src", seq_src, torch.uint8, (N, L)),
+        ("qual_src", qual_src, torch.uint8, (N, L)),
+        ("score_src", score_src, torch.int8, (N, L)),
+        ("rows", rows, torch.int32, (K, J)),
+        ("valid", valid, torch.uint8, (K, J)),
+        ("refbase", refbase, torch.uint8, (J, L))), dev)
+    _check_rows("vote_core", seq_src, qual_src, score_src, K, J)
     lib = build_library()
     outs = [torch.empty((J, L), dtype=torch.int32, device=dev)
             for _ in range(4)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gc_vote(
-            seq_src.data_ptr(), qual_src.data_ptr(), score_src.data_ptr(),
-            rows.data_ptr(), valid.data_ptr(), refbase.data_ptr(),
-            *[o.data_ptr() for o in outs], K, J, L, N, th["hi"], th["mod"],
-            th["lo"], th["bsr"], th["rnum"], th["rden"], stream)
-    if err != 0:
-        raise RuntimeError(f"gc_vote launch failed: cudaError_t {err}")
+    _launch("gc_vote", lib.gc_vote,
+            [t.data_ptr() for t in (seq_src, qual_src, score_src, rows,
+                                    valid, refbase, *outs)],
+            [K, J, L, N, th["hi"], th["mod"], th["lo"], th["bsr"],
+             th["rnum"], th["rden"]], K, J, dev)
     global LAUNCHES
     LAUNCHES += 1
     return tuple(outs)
+
+
+def vote_full(seq_all, qual_all, score_all, rows, shifts, valid, job_len,
+              refbase, *, hi, mod, lo, base_score_req, ratio_num, ratio_den):
+    """The full-bins vote (kernels.fused_vote_kernel with full_bins=True)
+    through csrc/vote.cu's Bins16 instantiation: members rows[j, k] with
+    lenDiff shifts shifts[j, k], valid [J, K], job_len [J] (host arrays or
+    tensors of any integer/bool type; they go to the matrices' device).
+    Returns (new_seq u8 [J, L], new_qual u8 [J, L], diff i32 [J], minc
+    i32 [J]). CUDA tensors only."""
+    dev = seq_all.device
+    if dev.type != "cuda":
+        raise ValueError(f"vote_full: needs CUDA tensors, got {dev}")
+    th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
+    I32 = torch.int32
+    rows = to_device(rows, dev, I32).contiguous()
+    shifts = to_device(shifts, dev, I32).contiguous()
+    valid = to_device(valid, dev, torch.uint8).contiguous()
+    job_len = to_device(job_len, dev, I32).contiguous()
+    refbase = to_device(refbase, dev, torch.uint8).contiguous()
+    J, K = rows.shape
+    N, L = seq_all.shape
+    _check("vote_full", (
+        ("seq_all", seq_all, torch.uint8, (N, L)),
+        ("qual_all", qual_all, torch.uint8, (N, L)),
+        ("score_all", score_all, torch.int8, (N, L)),
+        ("rows", rows, I32, (J, K)),
+        ("shifts", shifts, I32, (J, K)),
+        ("valid", valid, torch.uint8, (J, K)),
+        ("job_len", job_len, I32, (J,)),
+        ("refbase", refbase, torch.uint8, (J, L))), dev)
+    _check_rows("vote_full", seq_all, qual_all, score_all, K, J)
+    lib = build_library()
+    new_seq = torch.empty((J, L), dtype=torch.uint8, device=dev)
+    new_qual = torch.empty((J, L), dtype=torch.uint8, device=dev)
+    diff = torch.empty(J, dtype=I32, device=dev)
+    minc = torch.empty(J, dtype=I32, device=dev)
+    _launch("gc_vote_full", lib.gc_vote_full,
+            [t.data_ptr() for t in (seq_all, qual_all, score_all, rows,
+                                    shifts, valid, job_len, refbase,
+                                    new_seq, new_qual, diff, minc)],
+            [K, J, L, N, th["hi"], th["mod"], th["lo"], th["bsr"],
+             th["rnum"], th["rden"]], K, J, dev)
+    global FULL_LAUNCHES
+    FULL_LAUNCHES += 1
+    return new_seq, new_qual, diff, minc
 
 
 def vote_core_plain(seq_src, qual_src, score_src, rows, valid, refbase, *,
@@ -572,23 +669,14 @@ def vote_window(seq_dev, qual_dev, score_dev, refbase_dev, qtable, class_args,
     if Lm != L:
         raise ValueError(f"vote_window: matrices are {Lm} wide, L={L}")
     Jw = refbase_dev.shape[0]
-    for name, t, dt, shape in (
+    _check("vote_window", [
+        spec for spec in (
             ("seq_dev", seq_dev, torch.uint8, (N, L)),
             ("qual_dev", qual_dev, torch.uint8, (N, L)),
             ("score_dev", score_dev, torch.int8, (N, L)),
             ("refbase_dev", refbase_dev, torch.uint8, (Jw, L)),
-            ("qtable", qtable, torch.uint8, (16,))):
-        if t is None:
-            continue
-        if t.device != dev:
-            raise ValueError(f"vote_window: {name} on {t.device}, expected {dev}")
-        if t.dtype != dt:
-            raise TypeError(f"vote_window: {name} is {t.dtype}, expected {dt}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"vote_window: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"vote_window: {name} is not contiguous")
+            ("qtable", qtable, torch.uint8, (16,))) if spec[1] is not None],
+        dev)
     if L % 16 or not 0 < L <= 256:
         raise ValueError(f"vote_window: L={L} must be a multiple of 16 in "
                          "(0, 256] (one block per job, 16-byte row copies)")

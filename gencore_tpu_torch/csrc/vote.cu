@@ -1,31 +1,53 @@
 // Consensus vote for Hopper: Group::makeConsensus (group.cpp:369-526) per
-// (job, position), over K member rows gathered by index.
+// (job, position), over member rows gathered by index, with each job's
+// members split across the CTAs of a thread-block cluster.
 //
-// Replaces the Pallas kernel of the JAX package,
-// gencore_tpu/core/pallas_vote.py:_pallas_core (its _kernel/_vote_block
-// body and the sentinel pre-pass), and folds in the member gather that the
-// JAX window program materializes as seq_dev[rows_t] before the call.
+// Two instantiations of one kernel, by bin set (vote_rules.cuh):
+//   * Bins6 (gc_vote) replaces the Pallas kernel of the JAX package,
+//     gencore_tpu/core/pallas_vote.py:_pallas_core (its _kernel/_vote_block
+//     body and the sentinel pre-pass), and folds in the member gather that
+//     the JAX program materializes as seq_dev[rows_t] before the call.
+//     Outputs cand_seq, cand_qual, changed, minc_pos, int32 [J, L].
+//   * Bins16 (gc_vote_full) is the counterpart of the XLA program K9,
+//     gencore_tpu/core/kernels.py:fused_vote_kernel with full_bins=True:
+//     member loads at clip(shift + pos, 0, L-1), members counted only at
+//     positions below the job length, and the per-job diff/minc sums and
+//     rollback (minc > 5) done by the leader CTA. Outputs new_seq and
+//     new_qual u8 [J, L], diff and minc int32 [J].
 //
-// What bounds it on this card: memory. Each member costs ~3 bytes read per
-// position (seq, qual, score) plus a few dozen integer ops, far below the
-// H100's ops-per-byte balance. The design therefore only makes the loads
-// coalesced and keeps everything else in registers:
-//   * one thread per (job, position); blockIdx.y walks jobs, the threads of
-//     a block cover consecutive positions of one row, so each member load is
-//     one contiguous row segment across the warp;
-//   * the row index and the valid flag of member k are the same for the
-//     whole block (broadcast loads);
-//   * the ~30 bin accumulators (6 bins x count/score/qual-sum/top-qual, plus
-//     total score and the ref-match evidence) are registers, unrolled over
-//     the six bins; nothing is staged in shared memory.
-// The vote rules themselves live in vote_rules.cuh, shared with the fused
-// window kernel (vote_window.cu), which serves the main path; this kernel
-// serves the gathered and pre-gathered entry points.
+// What bounds it on this card. Per valid (member, position) the vote must
+// read 3 bytes (seq, qual, score) and do ~10 integer operations, so deep
+// buckets of few jobs are bound by the bytes and wide buckets of many
+// members by integer issue. The first design (one thread per (job,
+// position), every member a dependent chain of global loads valid -> row
+// -> seq -> qual/score, nothing in flight ahead) gave a deep-pile bucket
+// (J = 8..128 jobs of 512..4096 members) only J blocks of serial work:
+// 0.15-2% of its bound on an H100. This design:
+//   * a cluster of C CTAs per job (C from K and J in core/vote.py, up to
+//     16, non-portable above 8): CTA `rank` votes members
+//     [rank*ceil(K/C), ...) of the job over all positions of a tile, so a
+//     bucket of a few jobs still fills the card;
+//   * the partial accumulators (every one a wrapping int32 sum, a max or
+//     an or, so any split gives the same bits) merge into the leader CTA
+//     through distributed shared memory (map_shared_rank); the leader then
+//     runs vote_decide and writes the outputs;
+//   * within a CTA, the slice's row indices and valid flags are read once
+//     per batch of blockDim members, and the valid ones compacted into
+//     shared memory (ballot + popc prefix), so absent members cost no
+//     loads; the member rows are staged with cp.async in chunks of kChunk
+//     members, kStages chunks in flight (staging.cuh, shared with
+//     vote_window.cu);
+//   * one thread per position of a tile of up to 256 positions, the bins
+//     in registers.
+// Buckets with K <= 64 keep one CTA per job (C = 1, no cluster barrier).
 //
-// Semantics carried over exactly from the Pallas kernel:
+// Bins6 semantics carried over exactly from the Pallas kernel:
 //   * an invalid member, k = 0 included, reads as seq = 255 (SENTINEL),
 //     qual = 0, score = 0; the template base is member 0 after that
-//     substitution, so a padded job yields sentinel outputs as in JAX;
+//     substitution, so a padded job yields sentinel outputs as in JAX
+//     (absent members matter only through that template and the sentinel
+//     ref-match rule, which one extra add per CTA reproduces: it is
+//     idempotent);
 //   * a stored seq of 255 also zeroes that member's qual and score;
 //   * the score is signed int8;
 //   * the elections scan bins in the order (0, 1, 2, 4, 8, 15) with
@@ -33,91 +55,436 @@
 //     the virtual empty bin 14 (13 or 14 for the second election);
 //   * the ratio test is top_score*rden < rnum*total_score in wrapping int32;
 //   * row indices are clamped to [0, N-1], as JAX clamps a gather.
+// Bins16 semantics carried over from K9: members count where valid and
+// pos < job_len; the template is member 0's (shifted) row whether valid
+// or not; outside the job length the output is the template; row indices
+// are clamped to [0, N-1] (K9's take would fill; no caller passes such a
+// row).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "staging.cuh"
 #include "vote_rules.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+using gc_staging::clampi;
+using gc_staging::cp_async_commit;
+using gc_staging::cp_async_wait;
+using gc_staging::stage_rows;
+using gc_vote_rules::Bins16;
+using gc_vote_rules::Bins6;
 using gc_vote_rules::kSentinel;
 using gc_vote_rules::VoteAcc;
 using gc_vote_rules::VoteOut;
 
-__global__ void vote_kernel(const uint8_t* __restrict__ seq,
-                            const uint8_t* __restrict__ qual,
-                            const int8_t* __restrict__ score,
-                            const int32_t* __restrict__ rows,
-                            const uint8_t* __restrict__ valid,
-                            const uint8_t* __restrict__ refbase,
-                            int32_t* __restrict__ cand_seq,
-                            int32_t* __restrict__ cand_qual,
-                            int32_t* __restrict__ changed_out,
-                            int32_t* __restrict__ minc_out,
-                            int K, int J, int L, int N,
-                            int hi, int mod, int lo, int bsr,
-                            int rnum, int rden) {
-  const int pos = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pos >= L) return;
-  for (int j = blockIdx.y; j < J; j += gridDim.y) {
-    const size_t out_at = static_cast<size_t>(j) * L + pos;
-    const int rb = refbase[out_at];
-    const bool has_ref = rb != 0;
-    VoteAcc acc;
-    acc.init();
-    int out_base = kSentinel;
+constexpr int kChunk = 8;          // members per shared-memory stage
+constexpr int kStages = 3;         // stages in flight
+constexpr int kMaxThreads = 256;   // positions per tile
 
-    for (int k = 0; k < K; ++k) {
-      const size_t kj = static_cast<size_t>(k) * J + j;
-      int s = kSentinel;
-      int q = 0;
-      int sc = 0;
-      if (valid[kj]) {
-        int r = rows[kj];
-        r = r < 0 ? 0 : (r >= N ? N - 1 : r);
-        const size_t at = static_cast<size_t>(r) * L + pos;
-        s = seq[at];
-        if (s != kSentinel) {
-          q = qual[at];
-          sc = score[at];
+struct Args {
+  const uint8_t* seq;
+  const uint8_t* qual;
+  const int8_t* score;
+  const int32_t* rows;     // member k of job j at [k * sk + j * sj]
+  const uint8_t* valid;    // same layout
+  const int32_t* shifts;   // same layout (Bins16)
+  const int32_t* job_len;  // [J] (Bins16)
+  const uint8_t* refbase;  // [J, L]
+  void* out[4];
+  int K, J, L, N, sk, sj;
+  int hi, mod, lo, bsr, rnum, rden;
+};
+
+// Bytes of dynamic shared memory: the staging ring (or, aliasing it once
+// the members are voted, the accumulator exchange of a cluster), the
+// compacted rows and shifts of one batch, and the leader's per-position
+// rows of a Bins16 job.
+template <class B>
+__host__ __device__ size_t region_bytes(int L, int T, int C) {
+  const size_t ring =
+      static_cast<size_t>(kStages) * kChunk * 3 * (B::kBins == 16 ? L : T);
+  const size_t xch = C > 1 ? sizeof(int) * VoteAcc<B>::kFields * T : 0;
+  return ((ring > xch ? ring : xch) + 15) / 16 * 16;
+}
+
+template <class B>
+size_t smem_bytes(int L, int T, int C) {
+  return region_bytes<B>(L, T, C) + 2 * sizeof(int) * T +
+         (B::kBins == 16 ? 4 * static_cast<size_t>(L) : 0);
+}
+
+// kTwoPass (Bins6 only): the split-K alternative measured against the
+// cluster merge in chip_smoke.py phase 2e. Each CTA writes its partial
+// accumulators to global memory, part [C][J][fields][L], and
+// decide_kernel merges them and decides.
+template <class B, bool kTwoPass = false>
+__global__ void __launch_bounds__(kMaxThreads)
+    vote_kernel(const Args a, int* __restrict__ part) {
+  constexpr bool kFull = B::kBins == 16;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int warp_cnt[kMaxThreads / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int C = static_cast<int>(gridDim.x);  // the cluster spans grid x
+  const int rank = static_cast<int>(blockIdx.x);
+  const int T = static_cast<int>(blockDim.x);
+  const int t = static_cast<int>(threadIdx.x);
+  const int L = a.L;
+  const size_t region = region_bytes<B>(L, T, C);
+  uint8_t* ring = smem;
+  int* xch = reinterpret_cast<int*>(smem);
+  int* crow = reinterpret_cast<int*>(smem + region);
+  int* cshift = crow + T;
+  uint8_t* rowbuf = reinterpret_cast<uint8_t*>(cshift + T);  // 4 x L
+
+  const int slice = (a.K + C - 1) / C;
+  const int k_begin = min(rank * slice, a.K);
+  const int k_end = min(k_begin + slice, a.K);
+  const int ntiles = (L + T - 1) / T;
+
+  for (int j = blockIdx.z; j < a.J; j += gridDim.z) {
+    const size_t jt = static_cast<size_t>(j);
+    const int jl = kFull ? a.job_len[j] : L;
+    const size_t at0 = jt * a.sj;  // member 0
+    int diff = 0, minc = 0;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int p0 = tile * T;
+      const int p = p0 + t;
+      const bool live = p < L;
+      const int seg = kFull ? 0 : p0;  // Bins16 stages whole rows (shifts)
+      const int W = kFull ? L : min(T, L - p0);
+      const int rb = live ? a.refbase[jt * L + p] : 0;
+      const bool has_ref = rb != 0;
+
+      // the leader's template loads go in flight first
+      int out_base = kSentinel, tqual = 0;
+      if (rank == 0 && live) {
+        const size_t r0 = static_cast<size_t>(clampi(a.rows[at0], 0, a.N - 1)) * L;
+        if (kFull) {
+          const int x = clampi(a.shifts[at0] + p, 0, L - 1);
+          out_base = a.seq[r0 + x];
+          tqual = a.qual[r0 + x];
+        } else if (a.valid[at0]) {
+          out_base = a.seq[r0 + p];
         }
       }
-      if (k == 0) out_base = s;
-      acc.add(s, q, sc, rb, has_ref, hi);
-    }
 
-    const VoteOut o = gc_vote_rules::vote_decide(acc, out_base, rb, has_ref,
-                                                 hi, mod, lo, bsr, rnum, rden);
-    cand_seq[out_at] = o.cand_seq;
-    cand_qual[out_at] = o.cand_qual;
-    changed_out[out_at] = o.changed;
-    minc_out[out_at] = o.minc_pos;
+      VoteAcc<B> acc;
+      acc.init();
+      bool any_absent = false;
+      const bool votes = live && (!kFull || p < jl);
+      // Bins16: no member counts at or past the job length
+      if (!kFull || p0 < jl) {
+        for (int kb = k_begin; kb < k_end; kb += T) {
+          // compact the valid members of [kb, kb + T)
+          const int k = kb + t;
+          bool v = false;
+          int r = 0, sh = 0;
+          if (k < k_end) {
+            const size_t at = static_cast<size_t>(k) * a.sk + jt * a.sj;
+            v = a.valid[at] != 0;
+            if (v) {
+              r = clampi(a.rows[at], 0, a.N - 1);
+              if (kFull) sh = a.shifts[at];
+            }
+          }
+          const unsigned bal = __ballot_sync(0xffffffffu, v);
+          if ((t & 31) == 0) warp_cnt[t >> 5] = __popc(bal);
+          __syncthreads();
+          int pre = 0, nv = 0;
+          for (int w = 0; w < (T >> 5); ++w) {
+            const int c = warp_cnt[w];
+            if (w < (t >> 5)) pre += c;
+            nv += c;
+          }
+          if (v) {
+            const int i = pre + __popc(bal & ((1u << (t & 31)) - 1u));
+            crow[i] = r;
+            cshift[i] = sh;
+          }
+          any_absent |= nv < min(T, k_end - kb);
+          __syncthreads();
+
+          // the compacted members, kChunk at a time, kStages chunks in flight
+          const int nchunks = (nv + kChunk - 1) / kChunk;
+          const int stage_bytes = kChunk * 3 * W;
+          auto issue = [&](int c) {
+            if (c < nchunks) {
+              const int* cr = crow + c * kChunk;
+              stage_rows(ring + (c % kStages) * stage_bytes, a.seq, a.qual,
+                         a.score, [=](int mi) { return cr[mi]; },
+                         min(nv - c * kChunk, kChunk), L, seg, W);
+            }
+            cp_async_commit();
+          };
+#pragma unroll
+          for (int c = 0; c < kStages - 1; ++c) issue(c);
+          for (int c = 0; c < nchunks; ++c) {
+            issue(c + kStages - 1);  // refills the buffer voted at c - 1
+            cp_async_wait<kStages - 1>();
+            __syncthreads();
+            const uint8_t* buf = ring + (c % kStages) * stage_bytes;
+            const int m = min(nv - c * kChunk, kChunk);
+            if (votes) {
+              for (int mi = 0; mi < m; ++mi) {
+                const int x = kFull ? clampi(cshift[c * kChunk + mi] + p, 0, L - 1)
+                                    : p - seg;
+                const int s = buf[(mi * 3 + 0) * W + x];
+                const int q = buf[(mi * 3 + 1) * W + x];
+                const int sc = static_cast<int8_t>(buf[(mi * 3 + 2) * W + x]);
+                acc.add(s, q, sc, rb, has_ref, a.hi);
+              }
+            }
+            __syncthreads();
+          }
+          cp_async_wait<0>();
+        }
+      }
+      // Bins6: absent members read as sentinels (idempotent, so once)
+      if (!kFull && any_absent) acc.add(kSentinel, 0, 0, rb, has_ref, a.hi);
+
+      if (kTwoPass) {
+        if (live)
+          acc.store(part + (static_cast<size_t>(rank) * a.J + j) *
+                               VoteAcc<B>::kFields * L + p, L);
+        continue;
+      }
+      // merge the cluster's partial accumulators into the leader
+      if (C > 1) {
+        __syncthreads();  // the ring is free: the exchange aliases it
+        acc.store(xch + t, T);
+        cluster.sync();
+        if (rank == 0) {
+          for (int r = 1; r < C; ++r)
+            acc.merge(cluster.map_shared_rank(xch, r) + t, T);
+        }
+        cluster.sync();  // the partners keep their shared memory until read
+      }
+      if (rank != 0) continue;
+
+      const VoteOut o = gc_vote_rules::vote_decide<B>(
+          acc, out_base, rb, has_ref, a.hi, a.mod, a.lo, a.bsr, a.rnum, a.rden);
+      if (!kFull) {
+        if (live) {
+          const size_t at = jt * L + p;
+          static_cast<int32_t*>(a.out[0])[at] = o.cand_seq;
+          static_cast<int32_t*>(a.out[1])[at] = o.cand_qual;
+          static_cast<int32_t*>(a.out[2])[at] = o.changed;
+          static_cast<int32_t*>(a.out[3])[at] = o.minc_pos;
+        }
+        continue;
+      }
+      // K9: changed only inside the job length; outside it the template
+      const bool pv = live && p < jl;
+      const int chg = pv ? o.changed : 0;
+      const int mp = pv ? o.minc_pos : 0;
+      if (live) {
+        rowbuf[p] = static_cast<uint8_t>(chg ? o.cand_seq : out_base);
+        rowbuf[L + p] = static_cast<uint8_t>(pv ? o.cand_qual : tqual);
+        rowbuf[2 * L + p] = static_cast<uint8_t>(out_base);
+        rowbuf[3 * L + p] = static_cast<uint8_t>(tqual);
+      }
+      diff += __syncthreads_count(chg != 0);
+      minc += __syncthreads_count(mp > 0) - __syncthreads_count(mp < 0);
+    }
+    if (kFull && rank == 0) {
+      // per-read rollback (group.cpp:538-566)
+      const int rbk = minc > 5 ? 2 * L : 0;
+      for (int p = t; p < L; p += T) {
+        static_cast<uint8_t*>(a.out[0])[jt * L + p] = rowbuf[rbk + p];
+        static_cast<uint8_t*>(a.out[1])[jt * L + p] = rowbuf[rbk + L + p];
+      }
+      if (t == 0) {
+        static_cast<int32_t*>(a.out[2])[j] = diff;
+        static_cast<int32_t*>(a.out[3])[j] = minc;
+      }
+      __syncthreads();  // rowbuf is rewritten by the next job
+    }
   }
+}
+
+// The second pass of the split-K alternative: merge the C partials of
+// each (job, position) and decide (Bins6 outputs).
+template <class B>
+__global__ void __launch_bounds__(kMaxThreads)
+    decide_kernel(const Args a, const int* __restrict__ part, int C) {
+  const int L = a.L;
+  const int T = static_cast<int>(blockDim.x);
+  for (int j = blockIdx.z; j < a.J; j += gridDim.z) {
+    const size_t jt = static_cast<size_t>(j);
+    const size_t at0 = jt * a.sj;
+    for (int p = threadIdx.x; p < L; p += T) {
+      const int rb = a.refbase[jt * L + p];
+      int out_base = kSentinel;
+      if (a.valid[at0])
+        out_base = a.seq[static_cast<size_t>(clampi(a.rows[at0], 0, a.N - 1)) * L + p];
+      VoteAcc<B> acc;
+      acc.init();
+      for (int r = 0; r < C; ++r)
+        acc.merge(part + (static_cast<size_t>(r) * a.J + j) *
+                             VoteAcc<B>::kFields * L + p, L);
+      const VoteOut o = gc_vote_rules::vote_decide<B>(
+          acc, out_base, rb, rb != 0, a.hi, a.mod, a.lo, a.bsr, a.rnum, a.rden);
+      const size_t at = jt * L + p;
+      static_cast<int32_t*>(a.out[0])[at] = o.cand_seq;
+      static_cast<int32_t*>(a.out[1])[at] = o.cand_qual;
+      static_cast<int32_t*>(a.out[2])[at] = o.changed;
+      static_cast<int32_t*>(a.out[3])[at] = o.minc_pos;
+    }
+  }
+}
+
+template <class B>
+int launch(const Args& a, int cluster, int* cluster_used, void* stream) {
+  *cluster_used = 0;
+  if (a.J <= 0 || a.L <= 0) return 0;
+  if (a.K <= 0 || a.N <= 0 || (a.L & 15) || cluster < 1 || cluster > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int T = ((a.L + 31) / 32) * 32;
+  if (T > kMaxThreads) T = kMaxThreads;
+  int C = cluster;
+  if (C > a.K) C = a.K;
+  const auto kern = vote_kernel<B>;
+  cudaError_t e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  cfg.blockDim = dim3(T);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  for (;;) {
+    const size_t smem = smem_bytes<B>(a.L, T, C);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (C > 8) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    cfg.gridDim = dim3(C, 1, a.J < 65535 ? a.J : 65535);
+    cfg.dynamicSmemBytes = smem;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    if (C <= 8) break;
+    // a non-portable cluster may not fit this card's GPCs: halve it
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (e == cudaSuccess && n > 0) break;
+    cudaGetLastError();
+    C /= 2;
+  }
+  e = cudaLaunchKernelEx(&cfg, kern, a, static_cast<int*>(nullptr));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *cluster_used = C;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split-K alternative: C CTAs per job without a cluster, partials
+// through `part` (int32 [C, J, fields, L]), then decide_kernel.
+int launch_two_pass(const Args& a, int C, int* part, void* stream) {
+  if (a.J <= 0 || a.L <= 0) return 0;
+  if (a.K <= 0 || a.N <= 0 || (a.L & 15) || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int T = ((a.L + 31) / 32) * 32;
+  if (T > kMaxThreads) T = kMaxThreads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int gz = a.J < 65535 ? a.J : 65535;
+  const size_t smem = smem_bytes<Bins6>(a.L, T, C);  // the kernel's layout
+  vote_kernel<Bins6, true><<<dim3(C, 1, gz), T, smem, st>>>(a, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decide_kernel<Bins6><<<dim3(1, 1, gz), T, 0, st>>>(a, part, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// seq/qual u8 [N, L], score i8 [N, L], rows i32 [K, J], valid u8 [K, J],
-// refbase u8 [J, L]; outputs i32 [J, L]. All arrays contiguous.
+// Launch on `stream`; returns the cudaError_t of the launch (0 = success)
+// and the cluster size used in *cluster_used (the requested one, halved
+// while a non-portable size does not fit the card).
+// seq/qual u8 [N, L], score i8 [N, L] (16-byte aligned, L % 16 == 0),
+// rows i32 [K, J] (clamped to [0, N-1]), valid u8 [K, J], refbase u8
+// [J, L]; outputs cand_seq, cand_qual, changed, minc_pos i32 [J, L].
 extern "C" int gc_vote(const void* seq, const void* qual, const void* score,
                        const void* rows, const void* valid,
                        const void* refbase, void* cand_seq, void* cand_qual,
                        void* changed, void* minc, int K, int J, int L, int N,
                        int hi, int mod, int lo, int bsr, int rnum, int rden,
-                       void* stream) {
-  if (J <= 0 || L <= 0) return 0;
-  int threads = ((L + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  const dim3 block(threads);
-  const dim3 grid((L + threads - 1) / threads, J < 65535 ? J : 65535);
-  vote_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seq), static_cast<const uint8_t*>(qual),
-      static_cast<const int8_t*>(score), static_cast<const int32_t*>(rows),
-      static_cast<const uint8_t*>(valid), static_cast<const uint8_t*>(refbase),
-      static_cast<int32_t*>(cand_seq), static_cast<int32_t*>(cand_qual),
-      static_cast<int32_t*>(changed), static_cast<int32_t*>(minc),
-      K, J, L, N, hi, mod, lo, bsr, rnum, rden);
-  return static_cast<int>(cudaGetLastError());
+                       int cluster, int* cluster_used, void* stream) {
+  Args a = {};
+  a.seq = static_cast<const uint8_t*>(seq);
+  a.qual = static_cast<const uint8_t*>(qual);
+  a.score = static_cast<const int8_t*>(score);
+  a.rows = static_cast<const int32_t*>(rows);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.refbase = static_cast<const uint8_t*>(refbase);
+  a.out[0] = cand_seq;
+  a.out[1] = cand_qual;
+  a.out[2] = changed;
+  a.out[3] = minc;
+  a.K = K; a.J = J; a.L = L; a.N = N; a.sk = J; a.sj = 1;
+  a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
+  return launch<Bins6>(a, cluster, cluster_used, stream);
+}
+
+// gc_vote's split-K alternative (same arguments and outputs; `cluster`
+// CTAs per job; part int32 [cluster, J, 27, L] scratch), for the on-card
+// A/B of chip_smoke.py phase 2e.
+extern "C" int gc_vote_two_pass(const void* seq, const void* qual,
+                                const void* score, const void* rows,
+                                const void* valid, const void* refbase,
+                                void* cand_seq, void* cand_qual, void* changed,
+                                void* minc, int K, int J, int L, int N, int hi,
+                                int mod, int lo, int bsr, int rnum, int rden,
+                                int cluster, void* part, void* stream) {
+  Args a = {};
+  a.seq = static_cast<const uint8_t*>(seq);
+  a.qual = static_cast<const uint8_t*>(qual);
+  a.score = static_cast<const int8_t*>(score);
+  a.rows = static_cast<const int32_t*>(rows);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.refbase = static_cast<const uint8_t*>(refbase);
+  a.out[0] = cand_seq;
+  a.out[1] = cand_qual;
+  a.out[2] = changed;
+  a.out[3] = minc;
+  a.K = K; a.J = J; a.L = L; a.N = N; a.sk = J; a.sj = 1;
+  a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
+  return launch_two_pass(a, cluster, static_cast<int*>(part), stream);
+}
+
+// The K9 vote (full_bins=True): rows, shifts i32 and valid u8 [J, K],
+// job_len i32 [J], the rest as gc_vote; outputs new_seq, new_qual u8
+// [J, L], diff, minc i32 [J].
+extern "C" int gc_vote_full(const void* seq, const void* qual,
+                            const void* score, const void* rows,
+                            const void* shifts, const void* valid,
+                            const void* job_len, const void* refbase,
+                            void* new_seq, void* new_qual, void* diff,
+                            void* minc, int K, int J, int L, int N, int hi,
+                            int mod, int lo, int bsr, int rnum, int rden,
+                            int cluster, int* cluster_used, void* stream) {
+  Args a = {};
+  a.seq = static_cast<const uint8_t*>(seq);
+  a.qual = static_cast<const uint8_t*>(qual);
+  a.score = static_cast<const int8_t*>(score);
+  a.rows = static_cast<const int32_t*>(rows);
+  a.shifts = static_cast<const int32_t*>(shifts);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.job_len = static_cast<const int32_t*>(job_len);
+  a.refbase = static_cast<const uint8_t*>(refbase);
+  a.out[0] = new_seq;
+  a.out[1] = new_qual;
+  a.out[2] = diff;
+  a.out[3] = minc;
+  a.K = K; a.J = J; a.L = L; a.N = N; a.sk = 1; a.sj = K;
+  a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
+  return launch<Bins16>(a, cluster, cluster_used, stream);
 }

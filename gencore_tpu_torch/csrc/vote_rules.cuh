@@ -1,8 +1,17 @@
 // The per-(job, position) rules of the consensus vote, Group::makeConsensus
 // (group.cpp:369-526), shared by the two vote kernels (vote.cu and
-// vote_window.cu). A line-for-line translation of the Pallas kernel's
-// _vote_block (gencore_tpu/core/pallas_vote.py:48); the semantics it
-// carries over exactly are listed in vote.cu.
+// vote_window.cu), templated on the bin set:
+//
+//   * Bins6 — the Pallas kernel's _vote_block
+//     (gencore_tpu/core/pallas_vote.py:48), line for line: the non-empty
+//     nt16 bins of =ACGTN data (0, 1, 2, 4, 8, 15), the always-empty bins
+//     as one virtual bin 14 (13 for the second election), and a stored
+//     sentinel base (255) counting with qual = score = 0. Both kernels;
+//     the semantics it carries over are listed in vote.cu.
+//   * Bins16 — the XLA vote of gencore_tpu/core/kernels.py:_vote_core with
+//     full_bins=True (K9): all 16 nt16 bins, no virtual bin, and a stored
+//     255 in no bin while its score still counts in the total. vote.cu
+//     only; the callers mask members and positions as K9 does.
 
 #pragma once
 
@@ -12,26 +21,40 @@ namespace gc_vote_rules {
 
 constexpr int kSentinel = 255;
 constexpr int kNegInf = -0x7FFFFFFF;
-constexpr int kBins = 6;
 
-__device__ __forceinline__ int bin_code(int bi) {
+struct Bins6 {
+  static constexpr int kBins = 6;
+  static constexpr bool kVirtual = true;        // virtual empty bins 13/14
+  static constexpr bool kSentinelZeroes = true;  // seq 255 => q = sc = 0
   // BINS = (0, 1, 2, 4, 8, 15): the non-empty nt16 bins of =ACGTN data
-  return bi == 0 ? 0 : (bi == 5 ? 15 : (1 << (bi - 1)));
-}
+  __device__ __forceinline__ static int code(int bi) {
+    return bi == 0 ? 0 : (bi == 5 ? 15 : (1 << (bi - 1)));
+  }
+};
+
+struct Bins16 {
+  static constexpr int kBins = 16;
+  static constexpr bool kVirtual = false;
+  static constexpr bool kSentinelZeroes = false;
+  __device__ __forceinline__ static int code(int bi) { return bi; }
+};
 
 __device__ __forceinline__ int wrap_mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
 }
 
-// The evidence of one position: ~30 accumulators, kept in registers
-// (the loops over the six bins unroll).
+// The evidence of one position, kept in registers (the loops over the
+// bins unroll). Every field is a wrapping int32 sum, a max or an or, so
+// partial accumulators over any split of the members merge exactly.
+template <class B>
 struct VoteAcc {
-  int cnt[kBins], ssum[kBins], qsum[kBins], topq[kBins];
+  static constexpr int kFields = 4 * B::kBins + 3;
+  int cnt[B::kBins], ssum[B::kBins], qsum[B::kBins], topq[B::kBins];
   int total, ref_qual, high_ref;
 
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int bi = 0; bi < kBins; ++bi) {
+    for (int bi = 0; bi < B::kBins; ++bi) {
       cnt[bi] = 0;
       ssum[bi] = 0;
       qsum[bi] = 0;
@@ -42,18 +65,19 @@ struct VoteAcc {
     high_ref = 0;
   }
 
-  // One member's base s, qual q and signed score sc at this position. A
-  // sentinel base (absent member, or 255 stored) counts with q = sc = 0.
+  // One member's base s, qual q and signed score sc at this position.
+  // Bins6: a sentinel base (absent member, or 255 stored) counts with
+  // q = sc = 0.
   __device__ __forceinline__ void add(int s, int q, int sc, int rb,
                                       bool has_ref, int hi) {
-    if (s == kSentinel) {
+    if (B::kSentinelZeroes && s == kSentinel) {
       q = 0;
       sc = 0;
     }
     total += sc;
 #pragma unroll
-    for (int bi = 0; bi < kBins; ++bi) {
-      if (s == bin_code(bi)) {
+    for (int bi = 0; bi < B::kBins; ++bi) {
+      if (s == B::code(bi)) {
         cnt[bi] += 1;
         ssum[bi] += sc;
         qsum[bi] += q;
@@ -65,6 +89,34 @@ struct VoteAcc {
       high_ref |= q >= hi;
     }
   }
+
+  // Field f of thread t at x[f * stride + t] (conflict-free in shared
+  // memory).
+  __device__ __forceinline__ void store(int* x, int stride) const {
+#pragma unroll
+    for (int bi = 0; bi < B::kBins; ++bi) {
+      x[(0 * B::kBins + bi) * stride] = cnt[bi];
+      x[(1 * B::kBins + bi) * stride] = ssum[bi];
+      x[(2 * B::kBins + bi) * stride] = qsum[bi];
+      x[(3 * B::kBins + bi) * stride] = topq[bi];
+    }
+    x[(4 * B::kBins + 0) * stride] = total;
+    x[(4 * B::kBins + 1) * stride] = ref_qual;
+    x[(4 * B::kBins + 2) * stride] = high_ref;
+  }
+
+  __device__ __forceinline__ void merge(const int* x, int stride) {
+#pragma unroll
+    for (int bi = 0; bi < B::kBins; ++bi) {
+      cnt[bi] += x[(0 * B::kBins + bi) * stride];
+      ssum[bi] += x[(1 * B::kBins + bi) * stride];
+      qsum[bi] += x[(2 * B::kBins + bi) * stride];
+      topq[bi] = max(topq[bi], x[(3 * B::kBins + bi) * stride]);
+    }
+    total += x[(4 * B::kBins + 0) * stride];
+    ref_qual = max(ref_qual, x[(4 * B::kBins + 1) * stride]);
+    high_ref |= x[(4 * B::kBins + 2) * stride];
+  }
 };
 
 struct VoteOut {
@@ -72,22 +124,25 @@ struct VoteOut {
 };
 
 // Elections, early accept, needToCheckRef and ref arbitration over the
-// evidence; out_base is member 0's base (the template, sentinel if absent).
-__device__ __forceinline__ VoteOut vote_decide(const VoteAcc& a, int out_base,
-                                               int rb, bool has_ref, int hi,
-                                               int mod, int lo, int bsr,
-                                               int rnum, int rden) {
+// evidence; out_base is member 0's base (the template).
+template <class B>
+__device__ __forceinline__ VoteOut vote_decide(const VoteAcc<B>& a,
+                                               int out_base, int rb,
+                                               bool has_ref, int hi, int mod,
+                                               int lo, int bsr, int rnum,
+                                               int rden) {
   // top election: lexmax of (score, qual sum, bin)
   int top_base = 0, top_score = kNegInf, top_qs = 0;
 #pragma unroll
-  for (int bi = 0; bi < kBins; ++bi) {
+  for (int bi = 0; bi < B::kBins; ++bi) {
     if (a.ssum[bi] > top_score || (a.ssum[bi] == top_score && a.qsum[bi] >= top_qs)) {
-      top_base = bin_code(bi);
+      top_base = B::code(bi);
       top_score = a.ssum[bi];
       top_qs = a.qsum[bi];
     }
   }
-  if (0 > top_score || (top_score == 0 && top_qs <= 0 && top_base < 14)) {
+  if (B::kVirtual &&
+      (0 > top_score || (top_score == 0 && top_qs <= 0 && top_base < 14))) {
     top_base = 14;
     top_score = 0;
     top_qs = 0;
@@ -95,30 +150,32 @@ __device__ __forceinline__ VoteOut vote_decide(const VoteAcc& a, int out_base,
   // second election, skipping the top bin
   int sec_base = 0, sec_score = kNegInf, sec_qs = 0;
 #pragma unroll
-  for (int bi = 0; bi < kBins; ++bi) {
-    if (top_base != bin_code(bi) &&
+  for (int bi = 0; bi < B::kBins; ++bi) {
+    if (top_base != B::code(bi) &&
         (a.ssum[bi] > sec_score || (a.ssum[bi] == sec_score && a.qsum[bi] >= sec_qs))) {
-      sec_base = bin_code(bi);
+      sec_base = B::code(bi);
       sec_score = a.ssum[bi];
       sec_qs = a.qsum[bi];
     }
   }
-  const int vidx = top_base == 14 ? 13 : 14;
-  if (0 > sec_score || (sec_score == 0 && sec_qs <= 0 && sec_base < vidx)) {
-    sec_base = vidx;
-    sec_score = 0;
-    sec_qs = 0;
+  if (B::kVirtual) {
+    const int vidx = top_base == 14 ? 13 : 14;
+    if (0 > sec_score || (sec_score == 0 && sec_qs <= 0 && sec_base < vidx)) {
+      sec_base = vidx;
+      sec_score = 0;
+      sec_qs = 0;
+    }
   }
 
   // per-bin lookups; the virtual bins read as empty
   int top_num = 0, top_qual = 0, sec_num = 0, sec_qsum = 0;
 #pragma unroll
-  for (int bi = 0; bi < kBins; ++bi) {
-    if (top_base == bin_code(bi)) {
+  for (int bi = 0; bi < B::kBins; ++bi) {
+    if (top_base == B::code(bi)) {
       top_num = a.cnt[bi];
       top_qual = a.topq[bi];
     }
-    if (sec_base == bin_code(bi)) {
+    if (sec_base == B::code(bi)) {
       sec_num = a.cnt[bi];
       sec_qsum = a.qsum[bi];
     }

@@ -47,7 +47,7 @@
 //     writes the per-class counts into the buffer.
 //
 // Exact semantics carried over (each is a byte of the wire buffer):
-//   * the vote rules of vote_rules.cuh (see vote.cu for the list);
+//   * the vote rules of vote_rules.cuh, Bins6 (see vote.cu for the list);
 //   * positions at or beyond the job length take the template row
 //     (seq_dev/qual_dev at the clamped base row) and never edit; diff and
 //     minc sum over all L positions, then minc > 5 rolls the row back;
@@ -61,36 +61,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "staging.cuh"
 #include "vote_rules.cuh"
 
 namespace {
 
+using gc_staging::clampi;
+using gc_staging::cp_async_commit;
+using gc_staging::cp_async_wait;
+using gc_vote_rules::Bins6;
 using gc_vote_rules::kSentinel;
-using gc_vote_rules::VoteAcc;
 using gc_vote_rules::VoteOut;
+using VoteAcc = gc_vote_rules::VoteAcc<Bins6>;
 
 constexpr int kChunk = 8;      // members per shared-memory stage
 constexpr int kDiffs = 4;      // SPARSE_DIFFS (even: bases pack 2 per byte)
 constexpr int kRuns = 10;      // SPARSE_RUNS (even: table indices pack 2 per byte)
 constexpr int kMaxWarps = 8;   // L <= 256
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
 
 // Start copying members [k0, k0 + m) of a job into `buf`, laid out
 // [member][seq | qual | score][L]; member k is row clamp(base + k).
@@ -100,20 +87,9 @@ __device__ __forceinline__ void stage_members(uint8_t* buf,
                                               const int8_t* __restrict__ score,
                                               int base, int k0, int m, int N,
                                               int L) {
-  const int vpr = L >> 4;  // 16-byte vectors per row
-  const int per_member = 3 * vpr;
-  const int total = m * per_member;
-  for (int v = threadIdx.x; v < total; v += blockDim.x) {
-    const int mi = v / per_member;
-    const int rem = v - mi * per_member;
-    const int a = rem / vpr;
-    const int off = (rem - a * vpr) << 4;
-    const int row = clampi(base + k0 + mi, 0, N - 1);
-    const uint8_t* src =
-        a == 0 ? seq : (a == 1 ? qual : reinterpret_cast<const uint8_t*>(score));
-    cp_async16(buf + static_cast<size_t>(mi * 3 + a) * L + off,
-               src + static_cast<size_t>(row) * L + off);
-  }
+  gc_staging::stage_rows(
+      buf, seq, qual, score,
+      [=](int mi) { return clampi(base + k0 + mi, 0, N - 1); }, m, L, 0, L);
 }
 
 __device__ __forceinline__ void put_i16(uint8_t* p, int v) {
@@ -190,8 +166,8 @@ __global__ void __launch_bounds__(256) vote_window_kernel(
   }
   // members cnt..K-1 are absent: seq 255, qual 0, score 0 (idempotent, so once)
   if (cnt < K) acc.add(kSentinel, 0, 0, rb, has_ref, hi);
-  const VoteOut vo = gc_vote_rules::vote_decide(acc, out_base, rb, has_ref, hi,
-                                                mod, lo, bsr, rnum, rden);
+  const VoteOut vo = gc_vote_rules::vote_decide<Bins6>(
+      acc, out_base, rb, has_ref, hi, mod, lo, bsr, rnum, rden);
 
   // ---- rollback (pallas_vote._epilogue_core)
   const bool pv = live && p < jl;

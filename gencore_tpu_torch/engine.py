@@ -838,13 +838,8 @@ class VectorEngine:
                         lastb = work.seq_packed[oddrows,
                                                 work.lens[oddrows] // 2]
                         full_bins = bool((~_OK_HI[lastb]).any())
-        if full_bins:
-            raise NotImplementedError(
-                "reads with nt16 codes outside =ACGTN need the full-bins "
-                "vote, which gencore_tpu_torch does not have yet (ROADMAP "
-                "queue 2, K9)")
         with _T("vote"):
-            pending = self._vote_jobs(jobs, batch, work, flats,
+            pending = self._vote_jobs(jobs, batch, work, flats, full_bins,
                                       seq_dev, qual_dev, score_dev, ct)
 
         return _Dispatched(
@@ -1581,27 +1576,30 @@ class VectorEngine:
         return _refbase_combine_fn(self.work.L)(
             self._genome_dev(), *[self._dev(a) for a in (gp, hr, hm, jp)])
 
-    def _vote_jobs(self, jobs: list, batch, work, flats,
+    def _vote_jobs(self, jobs: list, batch, work, flats, full_bins,
                    seq_dev, qual_dev, score_dev, ct):
-        """Dispatch every vote of the window (=ACGTN data: the caller has
-        ruled out full-bins data). All buckets take the vote kernel: the
-        fused window program for contiguous jobs, the gathered per-bucket
-        path for the rest, the host-gathered path for shifted jobs."""
+        """Dispatch every vote of the window. =ACGTN data: the fused
+        window program for contiguous jobs, the gathered per-bucket path
+        for the rest, the host-gathered path for shifted jobs. Full-bins
+        data (nt16 codes outside =ACGTN) takes the JAX package's non-Pallas
+        route: host refbase rows and one fused_vote_kernel call per bucket,
+        with the lenDiff shifts applied on the device."""
         if not jobs:
             return []
         import os
         o = self.opt
         rnum, rden = kernels.ratio_fraction(o.score_percent_req)
         L = work.L
+        use_pallas = not full_bins
         # sparse wire encoding needs byte-sized positions (out_len <= 256)
-        self._sparse_dl = (self.out_len <= 256
+        self._sparse_dl = (use_pallas and self.out_len <= 256
                            and not os.environ.get("GENCORE_NO_SPARSE"))
         # qual-value nibble table for the sparse encoding (halves the run
         # values on the wire); decode side reads the same table
         self._sparse_qtable = (self._vote_qual_table()
                                if self._sparse_dl else None)
         refbase_all = refbase_dev = None
-        devref_ok = (self._genome is not None
+        devref_ok = (use_pallas and self._genome is not None
                      and len(self._genome) < 2**31 - _GENOME_PAD
                      and L <= _GENOME_PAD
                      and not os.environ.get("GENCORE_NO_DEVREF"))
@@ -1783,10 +1781,20 @@ class VectorEngine:
                 self._acct_up(refbase)
             self._acct_up(rows, shifts, valid, jl_arr)
 
-            outs, overrides = self._vote_pallas(
-                kb, rows, shifts, valid, jl_arr, refbase, shifted_jj,
-                work, batch, seq_dev, qual_dev, score_dev, rnum, rden,
-                force_dense=wflat_made)
+            if use_pallas:
+                outs, overrides = self._vote_pallas(
+                    kb, rows, shifts, valid, jl_arr, refbase, shifted_jj,
+                    work, batch, seq_dev, qual_dev, score_dev, rnum, rden,
+                    force_dense=wflat_made)
+            else:
+                outs = list(kernels.fused_vote_kernel(
+                    seq_dev, qual_dev, score_dev, self._dev(rows),
+                    self._dev(shifts), self._dev(valid), self._dev(jl_arr),
+                    self._dev(refbase), hi=o.high_quality,
+                    mod=o.moderate_quality, lo=o.low_quality,
+                    base_score_req=o.base_score_req, ratio_num=rnum,
+                    ratio_den=rden, full_bins=full_bins))
+                overrides = None
             if _SYNC_STAGES:
                 with _T("vote.device"):
                     self._sync()
@@ -1826,12 +1834,14 @@ class VectorEngine:
         """Collection phase: every bucket was dispatched asynchronously.
         The fused window's flat wire buffer is already copying into pinned
         host memory; per-bucket outputs are concatenated on device and
-        downloaded in ONE transfer per array, then decoded vectorized."""
-        from gencore_tpu_torch.io import native
+        downloaded in ONE transfer per array, then decoded vectorized.
+        Full-bins buckets come back as dense final rows."""
         _T = self.timer.stage
         wflat = [p for p in pending
                  if isinstance(p[0], str) and p[0] == "wflat"]
-        packed = [p for p in pending if not isinstance(p[0], str)]
+        rest = [p for p in pending if not isinstance(p[0], str)]
+        packed = [p for p in rest if isinstance(p[1], _PackedOut)]
+        plains = [p for p in rest if not isinstance(p[1], _PackedOut)]
         sparse = bool(packed) and packed[0][1].enc is not None
         qtable = (self._vote_qual_table()
                   if packed and not sparse else None)
@@ -1851,8 +1861,24 @@ class VectorEngine:
                 jobs.minc[jl] = mc[off:off + m]
                 jobs.set_rows(jl, buf, off + np.arange(m, dtype=np.int32))
                 off += j2
-        if not packed:
-            return
+        if packed:
+            self._collect_packed(jobs, packed, sparse, qtable)
+        for jlist, outs, _ in plains:
+            with _T("vote.sync"):
+                new_seq, new_qual = _to_host(outs[0]), _to_host(outs[1])
+                diff, minc = _to_host(outs[2]), _to_host(outs[3])
+            jl = np.asarray(jlist)
+            m = len(jl)
+            pbuf = jobs.add_buffer(new_seq, new_qual)
+            jobs.diff[jl] = diff[:m]
+            jobs.minc[jl] = minc[:m]
+            jobs.set_rows(jl, pbuf, np.arange(m, dtype=np.int32))
+
+    def _collect_packed(self, jobs, packed, sparse, qtable):
+        """The per-bucket kernel outputs (_PackedOut): one download for
+        all buckets, sparse or dense, then the rows and overrides."""
+        from gencore_tpu_torch.io import native
+        _T = self.timer.stage
         with _T("vote.sync"):
             if sparse:
                 ds, dq, df, mc = self._sparse_collect(packed)

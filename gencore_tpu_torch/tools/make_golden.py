@@ -1,18 +1,24 @@
-"""Golden digests of the full-size deep-panel run, made with the JAX package.
+"""Golden digests of the on-card workloads, made with the JAX package.
 
-A CUDA install of the port need not have JAX, so the full-size check of
-`chip_smoke.py` compares the port's output with digests made beforehand
+A CUDA install of the port need not have JAX, so the full-size checks of
+`chip_smoke.py` compare the port's output with digests made beforehand
 by the reference package on the CPU:
 
-    python -m gencore_tpu_torch.tools.make_golden
+    python -m gencore_tpu_torch.tools.make_golden [--workload NAME]
 
-generates (or reuses) `workloads.deep_panel()` — the 240k-read deep
-panel, 40,000 fragments on 2 x 8 Mb contigs (bench.make_workload's
-recipe), cached in build/workloads/ — runs
+generates (or reuses) the workload (cached in build/workloads/), runs
 `python -m gencore_tpu.cli` on it in a subprocess (JAX on the CPU, its
-default path), and writes gencore_tpu_torch/testdata/deep_panel_40k.json:
-sha256 and count of the ordered decoded input and output records, and a
-sha256 of the JSON report without its `command` line.
+default path) with the workload's CLI arguments, and writes
+gencore_tpu_torch/testdata/<file>: sha256 and count of the ordered
+decoded input and output records, a sha256 of the JSON report without
+its `command` line, and the CLI arguments. Workloads (`WORKLOADS`):
+
+  * deep_panel (default) — the 240k-read deep panel, 40,000 fragments on
+    2 x 8 Mb contigs (bench.make_workload's recipe): deep_panel_40k.json;
+  * ultradeep — bench.make_ultradeep_workload's recipe, 40 loci x 1,500
+    pairs, run with UMI grouping off (`-u ''`): ultradeep.json;
+  * full_bins — workloads.full_bins_panel, reads with IUPAC codes:
+    full_bins_panel.json.
 
 This module imports neither JAX nor the JAX package (the reference run is
 a subprocess); the digest helpers serve chip_smoke.py.
@@ -30,9 +36,33 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-GOLDEN = os.path.join(REPO, "gencore_tpu_torch", "testdata",
-                      "deep_panel_40k.json")
+TESTDATA = os.path.join(REPO, "gencore_tpu_torch", "testdata")
+GOLDEN = os.path.join(TESTDATA, "deep_panel_40k.json")
 WORKLOAD_DIR = os.path.join(REPO, "build", "workloads")
+
+# name: (golden file, CLI arguments beyond -i/-o/-r/-j/--html, description)
+WORKLOADS = {
+    "deep_panel": ("deep_panel_40k.json", [],
+                   "bench.make_workload() with N_FRAGMENTS=40000"),
+    "ultradeep": ("ultradeep.json", ["-u", ""],
+                  "bench.make_ultradeep_workload() (seed 21, 40 loci x "
+                  "1,500 pairs), UMI grouping off"),
+    "full_bins": ("full_bins_panel.json", [],
+                  "workloads.full_bins_panel() (seed 31, 100 loci, IUPAC "
+                  "codes, duplex UMIs, shifted right reads)"),
+}
+
+
+def golden_path(name: str) -> str:
+    return os.path.join(TESTDATA, WORKLOADS[name][0])
+
+
+def make_workload(name: str, out_dir: str = WORKLOAD_DIR):
+    """(bam_path, fasta_path) of the named workload under out_dir."""
+    from gencore_tpu_torch.tools import workloads
+    return {"deep_panel": workloads.deep_panel,
+            "ultradeep": workloads.ultradeep,
+            "full_bins": workloads.full_bins_panel}[name](out_dir)
 
 
 def digest_records(bam_path: str) -> tuple[int, str]:
@@ -58,10 +88,15 @@ def digest_report(json_path: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default=GOLDEN)
+    ap.add_argument("--workload", default="deep_panel",
+                    choices=sorted(WORKLOADS))
+    ap.add_argument("--out", default=None,
+                    help="golden file (default: the workload's file in "
+                         "gencore_tpu_torch/testdata)")
     args = ap.parse_args(argv)
-    from gencore_tpu_torch.tools import workloads
-    bam_path, fa_path = workloads.deep_panel(WORKLOAD_DIR)
+    fname, cli_args, desc = WORKLOADS[args.workload]
+    out_path = args.out or golden_path(args.workload)
+    bam_path, fa_path = make_workload(args.workload)
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "out.bam")
         js = os.path.join(d, "report.json")
@@ -69,22 +104,23 @@ def main(argv=None) -> int:
                    GENCORE_COMPILE_CACHE="0", PYTHONPATH=REPO)
         subprocess.run([sys.executable, "-m", "gencore_tpu.cli", "-i",
                         bam_path, "-o", out, "-r", fa_path, "-j", js,
-                        "--html", os.path.join(d, "report.html")],
-                       check=True, env=env, cwd=REPO)
+                        "--html", os.path.join(d, "report.html"),
+                        *cli_args], check=True, env=env, cwd=REPO)
         n_in, h_in = digest_records(bam_path)
         n_out, h_out = digest_records(out)
         rep = digest_report(js)
     golden = {
-        "workload": f"bench.make_workload() with N_FRAGMENTS="
-                    f"{workloads.DEEP_PANEL_FRAGMENTS}",
+        "workload": desc,
         "made_by": "python -m gencore_tpu.cli (JAX package, CPU, default "
                    "path)",
         "input": {"records": n_in, "sha256": h_in},
         "output": {"records": n_out, "sha256": h_out},
         "report_stats_sha256": rep,
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    if cli_args:
+        golden["cli_args"] = cli_args
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(golden, f, indent=1)
         f.write("\n")
     print(json.dumps(golden))

@@ -9,9 +9,16 @@ build on it:
     on 2 x 8 Mb contigs, ~3 duplicates each (the recipe of
     bench.make_workload, seed 7);
   * `small_panel` — ~3k reads: duplex UMIs, 40-pair clusters and
-    lenDiff-shifted right reads, so every vote entry point runs.
+    lenDiff-shifted right reads, so every vote entry point runs;
+  * `ultradeep` — the ultra-deep amplicon pile of
+    bench.make_ultradeep_workload (seed 21, 2 x 8 Mb contigs, 40 loci x
+    1,500 pairs, ~120k reads); run without `-u`, each locus is one job of
+    1,500 members per side, voted by the gathered path;
+  * `full_bins_panel` — a few hundred pairs of which some reads carry
+    IUPAC codes (nt16 codes outside =ACGTN), with duplex UMIs and
+    lenDiff-shifted right reads, so the full-bins vote runs.
 
-Both write `<out_dir>/{name}.bam` and `<out_dir>/{name}_ref.fa`.
+Each writes `<out_dir>/{name}.bam` and `<out_dir>/{name}_ref.fa`.
 """
 
 from __future__ import annotations
@@ -219,3 +226,104 @@ def small_panel(out_dir: str):
     sb.write_bam(bam_path)
     sb.write_fasta(fa_path)
     return bam_path, fa_path, len(sb.records)
+
+
+def ultradeep_bam(n_loci: int = 40, pairs: int = 1500,
+                  contig_len: int = 8_000_000) -> SyntheticBam:
+    """bench.make_ultradeep_workload's recipe (seed 21): n_loci piles of
+    `pairs` pairs, each pile at one position, UMIs in the read names."""
+    rng = np.random.default_rng(21)
+    sb = SyntheticBam(seed=21, contig_len=contig_len, n_contigs=2)
+    umis = ["AAAA", "CCCC", "GGGG", "TTTT", "ACGT", "TGCA", "GATC", "CTAG"]
+    for locus in range(n_loci):
+        tid = locus % 2
+        pos1 = 200_000 + 380_000 * (locus // 2)
+        pos2 = pos1 + 160
+        for _ in range(pairs):
+            a, b = rng.choice(umis, size=2, replace=False)
+            n_err = int(rng.random() < 0.3) * int(rng.integers(1, 3))
+            sb.add_pair(tid, pos1, pos2, read_len=150, umi=f"{a}_{b}",
+                        n_errors=n_err, qual=int(rng.choice([18, 30, 36])))
+    return sb
+
+
+def ultradeep(out_dir: str):
+    """The ultra-deep pile at full size; reuses the files when both
+    exist. Returns (bam_path, fasta_path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    bam_path = os.path.join(out_dir, "ultradeep.bam")
+    fa_path = os.path.join(out_dir, "ultradeep_ref.fa")
+    if not (os.path.exists(bam_path) and os.path.exists(fa_path)):
+        sb = ultradeep_bam()
+        sb.write_bam(bam_path)
+        sb.write_fasta(fa_path)
+    return bam_path, fa_path
+
+
+IUPAC = "MRWSYKVHDB"   # the nt16 codes outside =ACGTN: 3, 5-7, 9-14
+
+
+def _with_iupac(rng, seq: str, n: int) -> str:
+    s = list(seq)
+    for i in rng.integers(0, len(s), size=n):
+        s[int(i)] = IUPAC[int(rng.integers(0, len(IUPAC)))]
+    return "".join(s)
+
+
+def full_bins_bam(seed: int, n_loci: int, umi_mode: str = "duplex",
+                  shifted: bool = True) -> SyntheticBam:
+    """Clusters of 1-5 pairs at n_loci loci, about a third of the reads
+    carrying 1-3 IUPAC codes; umi_mode "none", "single" or "duplex"
+    (both strand orders of one UMI pair). With `shifted`, n_loci/4 extra
+    loci hold a 100 and an 80 base right read with the same right end
+    (lenDiff-shifted members, group.cpp:339-349)."""
+    sb = SyntheticBam(seed=seed, contig_len=60_000 + 800 * n_loci)
+    rng = np.random.default_rng(seed + 1)
+    umis = ["AAAA", "CCCC", "GGGG", "TTTT", "ACGT", "TGCA"]
+    for k in range(n_loci):
+        pos1 = 1000 + 500 * k
+        pos2 = pos1 + int(rng.integers(20, 150))
+        a, b = rng.choice(umis, size=2, replace=False)
+        for _ in range(int(rng.integers(1, 6))):
+            umi = {"none": None, "single": f"{a}_{b}",
+                   "duplex": f"{a}_{b}" if rng.random() < 0.5
+                   else f"{b}_{a}"}[umi_mode]
+            qname = sb._qname(umi)
+            n_err = int(rng.random() < 0.3) * 2
+            seq1, cg1 = sb.read_seq(0, pos1, 100, n_errors=n_err)
+            seq2, cg2 = sb.read_seq(0, pos2, 100)
+            if rng.random() < 0.35:
+                seq1 = _with_iupac(rng, seq1, int(rng.integers(1, 4)))
+            if rng.random() < 0.35:
+                seq2 = _with_iupac(rng, seq2, int(rng.integers(1, 4)))
+            q = int(rng.choice([18, 30, 36]))
+            tlen = pos2 + 100 - pos1
+            sb._add(0, pos1, qname, 99, cg1, 0, pos2, tlen, seq1, q, n_err)
+            sb._add(0, pos2, qname, 147, cg2, 0, pos1, -tlen, seq2, q, 0)
+    if shifted:
+        umi = None if umi_mode == "none" else "ACGT_TTGA"
+        for k in range(max(n_loci // 4, 1)):
+            pos1 = 2000 + 500 * n_loci + 400 * k
+            end2 = pos1 + 240
+            for rl in (100, 80):
+                qname = sb._qname(umi)
+                seq1, cg1 = sb.read_seq(0, pos1, 100)
+                seq2, cg2 = sb.read_seq(0, end2 - rl, rl)
+                seq2 = _with_iupac(rng, seq2, 1)
+                sb._add(0, pos1, qname, 99, cg1, 0, end2 - rl, 240, seq1,
+                        35, 0)
+                sb._add(0, end2 - rl, qname, 147, cg2, 0, pos1, -240, seq2,
+                        35, 0)
+    return sb
+
+
+def full_bins_panel(out_dir: str):
+    """~700 reads of full-bins data (full_bins_bam, seed 31, 100 loci,
+    duplex UMIs, shifted right reads). Returns (bam_path, fasta_path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    bam_path = os.path.join(out_dir, "full_bins_panel.bam")
+    fa_path = os.path.join(out_dir, "full_bins_panel_ref.fa")
+    sb = full_bins_bam(31, 100)
+    sb.write_bam(bam_path)
+    sb.write_fasta(fa_path)
+    return bam_path, fa_path

@@ -35,7 +35,9 @@ class StageTimer:
         lines = [f"stage timings (total {total:.3f}s):"]
         for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
             pct = 100.0 * t / total if total else 0.0
-            lines.append(f"  {name:<22} {t:8.3f}s {pct:5.1f}%  x{self.counts[name]}")
+            # wire.* totals are byte counts the engine adds without a stage
+            lines.append(f"  {name:<22} {t:8.3f}s {pct:5.1f}%  "
+                         f"x{self.counts.get(name, 0)}")
         return lines
 
 

@@ -6,7 +6,8 @@ elsewhere. Run them on the card with
 (--noconftest: tests/conftest.py imports JAX, which a CUDA-only install lacks.)
 
 Each kernel is held to its plain twin on the same inputs with 0
-mismatches (csrc/vote.cu to vote_core_plain, csrc/vote_window.cu to
+mismatches (csrc/vote.cu's Bins6 instantiation to vote_core_plain, its
+Bins16 instantiation to kernels.fused_vote_plain, csrc/vote_window.cu to
 vote_window_plain, byte for byte), and the engine on CUDA to the oracle."""
 
 import importlib.util
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from gencore_tpu_torch.core import vote
+from gencore_tpu_torch.core import kernels, vote
 
 pytestmark = pytest.mark.cuda
 
@@ -45,22 +46,74 @@ def _members(rng, K, J, L, N):
     return seq, qual, score, rows, valid, refbase
 
 
-@pytest.mark.parametrize("K", [1, 4, 16, 64, 256])
-def test_vote_kernel_matches_twin(cuda, K):
-    rng = np.random.default_rng(K)
-    J, L, N = 300, 160, 4000
+TH = dict(hi=KW["hi"], mod=KW["mod"], lo=KW["lo"], bsr=KW["base_score_req"],
+          rnum=KW["ratio_num"], rden=KW["ratio_den"])
+
+# (K, J, L): K not a multiple of the cluster slice or of the 8-member
+# stage (255, 2047), clusters of 16 (K = 2048 at J = 8), J = 4096 with one
+# CTA per job, L above one 256-position tile
+SHAPES = [(1, 300, 160), (4, 4096, 160), (16, 300, 160), (64, 300, 160),
+          (255, 8, 160), (256, 1, 160), (256, 300, 160), (2047, 8, 160),
+          (2048, 8, 160), (2048, 1, 96), (300, 5, 320)]
+
+
+@pytest.mark.parametrize("K,J,L", SHAPES)
+def test_vote_kernel_matches_twin(cuda, K, J, L):
+    rng = np.random.default_rng(K + J + L)
+    N = min(K * J, 20000) + 50
     arrs = _members(rng, K, J, L, N)
+    valid = arrs[4]
+    valid[:, 1::17] = 0                 # jobs with every member absent
     cpu = [torch.from_numpy(a) for a in arrs]
+    gpu = [t.to(cuda) for t in cpu]
     n0 = vote.LAUNCHES
-    got = vote.vote_core(*[t.to(cuda) for t in cpu], **KW)
+    got = vote.vote_core(*gpu, **KW)
     torch.cuda.synchronize(cuda)
     assert vote.LAUNCHES == n0 + 1
-    th = dict(hi=KW["hi"], mod=KW["mod"], lo=KW["lo"],
-              bsr=KW["base_score_req"], rnum=KW["ratio_num"],
-              rden=KW["ratio_den"])
-    want = vote.vote_core_plain(*cpu, **th)
+    assert vote.LAST_CLUSTER == min(vote.cluster_size(K, J), 16)
+    want = vote.vote_core_plain(*gpu, **TH)
     for a, b in zip(got, want):
-        assert int((a.cpu() != b).sum()) == 0
+        assert int((a != b).sum()) == 0
+
+
+def _full_members(rng, K, J, L, N):
+    """The K9 inputs [J, K]: all 16 nt16 codes, stored 255s, shifts,
+    clamped row indices, absent members, job lengths below L."""
+    seq = rng.integers(0, 16, size=(N, L)).astype(np.uint8)
+    seq[rng.random((N, L)) < 0.02] = 255
+    qual = rng.integers(0, 42, size=(N, L)).astype(np.uint8)
+    score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
+    rows = rng.integers(-2, N + 2, size=(J, K)).astype(np.int32)
+    shifts = np.where(rng.random((J, K)) < 0.3,
+                      rng.integers(0, 20, size=(J, K)), 0).astype(np.int32)
+    valid = rng.random((J, K)) < 0.85
+    valid[::7, 0] = False
+    valid[1::17] = False
+    job_len = rng.integers(0, L + 1, size=J).astype(np.int32)
+    job_len[::3] = L
+    refbase = np.array([0, 1, 2, 4, 8, 5, 12], np.uint8)[
+        rng.integers(0, 7, size=(J, L))]
+    refbase[::5] = 0
+    return seq, qual, score, rows, shifts, valid, job_len, refbase
+
+
+@pytest.mark.parametrize("K,J,L", SHAPES)
+def test_vote_full_kernel_matches_twin(cuda, K, J, L):
+    """The Bins16 instantiation (kernels.fused_vote_kernel on CUDA tensors)
+    against its plain twin on the card."""
+    rng = np.random.default_rng(7 + K + J + L)
+    N = min(K * J, 20000) + 50
+    gpu = [torch.from_numpy(a).to(cuda)
+           for a in _full_members(rng, K, J, L, N)]
+    n0 = vote.FULL_LAUNCHES
+    got = kernels.fused_vote_kernel(*gpu, **KW, full_bins=True)
+    torch.cuda.synchronize(cuda)
+    assert vote.FULL_LAUNCHES == n0 + 1
+    want = kernels.fused_vote_plain(*gpu, **KW, full_bins=True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError, match="full_bins=True"):
+        kernels.fused_vote_kernel(*gpu, **KW, full_bins=False)
 
 
 def test_vote_kernel_rejects_bad_inputs(cuda):

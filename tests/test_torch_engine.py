@@ -14,10 +14,12 @@ from gencore_tpu.engine import VectorEngine as JaxEngine
 from gencore_tpu.io import bam
 from gencore_tpu.io.fasta import FastaRef
 from gencore_tpu.options import Options
+from gencore_tpu_torch.core import vote
 from gencore_tpu_torch.engine import VectorEngine
 from gencore_tpu_torch.io import bam as tbam
 from gencore_tpu_torch.io.fasta import FastaRef as TFastaRef
 from gencore_tpu_torch.options import Options as TOptions
+from gencore_tpu_torch.tools import workloads
 from gencore_tpu_torch.tools.workloads import SyntheticBam as TSyntheticBam
 from tests.datagen import SyntheticBam
 from tests.test_engine_equivalence import (STAT_FIELDS, _enc_list,
@@ -27,9 +29,13 @@ from tests.test_engine_equivalence import (STAT_FIELDS, _enc_list,
 torch.set_num_threads(1)
 
 
-def run_three(sb, tmp_path, monkeypatch, opt_kwargs=None, use_fasta=True):
-    """(oracle, JAX engine on its Pallas path, port on CPU) over one
-    workload; asserts the port equals both."""
+def run_three(sb, tmp_path, monkeypatch, opt_kwargs=None, use_fasta=True,
+              jax_pallas=True):
+    """(oracle, JAX engine, port on CPU) over one workload; asserts the
+    port equals both. The JAX engine takes its Pallas path (interpret
+    mode) unless jax_pallas is False: then its default route on the CPU
+    (the XLA vote, fused_vote_kernel), for piles too deep for the
+    interpreter."""
     bam_path = str(tmp_path / "in.bam")
     sb.write_bam(bam_path)
     reader = bam.BamReader(bam_path)
@@ -43,10 +49,11 @@ def run_three(sb, tmp_path, monkeypatch, opt_kwargs=None, use_fasta=True):
     kw = opt_kwargs or {}
     oeng = OracleEngine(Options(**kw), reader.header, fasta=ref)
     oout = oeng.run(reader.read_all())
-    monkeypatch.setenv("GENCORE_FORCE_PALLAS", "interp")
+    if jax_pallas:
+        monkeypatch.setenv("GENCORE_FORCE_PALLAS", "interp")
     jeng = JaxEngine(Options(**kw), reader.header, fasta=ref)
     jout = jeng.run(reader.read_all())
-    monkeypatch.delenv("GENCORE_FORCE_PALLAS")
+    monkeypatch.delenv("GENCORE_FORCE_PALLAS", raising=False)
     teng = VectorEngine(TOptions(**kw), treader.header, fasta=tref,
                         device="cpu")
     tout = teng.run(treader.read_all())
@@ -124,28 +131,40 @@ def test_port_engine_shifted_members(tmp_path, monkeypatch):
     run_three(sb, tmp_path, monkeypatch)
 
 
-def test_port_engine_rejects_full_bins_data(tmp_path):
-    """Reads with nt16 codes outside =ACGTN need the full-bins vote, which
-    the port does not have yet: it raises instead of voting wrongly."""
-    sb = SyntheticBam(seed=5, contig_len=50_000)
-    for k in range(4):
-        seq, cg = sb.read_seq(0, 1000 + 300 * k, 100)
-        seq = "R" + seq[1:]   # IUPAC code 5
-        qname = sb._qname(None)
-        sb._add(0, 1000 + 300 * k, qname, 99, cg, 0, 1150 + 300 * k, 250,
-                seq, 30, 0)
-        sb._add(0, 1000 + 300 * k, qname + "b", 99, cg, 0, 1150 + 300 * k,
-                250, seq, 30, 0)
-        seq2, cg2 = sb.read_seq(0, 1150 + 300 * k, 100)
-        sb._add(0, 1150 + 300 * k, qname, 147, cg2, 0, 1000 + 300 * k, -250,
-                seq2, 30, 0)
-        sb._add(0, 1150 + 300 * k, qname + "b", 147, cg2, 0, 1000 + 300 * k,
-                -250, seq2, 30, 0)
-    sb.write_bam(str(tmp_path / "in.bam"))
-    reader = tbam.BamReader(str(tmp_path / "in.bam"))
-    eng = VectorEngine(TOptions(), reader.header, device="cpu")
-    with pytest.raises(NotImplementedError, match="K9"):
-        eng.run(reader.read_all())
+@pytest.mark.parametrize("case", ["plain", "no_fasta", "duplex", "shifted"])
+def test_port_engine_full_bins_data(tmp_path, monkeypatch, case):
+    """Reads with nt16 codes outside =ACGTN take the full-bins vote
+    (fused_vote_kernel, all 16 bins, shifts applied on the device): the
+    port equals the oracle and the JAX engine (whose non-Pallas route it
+    follows)."""
+    umi_mode = {"plain": "single", "no_fasta": "single", "duplex": "duplex",
+                "shifted": "none"}[case]
+    sb = workloads.full_bins_bam(70 + len(case), 24, umi_mode=umi_mode,
+                                 shifted=case in ("shifted", "duplex"))
+    teng = run_three(sb, tmp_path, monkeypatch,
+                     use_fasta=case != "no_fasta")
+
+
+def test_port_engine_deep_pile(tmp_path, monkeypatch):
+    """The ultra-deep recipe cut to 2 loci x 260 pairs, with UMI grouping
+    off (the reads carry UMIs in their names, which the default `auto`
+    would use): each pile is one job of 260 members per side, above the
+    window path's 255, so the gathered vote takes it (one bucket,
+    K = 512). The JAX engine takes its XLA route here: Pallas interpret
+    mode needs minutes for a bucket that deep."""
+    calls = []
+    orig = vote.vote_core
+
+    def counted(*a, **k):
+        calls.append(tuple(a[3].shape))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(vote, "vote_core", counted)
+    run_three(workloads.ultradeep_bam(n_loci=2, pairs=260,
+                                      contig_len=250_000),
+              tmp_path, monkeypatch, opt_kwargs={"umi_prefix": ""},
+              jax_pallas=False)
+    assert (512, 4) in calls
 
 
 def test_port_engine_default_device_needs_cuda():

@@ -231,3 +231,85 @@ def test_pull_dense_and_gathers_match_jax():
     q_t, s_t = teng._pull_rows(*_dev(qual, score), to_device(idx, "cpu"))
     _eq(q_t, qual[np.clip(idx, 0, 29)])
     _eq(s_t, score[np.clip(idx, 0, 29)])
+
+
+def _fused_vote_inputs(rng, J, K, L, N, full_bins):
+    """Members of all 16 nt16 codes (or =ACGTN) with stored 255s, lenDiff
+    shifts, absent members, job lengths below L and jobs without a
+    reference base."""
+    codes = (np.arange(16, dtype=np.uint8) if full_bins
+             else np.array([0, 1, 2, 4, 8, 15], dtype=np.uint8))
+    seq = codes[rng.integers(0, len(codes), size=(N, L))]
+    seq[rng.random((N, L)) < 0.02] = 255
+    qual = rng.choice(np.array([0, 2, 12, 18, 25, 30, 36, 41], np.uint8),
+                      size=(N, L))
+    score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
+    rows = rng.integers(0, N, size=(J, K)).astype(np.int32)
+    shifts = np.where(rng.random((J, K)) < 0.3,
+                      rng.integers(0, 12, size=(J, K)), 0).astype(np.int32)
+    valid = rng.random((J, K)) < 0.8
+    valid[::5, 0] = False
+    valid[3] = False                       # a job with no member at all
+    job_len = rng.integers(0, L + 1, size=J).astype(np.int32)
+    job_len[::4] = L
+    refbase = np.array([0, 1, 2, 4, 8, 3, 5], np.uint8)[
+        rng.integers(0, 7, size=(J, L))]
+    refbase[::3] = 0                       # jobs without a reference base
+    # job 1 rolls back: its template matches the reference everywhere and
+    # every other member votes for another base with high quality
+    refbase[1] = 4
+    rows[1] = [0] + [1] * (K - 1)
+    shifts[1] = 0
+    valid[1] = True
+    job_len[1] = L
+    seq[0], qual[0], score[0] = 4, 12, 8
+    seq[1], qual[1], score[1] = 2, 41, 12
+    return seq, qual, score, rows, shifts, valid, job_len, refbase
+
+
+VOTE_KW = dict(hi=30, mod=20, lo=15, base_score_req=6, ratio_num=4,
+               ratio_den=5)
+
+
+@pytest.mark.parametrize("full_bins", [True, False])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fused_vote_kernel_matches_jax(seed, full_bins):
+    """The port's fused_vote_kernel (plain version on the CPU) equals the
+    JAX function exactly, for both bin sets."""
+    rng = np.random.default_rng(40 + seed)
+    J, K, L, N = 37, [3, 8, 16][seed], 48, 200
+    args = _fused_vote_inputs(rng, J, K, L, N, full_bins)
+    kw = dict(VOTE_KW, full_bins=full_bins)
+    if seed == 2:      # the ratio test wraps in int32 on both sides
+        kw.update(ratio_num=999_983, ratio_den=1_000_003)
+    want = jk.fused_vote_kernel(*args, **kw)
+    got = tk.fused_vote_kernel(*_dev(*args), **kw)
+    assert [g.dtype for g in got] == [torch.uint8, torch.uint8, torch.int32,
+                                      torch.int32]
+    for a, b in zip(got, want):
+        _eq(a, b)
+    # job 1 rolls back; other jobs change positions
+    assert np.asarray(want[3])[1] > 5
+    assert (np.asarray(want[2]) > 0).sum() > 1
+
+
+@pytest.mark.parametrize("full_bins", [True, False])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_vote_core_matches_jax(seed, full_bins):
+    """_vote_core on pre-gathered [J, K, L] members equals the JAX
+    consensus_kernel (the same core) exactly."""
+    rng = np.random.default_rng(60 + seed)
+    J, K, L = 21, [1, 5, 12][seed], 40
+    seq, qual, score, rows, _sh, valid, job_len, refbase = _fused_vote_inputs(
+        rng, J, K, L, J * K, full_bins)
+    gseq = seq[rows % len(seq)].reshape(J, K, L)
+    gqual = qual[rows % len(qual)].reshape(J, K, L)
+    gscore = score[rows % len(score)].reshape(J, K, L).astype(np.int32)
+    pos_valid = np.arange(L)[None, :] < job_len[:, None]
+    args = (gseq, gqual, gscore, valid, pos_valid, refbase)
+    th = (30, 20, 15, 6, 4, 5)
+    want = jk.consensus_kernel(*args, hi=30, mod=20, lo=15, base_score_req=6,
+                               ratio_num=4, ratio_den=5, full_bins=full_bins)
+    got = tk._vote_core(*_dev(*args), *th, full_bins)
+    for a, b in zip(got, want):
+        _eq(a, b)
