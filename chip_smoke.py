@@ -17,12 +17,14 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
          L and 136, with and without a qual table;
       2c gc_vote at the deep-pile shapes J in {8, 32, 128}, K in {512,
          2048, 4096}, L=160 (disjoint member groups, K/2 < count <= K),
-         with the cluster size each launch used;
+         with the CTAs per job (split) each launch used;
       2d gc_vote_full (csrc/vote.cu, Bins16: kernels.fused_vote_kernel on
          CUDA tensors) against kernels.fused_vote_plain on the card, all 16
          nt16 codes, lenDiff shifts, job lengths <= L;
-    with each kernel's device time (torch.profiler) and its wrapper's time
-    per call, its plain version's time per call on the card (CUDA events,
+    with each kernel's device time (vote_window: torch.profiler; vote.cu:
+    CUDA events around each call with the stream kept busy ahead of them)
+    and its wrapper's time per call, its plain version's time per call on
+    the card (CUDA events,
     in turns plain, kernel, kernel, plain) where the kernels line needs
     it, its bound and its share of the bound;
   3 a ~3k-read workload (duplex UMIs, deep clusters, lenDiff-shifted right
@@ -47,11 +49,9 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   7 the ultra-deep pile (workloads.ultradeep: 40 loci x 1,500 pairs, UMI
     grouping off) through the CLI on cuda against its golden digests: wall
     seconds and reads/s, then a profiled run with each gathered vote
-    launch's (K, J), cluster size, device time and share of its bound.
+    launch's (K, J), split, device time and share of its bound.
 Then the kernels line and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-`--only 2c,2d,...` runs the named phases after 0 and 1 and prints no ok
-line.
 
 Bounds: the bytes each input is read once and each output written once
 over 3.35 TB/s, and ~10 int32 operations per (valid member, position) over
@@ -145,8 +145,11 @@ def phase_build():
     kernels = {}
     for m in re.finditer(r"Compiling entry function '(\S+)'(.*?)Used (\d+) "
                          r"registers", vote.BUILD_LOG, re.S):
-        name = ("vote_window" if "vote_window" in m.group(1) else
-                "vote (16 bins)" if "Bins16" in m.group(1) else "vote")
+        fn = m.group(1)
+        name = ("vote_window" if "vote_window" in fn else
+                "vote (16 bins)" if "Bins16" in fn else "vote")
+        if "decide_kernel" in fn:   # vote.cu's second pass (split > 1)
+            name += ", decide"
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         kernels[name] = {"registers": int(m.group(3)),
                          "spill_store_bytes": int(spill.group(1)) if spill
@@ -206,6 +209,28 @@ def _device_ms(torch, fn, reps, name):
             sum(per_call.values()), n)
 
 
+def _kernel_ms(torch, fn, reps=5):
+    """Device ms per call of fn: CUDA events right around each call while
+    a torch.cuda._sleep ahead of them keeps the stream busy, so the host's
+    launch overhead stays off the clock; the median over reps. (The
+    profiler drops kernel records now and then: a vote.cu launch of
+    0.3 ms went missing from three traces in a row.)"""
+    from statistics import median
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return median(times)
+
+
 def _timings(torch, plain, kern, name, plain_reps, kern_reps,
              profile_plain=True):
     """The kernel's device time (profiler), and the wall time per call of
@@ -214,7 +239,10 @@ def _timings(torch, plain, kern, name, plain_reps, kern_reps,
     and kernel count per call unless profile_plain is False (a plain
     version of tens of thousands of launches per call overflows the
     profiler's buffers)."""
-    ms, _, _ = _device_ms(torch, kern, kern_reps, name)
+    if name == "vote_window_kernel":   # the kernel alone, as in PR 2
+        ms = _device_ms(torch, kern, kern_reps, name)[0]
+    else:
+        ms = _kernel_ms(torch, kern, kern_reps)
     if not ms > 0:
         fail(2, f"no {name} kernel in the profiler's trace")
     p1, k1, k2, p2 = (_time_ms(torch, f, r) for f, r in (
@@ -361,18 +389,14 @@ def phase_deep_piles(torch, np):
                          lambda: vote.vote_core(*gpu, **KW), "vote_kernel",
                          1, 5, profile_plain=False)
         else:
-            t = {"ms": _device_ms(torch, lambda: vote.vote_core(*gpu, **KW),
-                                  5, "vote_kernel")[0],
+            t = {"ms": _kernel_ms(torch, lambda: vote.vote_core(*gpu, **KW)),
                  "call_ms": _time_ms(torch,
                                      lambda: vote.vote_core(*gpu, **KW), 5)}
         ms = t["ms"]
-        if not ms > 0:
-            fail("2c", f"no vote kernel in the profiler's trace at J={J}, "
-                       f"K={K}")
         n_bytes, n_ops = _vote_bound(np, arrs[3], arrs[4], K, J, L_PHASE2)
         b_ms, b_by = bound(n_bytes, n_ops)
         per_shape.append({"J": J, "K": K, "L": L_PHASE2, "N": len(arrs[0]),
-                          "cluster": vote.LAST_CLUSTER,
+                          "split": vote.split_size(K, J),
                           "members": int(arrs[4].sum()), "mismatches": mism,
                           "max_abs_err": err, **t,
                           "bytes": n_bytes, "int_ops": n_ops,
@@ -383,70 +407,6 @@ def phase_deep_piles(torch, np):
                                  "vote_core_plain", "ok": True,
           "tolerance": "exact (0 mismatches)", "per_shape": per_shape})
     return per_shape
-
-
-def _clocks():
-    """The card's SM and memory clocks, power draw and temperature now."""
-    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
-                        "power.draw,temperature.gpu", "--format=csv,noheader"],
-                       capture_output=True, text=True, timeout=60)
-    return r.stdout.strip()
-
-
-def phase_split_ab(torch, np):
-    """2e: the cluster merge against the two-pass split-K alternative
-    (gc_vote_two_pass: the same CTAs per job, partial accumulators through
-    device memory, then a decide kernel) at the deep-pile shapes, device
-    time in turns cluster, two-pass, two-pass, cluster; outputs equal."""
-    import ctypes
-
-    from gencore_tpu_torch.core import vote
-    dev = torch.device("cuda", 0)
-    lib = vote.build_library()
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.gc_vote_two_pass.argtypes = [P] * 10 + [I] * 11 + [P, P]
-    lib.gc_vote_two_pass.restype = I
-    rows_out = []
-    clocks = [_clocks()]
-    for J, K in DEEP_SHAPES + ((4096, 256),):
-        arrs = _pile_inputs(np, K, J, L_PHASE2, J + K)
-        gpu = [torch.from_numpy(a).to(dev) for a in arrs]
-        L, N = L_PHASE2, len(arrs[0])
-        C = vote.cluster_size(K, J)
-        part = torch.empty((C, J, 27, L), dtype=torch.int32, device=dev)
-        outs = [torch.empty((J, L), dtype=torch.int32, device=dev)
-                for _ in range(4)]
-
-        def two_pass():
-            err = lib.gc_vote_two_pass(
-                *[t.data_ptr() for t in (*gpu, *outs)], K, J, L, N,
-                KW["hi"], KW["mod"], KW["lo"], KW["base_score_req"],
-                KW["ratio_num"], KW["ratio_den"], C, part.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-            if err:
-                fail("2e", f"gc_vote_two_pass failed: cudaError_t {err}")
-
-        got = vote.vote_core(*gpu, **KW)
-        two_pass()
-        torch.cuda.synchronize()
-        mism = sum(int((g != w).sum()) for g, w in zip(outs, got))
-        if mism:
-            fail("2e", f"two-pass != cluster at J={J}, K={K}: {mism}")
-        runs = []
-        for f in ("cluster", "two_pass", "two_pass", "cluster"):
-            fn = (lambda: vote.vote_core(*gpu, **KW)) if f == "cluster" \
-                else two_pass
-            runs.append(_device_ms(torch, fn, 5, "_kernel")[0])
-        rows_out.append({"J": J, "K": K, "C": C, "mismatches": mism,
-                         "cluster_ms": (runs[0] + runs[3]) / 2,
-                         "two_pass_ms": (runs[1] + runs[2]) / 2,
-                         "runs_cluster_two_two_cluster": runs})
-        del gpu, part, outs
-    clocks.append(_clocks())
-    emit({"phase": "2e", "name": "cluster merge vs two-pass split-K "
-                                 "(device ms per call)", "ok": True,
-          "clocks_sm_mem_power_temp_before_after": clocks,
-          "per_shape": rows_out})
 
 
 FULL_SHAPES = ((4096, 16), (4096, 64), (1024, 256), (32, 2048), (8, 4096))
@@ -520,11 +480,11 @@ def phase_full_kernel(torch, np):
             fail("2d", f"Bins16 kernel != twin at J={J}, K={K}: {mism} "
                        "mismatches")
         t = _timings(torch, plain, kern, "Bins16", 1, 5)
-        cluster = vote.LAST_CLUSTER
         n_bytes, n_ops = _full_bound(np, arrs[3], arrs[5], arrs[6], K, J,
                                      L_PHASE2)
         b_ms, b_by = bound(n_bytes, n_ops)
-        per_shape.append({"J": J, "K": K, "L": L_PHASE2, "cluster": cluster,
+        per_shape.append({"J": J, "K": K, "L": L_PHASE2,
+                          "split": vote.split_size(K, J),
                           "members": int(arrs[5].sum()), "mismatches": mism,
                           "max_abs_err": err, **t, "bytes": n_bytes,
                           "int_ops": n_ops, "bound_ms": b_ms,
@@ -824,7 +784,7 @@ def phase_ultradeep(torch, np):
     loci x 1,500 pairs, UMI grouping off) through the CLI on cuda against
     its golden digests: wall seconds and reads/s of one run, then a run
     that records each gathered vote launch's inputs, replayed for its
-    (K, J), cluster size, device time and share of its bound."""
+    (K, J), split, device time and share of its bound."""
     from gencore_tpu_torch.core import vote
     bam, fa, golden, n_in, t_gen = _golden_workload("ultradeep", 7)
     _zero_counters(vote)
@@ -843,8 +803,7 @@ def phase_ultradeep(torch, np):
 
     def recorded(*args, **kw):
         out = orig(*args, **kw)
-        calls.append(([t.clone() for t in args], dict(kw),
-                      vote.LAST_CLUSTER))
+        calls.append(([t.clone() for t in args], dict(kw)))
         return out
 
     with _patched(vote, "vote_core", recorded):
@@ -853,18 +812,16 @@ def phase_ultradeep(torch, np):
     if rc or not (out_ok2 and rep_ok2):
         fail(7, f"recorded ultradeep run failed or differs: rc={rc}")
     per_launch = []
-    for args, kw, cluster in calls:
+    for args, kw in calls:
         K, J = args[3].shape
-        ms = _device_ms(torch, lambda: vote.vote_core(*args, **kw), 5,
-                        "vote_kernel")[0]
-        if not ms > 0:
-            fail(7, f"no vote kernel in the profiler's trace (K={K}, J={J})")
+        ms = _kernel_ms(torch, lambda: vote.vote_core(*args, **kw))
         r = args[3].cpu().numpy()
         v = args[4].cpu().numpy()
         b_ms, b_by = bound(*_vote_bound(np, r, v, K, J, args[0].shape[1]))
         per_launch.append({"K": K, "J": J,
                            "members": int(v.astype(bool).sum()),
-                           "cluster": cluster, "ms": ms, "bound_ms": b_ms,
+                           "split": vote.split_size(K, J), "ms": ms,
+                           "bound_ms": b_ms,
                            "bound_by": b_by, "share_of_bound": b_ms / ms})
     del calls
     res = {"phase": 7, "name": "ultra-deep pile vs golden", "ok": True,
@@ -1055,14 +1012,7 @@ def phase_busy(torch, bam, fa, golden):
     return res
 
 
-def main(argv=None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description="smoke run of the port on one "
-                                             "NVIDIA card")
-    ap.add_argument("--only", default="",
-                    help="comma-separated phases to run after 0 and 1 "
-                         "(e.g. 2c); no ok line. Default: every phase")
-    args = ap.parse_args(argv)
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1074,19 +1024,6 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     card = phase_env(torch)
     phase_build()
-    if args.only:
-        only = {
-            "2a": lambda: phase_vote_kernel(torch, np),
-            "2b": lambda: phase_window_kernel(torch, np),
-            "2c": lambda: phase_deep_piles(torch, np),
-            "2d": lambda: phase_full_kernel(torch, np),
-            "2e": lambda: phase_split_ab(torch, np),
-            "3b": lambda: phase_full_bins(torch),
-            "7": lambda: phase_ultradeep(torch, np)}
-        for ph in args.only.split(","):
-            only[ph]()
-        print(card, flush=True)
-        return 1
     vk = phase_vote_kernel(torch, np)
     win_err = phase_window_kernel(torch, np)
     piles = phase_deep_piles(torch, np)
@@ -1127,7 +1064,7 @@ def main(argv=None) -> int:
          "bound_ms": pile["bound_ms"], "bound_by": pile["bound_by"],
          "library_ms": None,
          "shape": f"phase 2c, J={pile['J']}, K={pile['K']}, L={pile['L']}, "
-                  f"cluster {pile['cluster']}; phase 2a sum over K in "
+                  f"split {pile['split']}; phase 2a sum over K in "
                   f"{list(K_CLASSES)} at J={J_PHASE2}: {vk['ms']} ms"},
         {"name": "vote (16 bins)", "route": "cuda",
          "source": "gencore_tpu_torch/csrc/vote.cu (Bins16)",

@@ -12,7 +12,7 @@ the device programs around them (port of gencore_tpu/core/pallas_vote.py).
 * `vote_core` — the vote of Group::makeConsensus (group.cpp:369-526) over K
   member rows read by index from the device-resident [N, L] matrices. On a
   CUDA tensor it launches `csrc/vote.cu` (the Bins6 rules, each job's
-  members split across a cluster of up to 16 CTAs, `cluster_size`); on a
+  members split across up to 16 CTAs, `split_size`); on a
   CPU tensor it runs `vote_core_plain`, the same computation in plain
   PyTorch (a port of the Pallas `_vote_block`). The gathered and
   pre-gathered entry points use it.
@@ -59,14 +59,13 @@ SPARSE_RUNS = 10
 
 # kernel launches, CUDA tensors only: `vote_core` (csrc/vote.cu, Bins6),
 # `vote_full` (csrc/vote.cu, Bins16) and `pallas_vote_window`
-# (csrc/vote_window.cu); the cluster size of the last vote.cu launch
+# (csrc/vote_window.cu); a vote.cu launch with a split counts once
 LAUNCHES = 0
 FULL_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
-LAST_CLUSTER = 0
 
 SMS = 132           # H100 SXM streaming multiprocessors
-MAX_CLUSTER = 16    # non-portable cluster size limit on Hopper
+MAX_SPLIT = 16      # CTAs per job
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -172,13 +171,13 @@ def _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den):
                 rnum=int(ratio_num), rden=int(ratio_den))
 
 
-def cluster_size(K, J):
+def split_size(K, J):
     """CTAs per job for csrc/vote.cu: 1 for buckets of K <= 64, else the
     least power of two that gives J * C >= two waves of the card's SMs,
-    while each CTA keeps >= 32 members, at most MAX_CLUSTER."""
+    while each CTA keeps >= 32 members, at most MAX_SPLIT."""
     c = 1
     if K > 64:
-        while c < MAX_CLUSTER and J * c < 2 * SMS and K // (2 * c) >= 32:
+        while c < MAX_SPLIT and J * c < 2 * SMS and K // (2 * c) >= 32:
             c *= 2
     return c
 
@@ -213,16 +212,18 @@ def _check_rows(fn, seq_src, qual_src, score_src, K, J):
             raise ValueError(f"{fn}: {name} is not 16-byte aligned")
 
 
-def _launch(fn, lib_fn, ptrs, ints, K, J, dev):
-    global LAST_CLUSTER
-    used = ctypes.c_int(0)
+def _launch(fn, lib_fn, ptrs, ints, K, J, L, fields, dev):
+    """Launch a vote.cu entry with split_size(K, J) CTAs per job and, for a
+    split, int32 scratch for the partial accumulators."""
+    split = split_size(K, J)
+    part = (torch.empty((split, J, fields, L), dtype=torch.int32, device=dev)
+            if split > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib_fn(*ptrs, *ints, cluster_size(K, J), ctypes.byref(used),
-                     stream)
+        err = lib_fn(*ptrs, *ints, split,
+                     None if part is None else part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
-    LAST_CLUSTER = used.value
 
 
 def vote_core(seq_src, qual_src, score_src, rows, valid, refbase, *, hi, mod,
@@ -259,7 +260,7 @@ def vote_core(seq_src, qual_src, score_src, rows, valid, refbase, *, hi, mod,
             [t.data_ptr() for t in (seq_src, qual_src, score_src, rows,
                                     valid, refbase, *outs)],
             [K, J, L, N, th["hi"], th["mod"], th["lo"], th["bsr"],
-             th["rnum"], th["rden"]], K, J, dev)
+             th["rnum"], th["rden"]], K, J, L, 4 * len(BINS) + 3, dev)
     global LAUNCHES
     LAUNCHES += 1
     return tuple(outs)
@@ -305,7 +306,7 @@ def vote_full(seq_all, qual_all, score_all, rows, shifts, valid, job_len,
                                     shifts, valid, job_len, refbase,
                                     new_seq, new_qual, diff, minc)],
             [K, J, L, N, th["hi"], th["mod"], th["lo"], th["bsr"],
-             th["rnum"], th["rden"]], K, J, dev)
+             th["rnum"], th["rden"]], K, J, L, 4 * 16 + 3, dev)
     global FULL_LAUNCHES
     FULL_LAUNCHES += 1
     return new_seq, new_qual, diff, minc

@@ -219,3 +219,13 @@ def test_window_kernel_host_side(with_qtable):
     assert (tab[3, 16:24] == class_args[7]).all()
     with pytest.raises(ValueError, match="class 1 needs 9 jobs"):
         vote.window_job_table(class_args, ((4, 16), (16, 9), (256, 5)))
+
+
+@pytest.mark.parametrize("K,J,want", [(4, 8, 1), (64, 8, 1), (128, 8, 4),
+                                      (512, 8, 16), (2048, 26, 16),
+                                      (512, 128, 4), (4096, 4096, 1)])
+def test_split_size(K, J, want):
+    """CTAs per job for csrc/vote.cu: one for buckets of K <= 64 or enough
+    jobs to fill two waves of the card, else a power of two up to 16 that
+    leaves each CTA >= 32 members."""
+    assert vote.split_size(K, J) == want
