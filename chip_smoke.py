@@ -4,8 +4,10 @@
 
 Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   0 environment: torch/CUDA/nvcc versions, whether triton imports, the
-    card's name and power limit, whether the native I/O core loaded (it
-    decides between the streaming and the in-memory window path);
+    card's name and power limit, and the port's native I/O core built from
+    gencore_tpu_torch/csrc/gcio.cpp with its DEFLATE codec (libdeflate or
+    zlib); the run fails here, with the reason, when the core does not
+    build or load (the CLI's main path, streaming, needs it);
   1 build: the CUDA kernels from gencore_tpu_torch/csrc (one nvcc per
     source, in parallel, sm_90a), registers and spills per kernel;
   2 each kernel against its plain twin on the same inputs, exact (0
@@ -36,9 +38,15 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     --oracle and the golden digests; the 16-bin launches counted beside
     the 6-bin ones;
   4 the 240k-read deep panel (workloads.deep_panel) through the port's CLI
-    on cuda with its default path selection, against the golden digests
-    that the JAX package made (gencore_tpu_torch/testdata), with each
-    window launch's (K, J, sum of member counts) per class;
+    on cuda with its default path selection, which must be the streaming
+    path (parallel/streaming.run_streaming on the native core), against
+    the golden digests that the JAX package made
+    (gencore_tpu_torch/testdata): wall seconds, reads/s, the codec, the
+    stage sums, each window launch's (K, J, sum of member counts) per class
+    and whether it had a qual nibble table;
+  4b the same input with `--shards 4 --checkpoint_dir D`, then again after
+    one shard's files were deleted from D (resume): both equal to the
+    golden digests, the second run recomputing exactly that shard;
   5 the deep panel's largest window launch, replayed: the fused kernel
     against its twin (exact) and timed against the plain composition on
     the card, with its bound;
@@ -49,7 +57,11 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   7 the ultra-deep pile (workloads.ultradeep: 40 loci x 1,500 pairs, UMI
     grouping off) through the CLI on cuda against its golden digests: wall
     seconds and reads/s, then a profiled run with each gathered vote
-    launch's (K, J), split, device time and share of its bound.
+    launch's (K, J), split, device time and share of its bound;
+  8 parallel/mesh.py with one rank on the card (a torch.distributed NCCL
+    group of one process, and a one-device mesh): sharded_consensus_step
+    (the Bins16 kernel through kernels.consensus_kernel) against the plain
+    vote on the CPU, and stats_psum against the numpy sum, exact.
 Then the kernels line and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -124,16 +136,21 @@ def phase_env(torch):
         triton_v = triton.__version__
     except ImportError as e:
         triton_v = f"no ({e})"
-    lib = native.get_lib() is not None
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        fail(0, "the native I/O core did not build or load, so the CLI's "
+                f"main path (streaming) cannot run: {native.why_not()}")
+    t_core = time.perf_counter() - t0
     card = nvidia_smi_line()
     emit({"phase": 0, "name": "environment", "ok": True,
           "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nv[-1] if nv else "",
           "triton": triton_v, "card": card,
           "device_count": torch.cuda.device_count(),
-          "native_io": lib,
-          "cli_path": ("streaming (file >= 1 MiB)" if lib else
-                       "in-memory window pipeline, pure-Python codec")})
+          "native_io": True, "codec": native.codec(),
+          "native_io_library": os.path.relpath(native.get_lib()._name, REPO),
+          "native_io_build_s": t_core,
+          "cli_path": "streaming (file >= 1 MiB)"})
     return card
 
 
@@ -686,10 +703,10 @@ def phase_small(torch):
     return launches
 
 
-def _deep_panel_run(torch, bam, fa, d, golden):
+def _deep_panel_run(torch, bam, fa, d, golden, extra=()):
     """One CLI run of a golden workload on cuda (with the golden's CLI
-    arguments); returns (rc, stderr, wall s, records out, output and
-    report equal to the golden digests)."""
+    arguments and `extra`); returns (rc, stderr, wall s, records out,
+    output and report equal to the golden digests)."""
     from gencore_tpu_torch.tools.make_golden import (digest_records,
                                                      digest_report)
     os.makedirs(d, exist_ok=True)
@@ -698,7 +715,7 @@ def _deep_panel_run(torch, bam, fa, d, golden):
     t0 = time.perf_counter()
     rc, err = _cli(["-i", bam, "-o", out, "-r", fa, "-j", js,
                     "--html", os.path.join(d, "report.html"), "--debug",
-                    "--device", "cuda", *golden.get("cli_args", [])])
+                    "--device", "cuda", *golden.get("cli_args", []), *extra])
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     if rc:
@@ -839,6 +856,8 @@ def phase_ultradeep(torch, np):
 
 def phase_full(torch, np):
     from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.io import native
+    from gencore_tpu_torch.parallel import streaming
     from gencore_tpu_torch.tools import workloads
     from gencore_tpu_torch.tools.make_golden import GOLDEN, digest_records
     with open(GOLDEN) as f:
@@ -855,8 +874,15 @@ def phase_full(torch, np):
         fail(4, "the generated input differs from the golden input")
 
     per_launch = []
+    qtables = []
     largest = {"sum_counts": -1}
     orig = vote.pallas_vote_window
+    streamed = []
+    orig_stream = streaming.run_streaming
+
+    def counted_stream(*a, **k):
+        streamed.append(k.get("device"))
+        return orig_stream(*a, **k)
 
     def recorded(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
                  qtable, class_args, **kw):
@@ -864,6 +890,7 @@ def phase_full(torch, np):
                          .astype(np.int64).sum())]
                 for ci, (K, J) in enumerate(kw["classes"])]
         per_launch.append(info)
+        qtables.append(qtable is not None)
         tot = sum(x[2] for x in info)
         if tot > largest["sum_counts"]:
             largest.update(
@@ -877,20 +904,29 @@ def phase_full(torch, np):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with _patched(vote, "pallas_vote_window", recorded):
-        vote.LAUNCHES = 0
-        vote.WINDOW_LAUNCHES = 0
+    with _patched(vote, "pallas_vote_window", recorded), \
+            _patched(streaming, "run_streaming", counted_stream):
+        _zero_counters(vote)
         rc, err, t_run, n_out, output_ok, report_ok = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "full"), golden)
-        launches = {"vote_window": vote.WINDOW_LAUNCHES, "vote": vote.LAUNCHES}
+        launches = _counters(vote)
     peak = torch.cuda.max_memory_allocated()
     if rc:
         fail(4, f"CLI exit code {rc}: {err[-2000:]}")
+    io_lines = [ln for ln in err.splitlines() if ln.startswith("I/O: ")]
+    want_io = f"I/O: native core ({native.codec()}), streaming path"
+    if len(streamed) != 1 or io_lines != [want_io]:
+        fail(4, f"the deep panel did not go through run_streaming once on "
+                f"the native core: calls={len(streamed)} lines={io_lines}")
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"\[stage\] (\S+): ([0-9.]+)s", err)}
     ok = (output_ok and report_ok and launches["vote_window"] > 0
           and launches["vote_window"] == len(per_launch))
-    emit({"phase": 4, "name": "full-size deep panel vs golden", "ok": ok,
+    emit({"phase": 4, "name": "full-size deep panel vs golden, streaming "
+                              "path", "ok": ok,
+          "path": "parallel/streaming.run_streaming", "io_line": io_lines[0],
+          "codec": native.codec(),
+          "qual_nibble_table_per_launch": qtables,
           "workload": golden["workload"], "reads_in": n_in,
           "records_out": n_out, "generate_s": t_gen, "setup_s": t_setup,
           "run_s": t_run, "reads_per_s": n_in / t_run,
@@ -902,6 +938,146 @@ def phase_full(torch, np):
         fail(4, "output differs from the golden digests, or the fused "
                 "window kernel's launches do not match the window calls")
     return bam, fa, golden, launches, largest
+
+
+def phase_shards(torch, bam, fa, golden, n_shards=4):
+    """4b: the deep panel with --shards and --checkpoint_dir, then resumed
+    after one shard's files were deleted."""
+    import shutil
+
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.parallel import resume
+    ckdir = os.path.join(WORK, "shards_ck")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    extra = ["--shards", str(n_shards), "--checkpoint_dir", ckdir]
+    done = {"recorded": [], "loaded": []}
+    orig_rec = resume.WindowCheckpoint.record_shard
+    orig_load = resume.WindowCheckpoint.load_shard
+
+    def record_shard(self, shard, *a, **k):
+        done["recorded"].append(shard)
+        return orig_rec(self, shard, *a, **k)
+
+    def load_shard(self, shard):
+        done["loaded"].append(shard)
+        return orig_load(self, shard)
+
+    runs = []
+    lost = None
+    with _patched(resume.WindowCheckpoint, "record_shard", record_shard), \
+            _patched(resume.WindowCheckpoint, "load_shard", load_shard):
+        for tag in ("first", "resumed"):
+            done["recorded"], done["loaded"] = [], []
+            _zero_counters(vote)
+            rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
+                torch, bam, fa, os.path.join(WORK, f"shards_{tag}"), golden,
+                extra)
+            launches = _counters(vote)
+            if rc or not (out_ok and rep_ok):
+                fail("4b", f"--shards {n_shards} run ({tag}) failed or "
+                           f"differs from the golden digests: rc={rc} "
+                           f"{err[-1500:]}")
+            runs.append({"run": tag, "run_s": t_run, "records_out": n_out,
+                         "shards_computed": list(done["recorded"]),
+                         "shards_loaded": list(done["loaded"]),
+                         "kernel_launches": launches,
+                         "io_line": next((ln for ln in err.splitlines()
+                                          if ln.startswith("I/O: ")), None)})
+            if tag == "first":
+                # a shard that the first run computed (one without reads
+                # writes nothing), from the middle of the genome
+                lost = done["recorded"][len(done["recorded"]) // 2]
+                for f in os.listdir(ckdir):
+                    if f.startswith(f"shard_{lost}."):
+                        os.remove(os.path.join(ckdir, f))
+    every = runs[0]["shards_computed"]
+    ok = (len(every) > 1 and every == sorted(set(every))
+          and runs[0]["shards_loaded"] == []
+          and runs[1]["shards_computed"] == [lost]
+          and runs[1]["shards_loaded"] == [s for s in every if s != lost]
+          and runs[0]["kernel_launches"]["vote_window"] >= len(every)
+          and runs[1]["kernel_launches"]["vote_window"] >= 1)
+    emit({"phase": "4b", "name": "deep panel, --shards with checkpoint and "
+                                 "resume, vs golden", "ok": ok,
+          "n_shards": n_shards, "deleted_shard": lost, "runs": runs,
+          "output_digest_equal": True, "report_stats_equal": True})
+    if not ok:
+        fail("4b", "the sharded runs did not compute and load the shards "
+                   "expected, or launched no window vote")
+    return runs
+
+
+def phase_mesh(torch, np):
+    """8: parallel/mesh.py with one rank on the card against the plain
+    vote (exact): a one-device mesh, and a torch.distributed group (NCCL)
+    of this one process."""
+    import socket
+
+    from gencore_tpu_torch.core import kernels, vote
+    from gencore_tpu_torch.options import Options
+    from gencore_tpu_torch.parallel import distributed, mesh
+    J, K, L = 2048, 8, L_PHASE2
+    rng = np.random.default_rng(88)
+    bases = np.array([1, 2, 4, 8], dtype=np.uint8)
+    seq = bases[rng.integers(0, 4, size=(J, K, L))]
+    seq = np.where(rng.random((J, K, L)) < 0.9, seq[:, :1, :], seq)
+    seq = np.where(rng.random((J, K, L)) < 0.03,
+                   rng.integers(0, 16, size=(J, K, L)), seq).astype(np.uint8)
+    qual = rng.integers(2, 42, size=(J, K, L)).astype(np.uint8)
+    score = rng.integers(-4, 13, size=(J, K, L)).astype(np.int32)
+    valid = rng.random((J, K)) < 0.85
+    valid[:, 0] = True
+    pos_valid = np.arange(L)[None, :] < rng.integers(1, L + 1, size=J)[:, None]
+    refbase = np.where(rng.random((J, L)) < 0.2, 0,
+                       bases[rng.integers(0, 4, size=(J, L))]).astype(np.uint8)
+    batch = (seq, qual, score, valid, pos_valid, refbase)
+    opt = Options()
+    rnum, rden = kernels.ratio_fraction(opt.score_percent_req)
+    want = kernels.consensus_plain(
+        *[torch.from_numpy(a) for a in batch], hi=opt.high_quality,
+        mod=opt.moderate_quality, lo=opt.low_quality,
+        base_score_req=opt.base_score_req, ratio_num=rnum, ratio_den=rden)
+    want = [*want, want[2].sum(dtype=torch.int64),
+            (want[3] > 5).sum(dtype=torch.int64)]
+    partials = rng.integers(0, 2**40, size=(1, 64), dtype=np.int64)
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    res = {}
+    distributed.init_runtime(f"127.0.0.1:{port}", 1, 0, device="cuda",
+                             timeout_s=120)
+    try:
+        meshes = (("one_device", mesh.make_mesh(1, device="cuda"),
+                   partials),
+                  ("nccl_group_of_one", mesh.make_mesh(device="cuda",
+                                                       group=True),
+                   partials[0]))
+        for tag, m, part in meshes:
+            _zero_counters(vote)
+            t0 = time.perf_counter()
+            got = mesh.sharded_consensus_step(m, *batch, opt)
+            total = mesh.stats_psum(m, part)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            mism = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+            mism += int((total.cpu().numpy() != partials.sum(axis=0)).sum())
+            res[tag] = {"mesh_size": m.size, "mismatches": mism,
+                        "seconds": dt, "total_diff": int(got[4]),
+                        "rolled_back": int(got[5]),
+                        "kernel_launches": _counters(vote)}
+    finally:
+        distributed.shutdown_runtime()
+    ok = all(r["mismatches"] == 0 and r["kernel_launches"]["vote_full"] == 1
+             for r in res.values())
+    emit({"phase": 8, "name": "mesh.sharded_consensus_step and stats_psum, "
+                              "one rank, vs the plain vote", "ok": ok,
+          "tolerance": "exact (0 mismatches)", "J": J, "K": K, "L": L, **res})
+    if not ok:
+        fail(8, "the job-sharded vote or the stats reduction differs from "
+                "the plain version, or did not launch the Bins16 kernel")
+    return res
 
 
 def phase_replay(torch, np, largest):
@@ -1031,9 +1207,11 @@ def main() -> int:
     phase_small(torch)
     full_bins = phase_full_bins(torch)
     bam, fa, golden, launches, largest = phase_full(torch, np)
+    shard_runs = phase_shards(torch, bam, fa, golden)
     rep = phase_replay(torch, np, largest)
     phase_busy(torch, bam, fa, golden)
     ud = phase_ultradeep(torch, np)
+    mesh_res = phase_mesh(torch, np)
     pile = next(p for p in piles if (p["J"], p["K"]) == DEEP_TIMED)
     n_bytes = sum(p["bytes"] for p in full)
     n_ops = sum(p["int_ops"] for p in full)
@@ -1043,7 +1221,10 @@ def main() -> int:
          "source": "gencore_tpu_torch/csrc/vote_window.cu",
          "replaces": "gencore_tpu/core/pallas_vote.py:390",
          "launches": launches["vote_window"],
-         "launches_in": "phase 4, the deep panel",
+         "launches_in": "phase 4, the deep panel on the streaming path",
+         "launches_sharded": [r["kernel_launches"]["vote_window"]
+                              for r in shard_runs],
+         "launches_sharded_in": "phase 4b, --shards 4 and its resume",
          "max_abs_err": max(win_err, rep["max_abs_err"]),
          "ms": rep["ms"], "call_ms": rep["call_ms"],
          "plain_ms": rep["plain_ms"],
@@ -1072,6 +1253,9 @@ def main() -> int:
                      "the XLA program K9; no Pallas kernel)",
          "launches": full_bins["vote_full"],
          "launches_in": "phase 3b, the full-bins panel",
+         "launches_mesh": sum(r["kernel_launches"]["vote_full"]
+                              for r in mesh_res.values()),
+         "launches_mesh_in": "phase 8, mesh.sharded_consensus_step (K14)",
          "max_abs_err": max(p["max_abs_err"] for p in full),
          "ms": sum(p["ms"] for p in full),
          "call_ms": sum(p["call_ms"] for p in full),

@@ -8,8 +8,12 @@ main.cpp:18-27. The engine flags are the JAX CLI's, plus `--device`:
     python -m gencore_tpu_torch.cli -i in.bam -o out.bam -r ref.fa --device cuda
 
 `--device cuda` (the default) raises on a machine without CUDA; `--device
-cpu` runs the plain PyTorch path. `--shards`/`--devices` above 1 are not
-ported yet (ROADMAP queue 1, item 3).
+cpu` runs the plain PyTorch path. `--devices N` deals the coordinate
+windows over cuda:0..N-1 (with `--device cpu`: N times over the CPU) and
+raises when the machine has fewer; `--shards N` runs N coordinate shards
+in turn, with `--checkpoint_dir` keeping finished shards for a resumed run.
+Every run says on one stderr line which I/O core and codec it uses and
+which path it took.
 """
 
 from __future__ import annotations
@@ -71,13 +75,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "device voting of window k")
     p.add_argument("--devices", type=int, default=1,
                    help="round-robin pipeline windows over N local GPUs "
-                        "(only 1 so far)")
+                        "(cuda:0..N-1; raises when there are fewer)")
     p.add_argument("--stream", action="store_true",
                    help="bounded-memory mode: decode/process/write per "
                         "coordinate window (peak RSS ~ one window, not the "
                         "file); BAM-file input+output only")
     p.add_argument("--shards", type=int, default=1,
-                   help="process in N coordinate shards (only 1 so far)")
+                   help="process in N coordinate shards (bounds peak memory; "
+                        "same outputs as a single pass)")
     p.add_argument("--checkpoint_dir", default="",
                    help="persist completed shards for crash resume (with --shards)")
     return p
@@ -101,6 +106,17 @@ def options_from_args(args) -> Options:
     )
     opt.validate()
     return opt
+
+
+def io_line(path: str) -> str:
+    """The run's one line on the I/O core, its DEFLATE codec and the path
+    taken (streaming, in-memory window pipeline, ...)."""
+    from gencore_tpu_torch.io import native
+    codec = native.codec()
+    if codec is not None:
+        return f"I/O: native core ({codec}), {path}"
+    return (f"I/O: pure-Python codec (native core unavailable: "
+            f"{native.why_not()}), {path}")
 
 
 def run_unit_tests() -> bool:
@@ -144,16 +160,14 @@ def main(argv=None) -> int:
         print(f"ERROR: {e}", file=sys.stderr)
         return -1
 
-    for flag, n in (("--shards", args.shards), ("--devices", args.devices)):
-        if n > 1:
-            raise NotImplementedError(
-                f"{flag} {n}: gencore_tpu_torch runs on one device and one "
-                "shard so far (ROADMAP queue 1, item 3)")
     import os
     device = None
+    devices = None
     if not args.oracle:
-        from gencore_tpu_torch.device import resolve_device
+        from gencore_tpu_torch.device import local_devices, resolve_device
         device = resolve_device(args.device)
+        if args.devices > 1:
+            devices = local_devices(device, args.devices)
 
     command = "gencore-tpu-torch " + " ".join(argv)
     t1 = time.time()
@@ -235,11 +249,12 @@ def main(argv=None) -> int:
             # straight to stdout (reference gencore.cpp:170-173)
             sys.stdout.flush()
             out_path = "/dev/stdout"
+        print(io_line("streaming path"), file=sys.stderr)
         from gencore_tpu_torch.utils.tracing import maybe_trace
         with maybe_trace():
             header, pre_stats, post_stats = run_streaming(
                 opt, opt.input, out_path, fasta=fasta, bed=bed,
-                n_windows=args.windows, device=device,
+                n_windows=args.windows, device=device, devices=devices,
                 stage_totals=stage_sum)
         if stage_sum:
             for k in sorted(stage_sum, key=lambda k: -stage_sum[k]):
@@ -277,15 +292,30 @@ def main(argv=None) -> int:
     from gencore_tpu_torch.utils.tracing import maybe_trace
     _trace_ctx = maybe_trace()
     _trace_ctx.__enter__()
-    if args.oracle:
+    if args.shards > 1 and not args.oracle:
+        from gencore_tpu_torch.parallel import windows as win
+
+        print(io_line(f"in-memory run in {args.shards} coordinate shards"),
+              file=sys.stderr)
+        tables, pre_stats, post_stats = win.run_sharded(
+            opt, reader.read_all(), header, fasta=fasta, bed=bed,
+            n_shards=args.shards,
+            checkpoint_dir=args.checkpoint_dir or None, device=device)
+        engine = _MergedResult(pre_stats, post_stats)
+        outs = win.merged_records(tables)
+    elif args.oracle:
         from gencore_tpu_torch.core.oracle import OracleEngine as EngineCls
+        print(io_line("in-memory run of the scalar oracle"), file=sys.stderr)
         engine = EngineCls(opt, header, fasta=fasta, bed=bed)
         outs = engine.run(reader.read_all())
     else:
         from gencore_tpu_torch.engine import VectorEngine
         batch = reader.read_all()
         use_pipeline = (args.windows != 1 and opt.max_contig == 0
-                        and (args.windows > 1 or batch.n >= 80_000))
+                        and (args.windows > 1 or args.devices > 1
+                             or batch.n >= 80_000))
+        print(io_line("in-memory window pipeline" if use_pipeline
+                      else "in-memory single-shot run"), file=sys.stderr)
         if use_pipeline:
             from gencore_tpu_torch.io import native as _native
             from gencore_tpu_torch.parallel import pipeline as pipe
@@ -301,7 +331,7 @@ def main(argv=None) -> int:
             try:
                 tables, pre_stats, post_stats = pipe.run_pipelined(
                     opt, batch, header, fasta=fasta, bed=bed,
-                    n_windows=args.windows, device=device,
+                    n_windows=args.windows, device=device, devices=devices,
                     stage_totals=stage_sum, out_writer=out_writer)
             except BaseException:
                 # the incremental writer truncated the output at start;

@@ -276,3 +276,58 @@ def fused_vote_plain(seq_all, qual_all, score_all, rows, shifts, valid,
     return _vote_core(gseq, gqual, gscore, valid.bool(), pos_valid,
                       refbase.to(torch.uint8), hi, mod, lo, base_score_req,
                       ratio_num, ratio_den, full_bins)
+
+
+def consensus_kernel(seq, qual, score, valid, pos_valid, refbase, *, hi, mod,
+                     lo, base_score_req, ratio_num, ratio_den, full_bins=True):
+    """The vote over members already gathered per job (Group::makeConsensus,
+    group.cpp:369-526), as gencore_tpu.core.kernels.consensus_kernel.
+
+    seq/qual u8 [J, K, L] (member 0 is the template; right-mode members
+    pre-shifted by lenDiff), score int [J, K, L], valid bool [J, K],
+    pos_valid bool [J, L], refbase u8 [J, L] (0 = no reference base).
+    Returns (new_seq u8 [J, L], new_qual u8 [J, L], diff i32 [J], minc
+    i32 [J]), rolled back to the template row where minc > 5.
+
+    CPU tensors run the plain version (`consensus_plain`). CUDA tensors
+    launch the Bins16 kernel through `vote.vote_full`, with the [J, K, L]
+    block viewed as J*K rows: it needs full_bins=True, L a multiple of 16,
+    scores within int8 and pos_valid a prefix mask (position < job length,
+    as every caller builds it); anything else raises."""
+    dev = seq.device
+    if dev.type == "cpu":
+        return consensus_plain(seq, qual, score, valid, pos_valid, refbase,
+                               hi=hi, mod=mod, lo=lo,
+                               base_score_req=base_score_req,
+                               ratio_num=ratio_num, ratio_den=ratio_den,
+                               full_bins=full_bins)
+    if dev.type != "cuda":
+        raise ValueError(f"consensus_kernel: unsupported device {dev}")
+    if not full_bins:
+        raise ValueError("consensus_kernel: on CUDA only full_bins=True has "
+                         "a kernel")
+    J, K, L = seq.shape
+    job_len = pos_valid.sum(dim=1, dtype=I32)
+    prefix = torch.arange(L, dtype=I32, device=dev)[None, :] < job_len[:, None]
+    if not bool((prefix == pos_valid.bool()).all()):
+        raise ValueError("consensus_kernel: pos_valid is not a prefix mask")
+    if score.dtype != torch.int8:
+        if score.numel() and (int(score.amin()) < -128
+                              or int(score.amax()) > 127):
+            raise ValueError("consensus_kernel: scores do not fit int8")
+        score = score.to(torch.int8)
+    rows = torch.arange(J * K, dtype=I32, device=dev).reshape(J, K)
+    return vote.vote_full(
+        seq.reshape(J * K, L).contiguous(), qual.reshape(J * K, L).contiguous(),
+        score.reshape(J * K, L).contiguous(), rows, torch.zeros_like(rows),
+        valid, job_len, refbase, hi=hi, mod=mod, lo=lo,
+        base_score_req=base_score_req, ratio_num=ratio_num,
+        ratio_den=ratio_den)
+
+
+def consensus_plain(seq, qual, score, valid, pos_valid, refbase, *, hi, mod,
+                    lo, base_score_req, ratio_num, ratio_den, full_bins=True):
+    """consensus_kernel in plain PyTorch on any device."""
+    return _vote_core(seq, qual, score, valid.bool(), pos_valid.bool(),
+                      refbase.to(torch.uint8), hi, mod, lo, base_score_req,
+                      ratio_num, ratio_den, full_bins)

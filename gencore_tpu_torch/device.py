@@ -7,6 +7,8 @@ of every device program. Nothing falls back from one to the other.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,28 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}: use cuda or cpu")
     return dev
+
+
+def local_devices(device, n: int) -> list:
+    """The `n` devices of a `--devices n` run that starts at `device`:
+    cuda:0..n-1 (raises when the machine has fewer), or n times the CPU
+    device, over which the windows still go round."""
+    dev = resolve_device(device)
+    if n < 1:
+        raise ValueError(f"--devices {n}: need at least one device")
+    if dev.type == "cpu":
+        return [dev] * n
+    have = torch.cuda.device_count()
+    if n > have:
+        raise RuntimeError(f"--devices {n} requested but this machine has "
+                           f"{have} CUDA device(s)")
+    return [dev] if n == 1 else [torch.device("cuda", i) for i in range(n)]
+
+
+def device_scope(dev: torch.device):
+    """Context in which `dev` is the current CUDA device, so that events,
+    pinned copies and kernel launches made inside land on its stream;
+    nothing to set for the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

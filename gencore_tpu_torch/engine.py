@@ -2780,10 +2780,13 @@ class _AsyncDownload:
 
     def __init__(self, t):
         if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
+            # the event belongs to the tensor's device, whichever is current
+            with torch.cuda.device(t.device):
+                self._host = torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                self._host.copy_(t, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host = t
             self._event = None

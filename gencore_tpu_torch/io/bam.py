@@ -9,8 +9,8 @@ only the reference's edits applied (seq/qual rewrite, NM adjust, qname copy,
 FR/RR append — src/group.cpp:503-573, src/bamutil.cpp:338-366,
 src/pair.cpp:54-68).
 
-Fast path: native/gcio.cpp (C++, libdeflate, threaded). This module is the
-pure-Python spec implementation and fallback.
+Fast path: csrc/gcio.cpp (C++, libdeflate or zlib, threaded). This module
+is the pure-Python spec implementation and fallback.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 BGZF is a series of gzip members, each carrying a BC extra subfield with the
 compressed block size, ending with a fixed 28-byte EOF block. The reference
 gets this from htslib (not available in this image); the fast path is the C++
-core in native/gcio.cpp — this module is the always-available fallback and the
+core in csrc/gcio.cpp — this module is the always-available fallback and the
 spec oracle for tests.
 """
 

@@ -1,51 +1,105 @@
-"""ctypes bindings for the native I/O core (native/libgcio.so).
+"""ctypes bindings for the port's native I/O core (csrc/gcio.cpp).
 
-Builds on demand (make in native/) and falls back to the pure-Python codec
-when the toolchain or library is unavailable. The native core does threaded
-BGZF inflate/deflate with libdeflate and BAM record-boundary scanning; the
-columnar field decode stays in vectorized numpy (io/bam.py).
+The core does threaded BGZF inflate/deflate and BAM record scanning; the
+columnar field decode stays in vectorized numpy (io/bam.py). It is built
+with the C++ compiler at first use into build/gencore_tpu_torch/, one
+library per hash of its sources, flags and DEFLATE codec: libdeflate
+where that is installed, else zlib. Any number of processes may start at
+once on an empty build directory: the build runs under an exclusive file
+lock, compiles to a temporary name and renames it into place, so a
+process only ever loads a whole library. Where there is no compiler or no
+codec library, get_lib() is None, why_not() says why, and callers use the
+pure-Python codec.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shlex
 import subprocess
-import sys
+import threading
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libgcio.so")
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "gencore_tpu_torch")
+SOURCES = ("gcio.cpp", "gcio_codec.h")
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
+# codec -> (define, link flag), in the order an unnamed build tries them
+CODECS = {"libdeflate": ("-DGCIO_CODEC_LIBDEFLATE", "-ldeflate"),
+          "zlib": ("-DGCIO_CODEC_ZLIB", "-lz")}
 
 _lib = None
 _tried = False
+_lib_lock = threading.Lock()
+# why the core is absent (get_lib() returned None), else ""
+BUILD_LOG = ""
 
 
-def _build():
+class NativeCoreError(RuntimeError):
+    """The native core could not be compiled or linked."""
+
+
+def _compiler() -> list:
+    return shlex.split(os.environ.get("CXX", "") or "g++")
+
+
+def library_path(codec: str) -> str:
+    """Path of the core for the current sources, flags and `codec`."""
+    h = hashlib.sha256(" ".join((*_compiler(), *CXXFLAGS,
+                                 *CODECS[codec])).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR,
+                        f"libgcio_{codec}_{h.hexdigest()[:16]}.so")
+
+
+def _compile(codec: str, path: str):
+    define, link = CODECS[codec]
+    tmp = f"{path}.tmp{os.getpid()}"
+    cmd = [*_compiler(), *CXXFLAGS, define,
+           os.path.join(CSRC_DIR, SOURCES[0]), "-o", tmp, link]
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
-        return True
-    except Exception:
-        return False
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise NativeCoreError(
+                f"{' '.join(cmd[:1])} failed for codec {codec} (exit "
+                f"{r.returncode}): {r.stderr.strip()[-400:]}")
+        os.replace(tmp, path)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise NativeCoreError(f"{cmd[0]}: {e}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
-def get_lib():
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    _tried = True
-    if os.environ.get("GENCORE_NO_NATIVE"):
-        return None
-    if not os.path.exists(_LIB_PATH):
-        if not _build():
-            return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
-        return None
+def build(codec: str) -> str:
+    """Path of the core built with `codec` ("libdeflate" or "zlib");
+    compiles it first when this build directory lacks it. Raises
+    NativeCoreError."""
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r}: one of {sorted(CODECS)}")
+    path = library_path(codec)
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, "gcio.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not os.path.exists(path):      # else built while we waited
+                _compile(codec, path)
+    return path
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare every entry point's argument and result types."""
+    lib.gc_codec_name.restype = ctypes.c_char_p
+    lib.gc_codec_name.argtypes = []
     lib.gc_bgzf_read.restype = ctypes.POINTER(ctypes.c_uint8)
     lib.gc_bgzf_read.argtypes = [ctypes.c_char_p,
                                  ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
@@ -63,19 +117,17 @@ def get_lib():
     lib.gc_bgzf_read_blocks.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                         ctypes.c_int64, ctypes.c_void_p,
                                         ctypes.c_int64, ctypes.c_int]
-    if hasattr(lib, "gc_bgzf_read_span"):
-        lib.gc_bgzf_read_span.restype = ctypes.c_int
-        lib.gc_bgzf_read_span.argtypes = [ctypes.c_char_p, ctypes.c_int64,
-                                          ctypes.c_int64, ctypes.c_void_p,
-                                          ctypes.c_int64, ctypes.c_int]
+    lib.gc_bgzf_read_span.restype = ctypes.c_int
+    lib.gc_bgzf_read_span.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                      ctypes.c_int64, ctypes.c_void_p,
+                                      ctypes.c_int64, ctypes.c_int]
     lib.gc_bam_scan.restype = ctypes.c_int64
     lib.gc_bam_scan.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
-    if hasattr(lib, "gc_bam_scan_partial"):
-        lib.gc_bam_scan_partial.restype = ctypes.c_int64
-        lib.gc_bam_scan_partial.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+    lib.gc_bam_scan_partial.restype = ctypes.c_int64
+    lib.gc_bam_scan_partial.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
     lib.gc_assemble.restype = None
     lib.gc_assemble.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_void_p, ctypes.c_int64,
@@ -121,59 +173,98 @@ def get_lib():
                                   ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_int]
-    if hasattr(lib, "gc_seq_edits"):
-        lib.gc_seq_edits.restype = None
-        lib.gc_seq_edits.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                     ctypes.c_int64, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int]
-        lib.gc_qual_edits.restype = None
-        lib.gc_qual_edits.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_int64, ctypes.c_void_p,
-                                      ctypes.c_int, ctypes.c_void_p,
-                                      ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_int]
-    if hasattr(lib, "gc_nm_extract"):
-        lib.gc_nm_extract.restype = None
-        lib.gc_nm_extract.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_void_p, ctypes.c_int64,
-                                      ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_int]
-    if hasattr(lib, "gc_bam_index"):
-        lib.gc_bam_index.restype = ctypes.c_int64
-        lib.gc_bam_index.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_void_p, ctypes.c_int64,
-             ctypes.POINTER(ctypes.c_int64)]
-            + [ctypes.c_void_p] * 8 + [ctypes.c_int])
-    if hasattr(lib, "gc_ref_edits"):
-        lib.gc_ref_edits.restype = None
-        lib.gc_ref_edits.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                     ctypes.c_int64, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int64,
-                                     ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int]
-    if hasattr(lib, "gc_nib_seen"):
-        lib.gc_nib_seen.restype = None
-        lib.gc_nib_seen.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                    ctypes.c_int64, ctypes.c_void_p,
-                                    ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_int]
-    if hasattr(lib, "gc_mi_flags"):
-        lib.gc_mi_flags.restype = None
-        lib.gc_mi_flags.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_void_p, ctypes.c_int64,
-                                    ctypes.c_void_p, ctypes.c_int]
+    lib.gc_seq_edits.restype = None
+    lib.gc_seq_edits.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int]
+    lib.gc_qual_edits.restype = None
+    lib.gc_qual_edits.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_int64, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_int]
+    lib.gc_nm_extract.restype = None
+    lib.gc_nm_extract.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_int64,
+                                  ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_int]
+    lib.gc_bam_index.restype = ctypes.c_int64
+    lib.gc_bam_index.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+         ctypes.c_void_p, ctypes.c_int64,
+         ctypes.POINTER(ctypes.c_int64)]
+        + [ctypes.c_void_p] * 8 + [ctypes.c_int])
+    lib.gc_ref_edits.restype = None
+    lib.gc_ref_edits.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int]
+    lib.gc_nib_seen.restype = None
+    lib.gc_nib_seen.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int]
+    lib.gc_mi_flags.restype = None
+    lib.gc_mi_flags.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_void_p, ctypes.c_int]
     lib.gc_greedy_group.restype = ctypes.c_int64
     lib.gc_greedy_group.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_void_p, ctypes.c_int64,
                                     ctypes.c_int64, ctypes.c_int64,
                                     ctypes.c_void_p]
-    _lib = lib
-    return _lib
+    return lib
+
+
+def load(codec: str | None = None) -> ctypes.CDLL:
+    """Build if need be and load the core with its entry points declared.
+    codec as for build(); None takes the first of CODECS whose library
+    builds and loads here (a build directory carried over from a machine
+    that had libdeflate holds one that does not). A library of its own, not
+    the one get_lib() caches: the tests hold one codec's build against the
+    other's. Raises NativeCoreError."""
+    errors = []
+    for c in ([codec] if codec else list(CODECS)):
+        try:
+            return _bind(ctypes.CDLL(build(c)))
+        except (NativeCoreError, OSError) as e:
+            errors.append(str(e))
+    raise NativeCoreError("; ".join(errors))
+
+
+def get_lib():
+    """The process's native core, or None when GENCORE_NO_NATIVE is set or
+    the core cannot be built or loaded here; why_not() then says why."""
+    global _lib, _tried, BUILD_LOG
+    with _lib_lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if os.environ.get("GENCORE_NO_NATIVE"):
+            BUILD_LOG = "GENCORE_NO_NATIVE is set"
+            return None
+        try:
+            _lib = load()
+        except NativeCoreError as e:
+            BUILD_LOG = str(e)
+        return _lib
+
+
+def why_not() -> str:
+    """Why get_lib() returned None ("" when it loaded or was not asked)."""
+    return "" if _lib is not None else BUILD_LOG
+
+
+def codec() -> str | None:
+    """Name of the DEFLATE codec of the loaded core ("libdeflate" or
+    "zlib"), None when there is no native core."""
+    lib = get_lib()
+    return None if lib is None else lib.gc_codec_name().decode()
 
 
 def bgzf_read(path: str, n_threads: int = 0):
@@ -251,7 +342,7 @@ def bgzf_read_span(path: str, file_lo: int, file_hi: int, out_len: int):
     (block-start offsets from bgzf_block_table); reads ONLY that span
     from disk, so streaming callers' I/O stays O(span)."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_bgzf_read_span"):
+    if lib is None:
         return None
     out = np.empty(out_len, dtype=np.uint8)
     r = lib.gc_bgzf_read_span(path.encode(), file_lo, file_hi,
@@ -284,7 +375,7 @@ def bam_scan_partial(payload: np.ndarray, body_start: int):
     (offsets int64[n+1] with offsets[n] = consumed, consumed) or None
     (no lib / corrupt record)."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_bam_scan_partial"):
+    if lib is None:
         return None
     payload = np.ascontiguousarray(payload, dtype=np.uint8)
     cap = max(1024, len(payload) // 40)
@@ -427,7 +518,7 @@ def seq_edits(packed: np.ndarray, rep_idx, lens, cap: int):
     Returns (cnt u8[n], pos u8[n,cap], code u8[n,cap]) with cnt==255
     marking overflow, or None without the native lib."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_seq_edits"):
+    if lib is None:
         return None
     packed = np.ascontiguousarray(packed, dtype=np.uint8)
     n, pw = packed.shape
@@ -448,7 +539,7 @@ def qual_edits(data: np.ndarray, qual_off, lens, cap: int):
     seen u8[256] distinct-value mask) with cnt==255 marking overflow, or
     None without the native lib."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_qual_edits"):
+    if lib is None:
         return None
     qo = _c64(qual_off)
     ln = _c32(lens)
@@ -471,7 +562,7 @@ def bam_index(payload: np.ndarray, body_start: int):
     int32 arrays tid/pos/mtid/mpos/isize/flag/l_qseq/nm) or None without
     the native lib. Stops cleanly at a trailing partial record."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_bam_index"):
+    if lib is None:
         return None
     payload = np.ascontiguousarray(payload, dtype=np.uint8)
     cap = max(len(payload) // 36 + 2, 16)
@@ -504,7 +595,7 @@ def ref_edits(packed: np.ndarray, lens, genome: np.ndarray, gpos,
     overflow, 254 = ineligible (gpos<0 / out of range). None without the
     native lib."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_ref_edits"):
+    if lib is None:
         return None
     packed = np.ascontiguousarray(packed, dtype=np.uint8)
     n, pw = packed.shape
@@ -525,7 +616,7 @@ def nm_extract(data: np.ndarray, aux_off, end):
     patch int64[n]) with patch = payload offset of a 1-byte 'C' value
     (-1 otherwise), or None without the native lib."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_nm_extract"):
+    if lib is None:
         return None
     ao = _c64(aux_off)
     en = _c64(end)
@@ -542,7 +633,7 @@ def mi_flags(data: np.ndarray, aux_off, end):
     """Per-record MI:Z candidate flags via threaded memchr over aux spans
     (gc_mi_flags). Returns uint8[n] or None without the native lib."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_mi_flags"):
+    if lib is None:
         return None
     ao = _c64(aux_off)
     en = _c64(end)
@@ -558,7 +649,7 @@ def nib_seen(packed: np.ndarray, lens, n: int = None):
     first `n` rows of a packed nibble matrix (gc_nib_seen), or None
     without the native lib."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "gc_nib_seen"):
+    if lib is None:
         return None
     packed = np.ascontiguousarray(packed, dtype=np.uint8)
     rows, pw = packed.shape

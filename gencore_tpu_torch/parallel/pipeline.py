@@ -15,8 +15,13 @@ work is queued asynchronously on the device's stream and overlaps both.
 
 Window ownership rules, global checkpoint/watermark injection and stats
 merging are those of parallel.windows; windows are cut at equal
-*clustered-read* quantiles (balanced work). One device per run: windows
-over several GPUs are ROADMAP queue 1, item 3.
+*clustered-read* quantiles (balanced work).
+
+Several devices: pass `devices` (a list of torch.device) and window w runs
+on devices[w % len(devices)] — its engine keeps its matrices there, and its
+dispatch and collect run with that device current, so its uploads, kernel
+launches, events and downloads go to that device's stream. Stats merge on
+the host.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import threading
 
 import numpy as np
 
+from gencore_tpu_torch.device import device_scope
 from gencore_tpu_torch.io import bam as bamio
 from gencore_tpu_torch.options import Options
 from gencore_tpu_torch.stats import Stats
@@ -33,6 +39,8 @@ from gencore_tpu_torch.engine import VectorEngine
 from gencore_tpu_torch.parallel.windows import (cluster_left_keys,
                                                 global_checkpoint,
                                                 global_watermark,
+                                                merge_shard_stats,
+                                                resolve_umi_prefix,
                                                 subset_batch)
 
 
@@ -87,14 +95,7 @@ def _merge_window_stats(pre: Stats, post: Stats, eng: VectorEngine):
     """Fold one window engine's stats into the global pair (per-read pre
     stats were computed once globally; only cluster/molecule counters and
     the full post stats come from windows) — mirrors windows.run_sharded."""
-    pre.cluster += eng.pre_stats.cluster
-    pre.multi_molecule_cluster += eng.pre_stats.multi_molecule_cluster
-    pre.molecule += eng.pre_stats.molecule
-    pre.molecule_se += eng.pre_stats.molecule_se
-    pre.molecule_pe += eng.pre_stats.molecule_pe
-    pre.supporting_histogram += eng.pre_stats.supporting_histogram
-    pre.uncounted_supporting_reads += eng.pre_stats.uncounted_supporting_reads
-    post.merge_from(eng.post_stats)
+    merge_shard_stats(pre, post, eng.pre_stats, eng.post_stats)
 
 
 def merged_payload(tables) -> np.ndarray:
@@ -230,7 +231,7 @@ def window_flush_boundaries(batch, wins):
 
 def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
                   fasta=None, bed=None, n_windows: int = 0,
-                  device="cuda", max_inflight: int = 3,
+                  device="cuda", devices=None, max_inflight: int = 3,
                   stage_totals: dict = None, engines_out: list = None,
                   out_writer=None, window_weights=None):
     """Run the vectorized engine as a window pipeline; returns
@@ -238,7 +239,8 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
     VectorEngine.run (the merged outputs are ordered by windows.merged_records).
 
     n_windows=0 picks a size-based default. device: where every window's
-    device programs run.
+    device programs run; devices: a list of torch.device to deal the
+    windows over in turn instead (None = the one `device`).
 
     out_writer: an incremental writer (StreamingBamWriter-compatible
     write_payload) — window outputs are then encoded and written on the
@@ -248,21 +250,15 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
     merged_payload(tables)."""
     assert opt.max_contig == 0, \
         "window pipelining does not combine with --quit_after_contig"
-    if opt.umi_prefix == "auto":
-        qn0 = batch.qname(0).decode("latin-1") if batch.n else ""
-        if "umi_" in qn0:
-            opt.umi_prefix = "umi"
-        elif "UMI_" in qn0:
-            opt.umi_prefix = "UMI"
-        else:
-            opt.umi_prefix = ""
+    resolve_umi_prefix(opt, batch)
 
     pre = Stats(opt.coverage_step, header.names, header.lengths,
                 bed_stats=bed, is_post=False)
     post = Stats(opt.coverage_step, header.names, header.lengths,
                  bed_stats=bed.copy_structure() if bed is not None else None,
                  is_post=True)
-    probe = VectorEngine(opt, header, fasta=None, device=device)
+    devs = list(devices) if devices else [device]
+    probe = VectorEngine(opt, header, fasta=None, device=devs[0])
     nm, _ = probe._extract_nm(batch, batch.n)
     pre.add_reads_vectorized(batch.tid.astype(np.int64),
                              batch.pos.astype(np.int64),
@@ -313,7 +309,8 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
             w, eng, st = item
             try:
                 tc0 = _time.perf_counter()
-                tables[w] = eng.run_collect(st)
+                with device_scope(eng.device):
+                    tables[w] = eng.run_collect(st)
                 engines[w] = eng
                 if bounds is not None:
                     tw0 = _time.perf_counter()
@@ -353,11 +350,12 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
             sub = subset_batch(batch, idx)
             eng = VectorEngine(mkopt(), header, fasta=fasta,
                                bed=bed.copy_structure() if bed is not None
-                               else None, device=device)
+                               else None, device=devs[w % len(devs)])
             eng._suppress_contig_dbg = True
             td0 = _time.perf_counter()
-            st = eng.run_dispatch(sub, checkpoint=ck, watermark=wm,
-                                  count_pre_reads=False)
+            with device_scope(eng.device):
+                st = eng.run_dispatch(sub, checkpoint=ck, watermark=wm,
+                                      count_pre_reads=False)
             if dbg:
                 td1 = _time.perf_counter()
                 print(f"[pipeline] w{w} dispatch "

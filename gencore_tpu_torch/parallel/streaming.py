@@ -29,6 +29,7 @@ import threading
 
 import numpy as np
 
+from gencore_tpu_torch.device import device_scope
 from gencore_tpu_torch.io import bam as bamio
 from gencore_tpu_torch.io import native
 from gencore_tpu_torch.options import Options
@@ -107,8 +108,6 @@ class StreamingBam:
         out_len = int(self.out_offs[bh]) - base
         buf = native.bgzf_read_span(self.path, int(self.file_offs[bl]),
                                     int(self.file_offs[bh]), out_len)
-        if buf is None:  # older libgcio without the span reader
-            buf = native.bgzf_read_blocks(self.path, bl, bh, out_len)
         if buf is None:
             raise IOError("BGZF ranged decode failed")
         return buf, base
@@ -312,7 +311,7 @@ class StreamingBamWriter:
 def run_streaming(opt: Options, path: str, out_path: str,
                   fasta=None, bed=None, n_windows: int = 0,
                   chunk_bytes: int = 24 << 20, device="cuda",
-                  stage_totals: dict = None):
+                  devices=None, stage_totals: dict = None):
     """Bounded-memory end-to-end run: returns (header, pre, post) after
     writing the output BAM incrementally. Output bytes are identical to
     the in-memory pipeline path. This is the DEFAULT engine path for
@@ -321,8 +320,9 @@ def run_streaming(opt: Options, path: str, out_path: str,
     so there is no serial whole-file decode prefix and peak residency is
     O(window), matching the reference's only mode (gencore.cpp:205).
 
-    device: where every window's device programs run; stage_totals
-    accumulates per-window stage timers."""
+    device: where every window's device programs run; devices: a list of
+    torch.device to deal the windows over in turn instead (as
+    parallel.pipeline); stage_totals accumulates per-window stage timers."""
     assert opt.max_contig == 0, \
         "streaming does not combine with --quit_after_contig"
     sbam = StreamingBam(path, chunk_bytes=chunk_bytes)
@@ -349,7 +349,8 @@ def run_streaming(opt: Options, path: str, out_path: str,
     buf0, _ = sbam._read_span(0, min(1 << 20, sbam.total))
     sbam._parse_header(buf0)
     header = sbam.header
-    probe = VectorEngine(opt, header, fasta=None, device=device)
+    devs = list(devices) if devices else [device]
+    probe = VectorEngine(opt, header, fasta=None, device=devs[0])
     import time as _time
     _ti0 = _time.perf_counter()
     index = sbam.build_index(per_chunk=per_chunk,
@@ -410,7 +411,8 @@ def run_streaming(opt: Options, path: str, out_path: str,
                 return
             w, eng, st = item
             try:
-                table = eng.run_collect(st)
+                with device_scope(eng.device):
+                    table = eng.run_collect(st)
                 stats_engines.append(eng)
                 if len(table):
                     pay = table.build_payload()
@@ -459,10 +461,11 @@ def run_streaming(opt: Options, path: str, out_path: str,
             assert w_dec == w
             eng = VectorEngine(mkopt(), header, fasta=fasta,
                                bed=bed.copy_structure() if bed is not None
-                               else None, device=device)
+                               else None, device=devs[w % len(devs)])
             eng._suppress_contig_dbg = True
-            st = eng.run_dispatch(batch, checkpoint=ck, watermark=wm,
-                                  count_pre_reads=False)
+            with device_scope(eng.device):
+                st = eng.run_dispatch(batch, checkpoint=ck, watermark=wm,
+                                      count_pre_reads=False)
             if not _put_alive(done_q, (w, eng, st), err):
                 break
     except BaseException as e:

@@ -15,10 +15,13 @@ single-shot run:
   * the reference's tick-checkpoint threshold quirk (gencore.cpp:409)
     depends on the global stream, so the checkpoint and the final
     watermark are computed globally and injected into every window;
-  * window stats merge by summation; outputs merge by the bamComp key.
+  * window stats merge by summation (Stats.merge_from); outputs merge by
+    the bamComp key.
 
-Coordinate sharding with checkpoint/resume (`--shards`) is not ported yet
-(ROADMAP queue 1, item 3).
+run_sharded is the single-process multi-shard form (`--shards`), with
+checkpoint and resume through parallel.resume; parallel.multihost and
+parallel.distributed give the shards or windows to several processes by
+the same rules.
 """
 
 from __future__ import annotations
@@ -26,7 +29,10 @@ from __future__ import annotations
 import numpy as np
 
 from gencore_tpu_torch.io import bam as bamio
-from gencore_tpu_torch.engine import PAIR_GAP_LIMIT, TICK
+from gencore_tpu_torch.engine import PAIR_GAP_LIMIT, TICK, VectorEngine
+from gencore_tpu_torch.options import Options
+from gencore_tpu_torch.parallel.resume import WindowCheckpoint
+from gencore_tpu_torch.stats import Stats
 
 
 def cluster_left_keys(batch: bamio.RecordBatch):
@@ -99,6 +105,127 @@ def global_watermark(batch: bamio.RecordBatch, header_lengths):
 def subset_batch(batch: bamio.RecordBatch, idx: np.ndarray) -> bamio.RecordBatch:
     """Zero-copy record subset (shared payload)."""
     return bamio.RecordBatch(batch.data, batch.off[idx], batch.end[idx])
+
+
+def resolve_umi_prefix(opt: Options, batch: bamio.RecordBatch):
+    """Settle `-u auto` once, from the first record (gencore.cpp:206-221),
+    so that every shard, window and process uses the same prefix."""
+    if opt.umi_prefix == "auto":
+        qn0 = batch.qname(0).decode("latin-1") if batch.n else ""
+        opt.umi_prefix = ("umi" if "umi_" in qn0
+                          else "UMI" if "UMI_" in qn0 else "")
+
+
+def merge_shard_stats(pre: Stats, post: Stats, spre: Stats, spost: Stats):
+    """Fold one shard's (or window's) stats into the global pair: the
+    per-read pre stats are computed once globally, so only the cluster and
+    molecule counters of `spre` count; `spost` counts whole."""
+    pre.cluster += spre.cluster
+    pre.multi_molecule_cluster += spre.multi_molecule_cluster
+    pre.molecule += spre.molecule
+    pre.molecule_se += spre.molecule_se
+    pre.molecule_pe += spre.molecule_pe
+    pre.supporting_histogram += spre.supporting_histogram
+    pre.uncounted_supporting_reads += spre.uncounted_supporting_reads
+    post.merge_from(spost)
+
+
+def shard_of_reads(batch: bamio.RecordBatch, lengths, n_shards: int):
+    """(kind, shard): the ownership kind of every read (0 = owned by no
+    shard) and the coordinate shard that owns its cluster — equal spans of
+    the concatenated genome coordinate of the cluster's left key."""
+    kind, left = cluster_left_keys(batch)
+    tlen = np.array(lengths, dtype=np.int64)
+    base = np.zeros(len(tlen) + 1, dtype=np.int64)
+    np.cumsum(tlen, out=base[1:])
+    coord = base[np.clip(batch.tid.astype(np.int64), 0, len(tlen) - 1)] + left
+    span = (int(base[-1]) + n_shards - 1) // n_shards
+    return kind, np.clip(coord // max(span, 1), 0, n_shards - 1)
+
+
+class LoadedShard:
+    """Shard results restored from a checkpoint (resume path)."""
+
+    def __init__(self, payload: np.ndarray, keys: np.ndarray):
+        self.payload = payload
+        self.keys = keys
+
+    def record_keys(self) -> np.ndarray:
+        return self.keys
+
+    def encoded_records(self) -> list:
+        out = []
+        p = 0
+        data = self.payload
+        n = len(data)
+        while p + 4 <= n:
+            bs = int(data[p]) | (int(data[p + 1]) << 8) | \
+                (int(data[p + 2]) << 16) | (int(data[p + 3]) << 24)
+            out.append(data[p + 4:p + 4 + bs].tobytes())
+            p += 4 + bs
+        return out
+
+    def build_payload(self) -> np.ndarray:
+        return self.payload
+
+
+def run_sharded(opt: Options, batch: bamio.RecordBatch, header,
+                fasta=None, bed=None, n_shards: int = 2,
+                checkpoint_dir: str | None = None, device="cuda"):
+    """Run the engine over `n_shards` coordinate shards; returns
+    (shard_results, pre_stats, post_stats) equivalent to a single-shot run.
+    With checkpoint_dir, completed shards are persisted and a resumed run
+    skips them (parallel.resume). device: where every shard's device
+    programs run."""
+    if opt.max_contig != 0:
+        raise ValueError("window sharding does not combine with "
+                         "--quit_after_contig")
+    resolve_umi_prefix(opt, batch)
+
+    # global pre-read stats (each record exactly once)
+    pre = Stats(opt.coverage_step, header.names, header.lengths,
+                bed_stats=bed, is_post=False)
+    post = Stats(opt.coverage_step, header.names, header.lengths,
+                 bed_stats=bed.copy_structure() if bed is not None else None,
+                 is_post=True)
+    # NM extraction via a throwaway engine helper
+    probe = VectorEngine(opt, header, fasta=None, device=device)
+    nm, _ = probe._extract_nm(batch, batch.n)
+    pre.add_reads_vectorized(batch.tid.astype(np.int64), batch.pos.astype(np.int64),
+                             batch.l_qseq.astype(np.int64), nm)
+
+    ckpt = None
+    if checkpoint_dir is not None:
+        ckpt = WindowCheckpoint(checkpoint_dir, opt, n_shards)
+
+    ck = global_checkpoint(batch)
+    wm = global_watermark(batch, header.lengths)
+    kind, shard = shard_of_reads(batch, header.lengths, n_shards)
+
+    tables = []
+    for s in range(n_shards):
+        if ckpt is not None and ckpt.is_done(s):
+            payload, keys, spre, spost = ckpt.load_shard(s)
+            tables.append(LoadedShard(payload, keys))
+            merge_shard_stats(pre, post, spre, spost)
+            continue
+        own = (kind > 0) & (shard == s)
+        idx = np.nonzero(own)[0]
+        if len(idx) == 0:
+            continue
+        sub = subset_batch(batch, idx)
+        sopt = Options(**{f.name: getattr(opt, f.name)
+                          for f in opt.__dataclass_fields__.values()})
+        eng = VectorEngine(sopt, header, fasta=fasta,
+                           bed=bed.copy_structure() if bed is not None else None,
+                           device=device)
+        table = eng.run(sub, checkpoint=ck, watermark=wm, count_pre_reads=False)
+        tables.append(table)
+        if ckpt is not None:
+            ckpt.record_shard(s, table.build_payload(), table.record_keys(),
+                              eng.pre_stats, eng.post_stats)
+        merge_shard_stats(pre, post, eng.pre_stats, eng.post_stats)
+    return tables, pre, post
 
 
 def merged_records(tables) -> list:

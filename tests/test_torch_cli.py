@@ -1,6 +1,7 @@
 """The port's CLI (`--device cpu`) against the JAX package's CLI on the
 same inputs, through the streaming path and through the in-memory window
-pipeline: output BAM bytes and JSON reports equal."""
+pipeline: output BAMs equal after BGZF inflation (and as files when both
+packages deflate with the same library), JSON reports equal."""
 
 import os
 import subprocess
@@ -12,8 +13,10 @@ import torch
 
 from gencore_tpu import cli as jax_cli
 from gencore_tpu_torch import cli as port_cli
+from gencore_tpu.io import native as jax_native
 from gencore_tpu_torch.io import native
 from tests.test_engine_equivalence import make_random_workload
+from tests.test_torch_native import inflate, same_codec
 
 torch.set_num_threads(1)
 
@@ -39,35 +42,63 @@ def _run(main, tmp_path, tag, bam_path, fa_path, extra):
     with open(js) as f:
         report = [ln for ln in f.read().splitlines()
                   if '"command"' not in ln]
-    return body, report
+    return inflate(out), report, body
 
 
 @pytest.mark.parametrize("mode", ["stream", "windows"])
 def test_port_cli_matches_jax_cli(tmp_path, monkeypatch, mode):
-    if mode == "stream" and native.get_lib() is None:
-        pytest.skip("streaming needs the native I/O core")
+    assert native.get_lib() is not None, native.why_not()
     monkeypatch.setenv("GENCORE_COMPILE_CACHE", "0")
     if mode == "windows":
         monkeypatch.setenv("GENCORE_NO_STREAM", "1")
     extra = ["--stream"] if mode == "stream" else ["--windows", "3"]
     bam_path, fa_path = _inputs(tmp_path)
-    want = _run(jax_cli.main, tmp_path, "jax", bam_path, fa_path, extra)
+    # the JAX CLI streams only with its own native core; where that did
+    # not load, its window pipeline gives the same records
+    jax_extra = (extra if mode == "windows"
+                 or jax_native.get_lib() is not None else ["--windows", "3"])
+    want = _run(jax_cli.main, tmp_path, "jax", bam_path, fa_path, jax_extra)
     got = _run(port_cli.main, tmp_path, "port", bam_path, fa_path,
                extra + ["--device", "cpu"])
-    assert got[0] == want[0]
+    assert got[0] == want[0] and len(got[0]) > 10_000
     assert got[1] == want[1]
+    if same_codec():
+        assert got[2] == want[2]
 
 
 def test_port_cli_default_device_and_unported_flags(tmp_path):
     bam_path, fa_path = _inputs(tmp_path)
-    args = ["-i", bam_path, "-o", str(tmp_path / "o.bam"), "-r", fa_path]
+    args = ["-i", bam_path, "-o", str(tmp_path / "o.bam"), "-r", fa_path,
+            "-j", str(tmp_path / "o.json"), "--html", str(tmp_path / "o.html")]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_cli.main(args)
+    # flags that once raised NotImplementedError now run, and say which
+    # I/O path they took
     for flag in ("--shards", "--devices"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_cli.main(args + [flag, "2", "--device", "cpu"])
+        assert port_cli.main(args + [flag, "2", "--device", "cpu"]) == 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_cli.main(args + ["--devices", "2"])
     assert port_cli.main(["test"]) == 0
+
+
+def test_port_cli_names_its_io_path_and_codec(tmp_path, monkeypatch, capsys):
+    bam_path, fa_path = _inputs(tmp_path)
+    _run(port_cli.main, tmp_path, "a", bam_path, fa_path,
+         ["--stream", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert err.count("I/O: ") == 1
+    assert f"I/O: native core ({native.codec()}), streaming path" in err
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    monkeypatch.setattr(native, "BUILD_LOG", "no compiler here")
+    _run(port_cli.main, tmp_path, "b", bam_path, fa_path,
+         ["--windows", "2", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert ("I/O: pure-Python codec (native core unavailable: no compiler "
+            "here), in-memory window pipeline") in err
+    assert inflate(tmp_path / "a.bam") == inflate(tmp_path / "b.bam")
 
 
 def test_port_cli_oracle_matches_port_engine(tmp_path):
@@ -87,8 +118,7 @@ def test_port_cli_pipes_stream(tmp_path):
     """`-i - -o -` through the port's CLI takes the streaming path
     (stdin spooled, incremental BGZF writes to stdout) and writes the
     same bytes as its file->file streaming run."""
-    if native.get_lib() is None:
-        pytest.skip("streaming needs the native I/O core")
+    assert native.get_lib() is not None, native.why_not()
     bam_path, fa_path = _inputs(tmp_path)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "GENCORE_STREAM_THRESHOLD": "1",

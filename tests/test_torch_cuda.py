@@ -265,3 +265,66 @@ def test_engine_on_cuda_matches_oracle(cuda, tmp_path):
     got = sorted(eng.run(treader.read_all()).encoded_records())
     assert vote.WINDOW_LAUNCHES > n0
     assert got == want
+
+
+def _jobs(rng, J, K, L):
+    """Pre-gathered jobs [J, K, L] for consensus_kernel: IUPAC codes,
+    absent members, ragged job lengths, positions without a reference."""
+    bases = np.array([1, 2, 4, 8], dtype=np.uint8)
+    seq = bases[rng.integers(0, 4, size=(J, K, L))]
+    seq = np.where(rng.random((J, K, L)) < 0.9, seq[:, :1, :], seq)
+    seq = np.where(rng.random((J, K, L)) < 0.03,
+                   rng.integers(0, 16, size=(J, K, L)), seq).astype(np.uint8)
+    qual = rng.integers(0, 42, size=(J, K, L)).astype(np.uint8)
+    score = rng.integers(-4, 13, size=(J, K, L)).astype(np.int32)
+    valid = rng.random((J, K)) < 0.85
+    valid[:, 0] = True
+    pos_valid = np.arange(L)[None, :] < rng.integers(1, L + 1, size=J)[:, None]
+    refbase = np.where(rng.random((J, L)) < 0.2, 0,
+                       bases[rng.integers(0, 4, size=(J, L))]).astype(np.uint8)
+    return seq, qual, score, valid, pos_valid, refbase
+
+
+@pytest.mark.parametrize("J,K,L", [(64, 4, 160), (7, 300, 96)])
+def test_consensus_kernel_cuda_matches_plain(cuda, J, K, L):
+    """kernels.consensus_kernel on CUDA tensors (the Bins16 kernel over the
+    [J, K, L] block viewed as rows) against consensus_plain on the CPU."""
+    cpu = [torch.from_numpy(a) for a in _jobs(np.random.default_rng(J), J, K,
+                                              L)]
+    n0 = vote.FULL_LAUNCHES
+    got = kernels.consensus_kernel(*[t.to(cuda) for t in cpu], **KW)
+    torch.cuda.synchronize()
+    assert vote.FULL_LAUNCHES == n0 + 1
+    want = kernels.consensus_plain(*cpu, **KW)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    gpu = [t.to(cuda) for t in cpu]
+    gpu[4] = ~gpu[4]                                  # not a prefix mask
+    with pytest.raises(ValueError, match="prefix mask"):
+        kernels.consensus_kernel(*gpu, **KW)
+    with pytest.raises(ValueError, match="full_bins"):
+        kernels.consensus_kernel(*[t.to(cuda) for t in cpu], full_bins=False,
+                                 **KW)
+
+
+def test_mesh_on_one_cuda_device_matches_plain(cuda):
+    from gencore_tpu_torch.options import Options
+    from gencore_tpu_torch.parallel import mesh as pmesh
+    batch = _jobs(np.random.default_rng(3), 32, 6, 160)
+    opt = Options()
+    m = pmesh.make_mesh(1, device=cuda)
+    got = pmesh.sharded_consensus_step(m, *batch, opt)
+    rnum, rden = kernels.ratio_fraction(opt.score_percent_req)
+    want = kernels.consensus_plain(
+        *[torch.from_numpy(a) for a in batch], hi=opt.high_quality,
+        mod=opt.moderate_quality, lo=opt.low_quality,
+        base_score_req=opt.base_score_req, ratio_num=rnum, ratio_den=rden)
+    for g, w in zip(got[:4], want):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[4]) == int(want[2].sum())
+    assert int(got[5]) == int((want[3] > 5).sum())
+    parts = np.arange(7, dtype=np.int64)[None, :] * 3
+    assert pmesh.stats_psum(m, parts).cpu().tolist() == parts[0].tolist()
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            pmesh.make_mesh(2, device=cuda)

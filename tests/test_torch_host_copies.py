@@ -2,7 +2,9 @@
 (gencore_tpu_torch/{io,options,stats,report,utils,core/...}) and of the
 test suite's BAM generator (gencore_tpu_torch/tools/workloads.py) against
 the originals, on the CPU: the same seed and recipe write the same BAM
-bytes, both readers decode it to the same records, and the oracle's JSON
+(equal after BGZF inflation; equal as files too when both packages
+deflate with the same library, since each has its own native core and
+codec), both readers decode it to the same records, and the oracle's JSON
 and HTML reports of one small run are identical."""
 
 import datetime
@@ -23,6 +25,7 @@ from gencore_tpu_torch.report import htmlreport as thtmlreport
 from gencore_tpu_torch.report import jsonreport as tjsonreport
 from gencore_tpu_torch.tools import workloads
 from tests import datagen
+from tests.test_torch_native import inflate, same_codec
 
 
 def _recipe(cls):
@@ -63,8 +66,11 @@ def test_host_copies_match_the_jax_package(tmp_path, monkeypatch, check):
         sb.write_bam(b)
         sb.write_fasta(f)
     if check == "bam_bytes":
-        with open(ref_bam, "rb") as a, open(port_bam, "rb") as b:
-            assert a.read() == b.read()
+        plain = inflate(ref_bam)
+        assert plain == inflate(port_bam) and len(plain) > 20_000
+        if same_codec():
+            with open(ref_bam, "rb") as a, open(port_bam, "rb") as b:
+                assert a.read() == b.read()
         with open(ref_fa, "rb") as a, open(port_fa, "rb") as b:
             assert a.read() == b.read()
         return

@@ -1,8 +1,12 @@
 """gencore_tpu_torch stands alone: a subprocess blocks JAX and the JAX
 package (sys.modules["jax"] = sys.modules["gencore_tpu"] = None), imports
-every module of the port and runs its CLI with --device cpu on a tiny BAM;
-and no source of the port, nor chip_smoke.py, imports JAX, the JAX package,
-bench.py or the test suite."""
+every module of the port (the parallel modules of `--shards`, `--devices`
+and the multi-process runs among them), loads the port's own native core
+and runs its CLI with --device cpu on a tiny BAM, sharded and streamed;
+no source of the port, nor chip_smoke.py, imports JAX, the JAX package,
+bench.py or the test suite; and the port builds its native core from its
+own csrc/ into build/, never through `make -C native` or a path under
+native/."""
 
 import os
 import pathlib
@@ -24,8 +28,16 @@ names = sorted(m.name for m in pkgutil.walk_packages(
     gencore_tpu_torch.__path__, "gencore_tpu_torch."))
 for n in names:
     importlib.import_module(n)
+for n in ("resume", "mesh", "distributed", "multihost", "windows",
+          "pipeline", "streaming"):
+    assert "gencore_tpu_torch.parallel." + n in names, n
+from gencore_tpu_torch.io import native
+assert native.get_lib() is not None, native.why_not()
+print("CORE", native.codec(), native.get_lib()._name)
 from gencore_tpu_torch.cli import main
 rc = main(sys.argv[1:])
+for extra in (["--shards", "2"], ["--stream", "--devices", "2"]):
+    rc = rc or main(sys.argv[1:] + extra)
 loaded = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in
                 ("jax", "jaxlib", "gencore_tpu", "bench", "tests"))
@@ -52,8 +64,30 @@ def test_port_runs_with_jax_blocked(tmp_path):
         timeout=300)
     assert cp.returncode == 0, cp.stderr[-3000:]
     m = re.search(r"MODULES (\d+) JAX \[\]", cp.stdout)
-    assert m and int(m.group(1)) >= 12, cp.stdout
+    assert m and int(m.group(1)) >= 16, cp.stdout
+    core = re.search(r"CORE (libdeflate|zlib) (\S+)", cp.stdout)
+    assert core, cp.stdout
+    built = pathlib.Path(core.group(2))
+    assert built.parent == REPO / "build" / "gencore_tpu_torch"
+    assert cp.stderr.count("I/O: native core") == 3, cp.stderr[-3000:]
     assert (tmp_path / "out.bam").stat().st_size > 0
+
+
+def test_port_builds_its_native_core_from_its_own_sources():
+    """No `make -C native`, no path under native/: the loader names only
+    csrc/ and build/, and the C++ sources are the port's own."""
+    loader = (REPO / "gencore_tpu_torch" / "io" / "native.py").read_text()
+    assert "make" not in re.findall(r"[\"']([a-z+]+)[\"']", loader)
+    assert not re.search(r"[\"']native[\"']|native/|libgcio\.so\b", loader)
+    for src in ("gcio.cpp", "gcio_codec.h"):
+        assert (REPO / "gencore_tpu_torch" / "csrc" / src).is_file()
+    pat = re.compile(r"make.*-C.*native|[\"'/]native/")
+    hits = [str(p) for p in _port_sources() if pat.search(p.read_text())]
+    assert hits == []
+    shim = (REPO / "gencore_tpu_torch" / "csrc" / "gcio_codec.h").read_text()
+    cpp = (REPO / "gencore_tpu_torch" / "csrc" / "gcio.cpp").read_text()
+    assert "<zlib.h>" in shim and "<libdeflate.h>" in shim
+    assert "libdeflate_" not in cpp and "gc_codec_name" in cpp
 
 
 def _port_sources():
