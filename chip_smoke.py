@@ -47,15 +47,23 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   4b the same input with `--shards 4 --checkpoint_dir D`, then again after
     one shard's files were deleted from D (resume): both equal to the
     golden digests, the second run recomputing exactly that shard;
+  4c the same input through the in-memory window pipeline
+    (parallel/pipeline.run_pipelined, `--windows 5` under
+    GENCORE_NO_STREAM, the CLI's path for what it does not stream): once
+    with the native core, each window written as it retires, and once as
+    on a machine without the core (pure-Python codec, windows merged into
+    one payload); both equal to the golden digests, window votes launched;
   5 the deep panel's largest window launch, replayed: the fused kernel
     against its twin (exact) and timed against the plain composition on
     the card, with its bound;
   6 device busy time and launch count of one deep-panel run (torch.profiler)
     before, with the plain composition put back for that run only
     (vote_window_plain on CUDA tensors: csrc/vote.cu plus the plain-torch
-    epilogue and concat), and after, with the fused kernel;
+    epilogue and concat), and after, with the fused kernel; both must take
+    the streaming path;
   7 the ultra-deep pile (workloads.ultradeep: 40 loci x 1,500 pairs, UMI
-    grouping off) through the CLI on cuda against its golden digests: wall
+    grouping off) through the CLI on cuda, which must take the streaming
+    path, against its golden digests: wall
     seconds and reads/s, then a profiled run with each gathered vote
     launch's (K, J), split, device time and share of its bound;
   8 parallel/mesh.py with one rank on the card (a torch.distributed NCCL
@@ -746,6 +754,16 @@ def _golden_workload(name, phase):
     return bam, fa, golden, n_in, t_gen
 
 
+def _io_lines(err):
+    """The `I/O: ...` lines of a CLI run's stderr (the CLI prints one)."""
+    return [ln for ln in err.splitlines() if ln.startswith("I/O: ")]
+
+
+def _streaming_line():
+    from gencore_tpu_torch.io import native
+    return f"I/O: native core ({native.codec()}), streaming path"
+
+
 def _counters(vote):
     return {"vote": vote.LAUNCHES, "vote_full": vote.FULL_LAUNCHES,
             "vote_window": vote.WINDOW_LAUNCHES}
@@ -811,6 +829,10 @@ def phase_ultradeep(torch, np):
     if rc or not (out_ok and rep_ok) or launches["vote"] == 0:
         fail(7, f"ultradeep run failed, differs from the golden digests, or "
                 f"launched no gathered vote: rc={rc} {launches} {err[-1500:]}")
+    io_lines = _io_lines(err)
+    if io_lines != [_streaming_line()]:
+        fail(7, f"the ultradeep run did not take the streaming path on the "
+                f"native core: {io_lines}")
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"\[stage\] (\S+): ([0-9.]+)s", err)}
 
@@ -826,8 +848,9 @@ def phase_ultradeep(torch, np):
     with _patched(vote, "vote_core", recorded):
         rc, err, t_rec, _n, out_ok2, rep_ok2 = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "ultradeep_rec"), golden)
-    if rc or not (out_ok2 and rep_ok2):
-        fail(7, f"recorded ultradeep run failed or differs: rc={rc}")
+    if rc or not (out_ok2 and rep_ok2) or _io_lines(err) != io_lines:
+        fail(7, f"recorded ultradeep run failed, differs or took another "
+                f"path: rc={rc} {_io_lines(err)}")
     per_launch = []
     for args, kw in calls:
         K, J = args[3].shape
@@ -842,7 +865,7 @@ def phase_ultradeep(torch, np):
                            "bound_by": b_by, "share_of_bound": b_ms / ms})
     del calls
     res = {"phase": 7, "name": "ultra-deep pile vs golden", "ok": True,
-           "workload": golden["workload"],
+           "workload": golden["workload"], "io_line": io_lines[0],
            "cli_args": golden.get("cli_args", []), "reads_in": n_in,
            "records_out": n_out, "generate_s": t_gen, "run_s": t_run,
            "reads_per_s": n_in / t_run, "run_s_recorded": t_rec,
@@ -913,9 +936,8 @@ def phase_full(torch, np):
     peak = torch.cuda.max_memory_allocated()
     if rc:
         fail(4, f"CLI exit code {rc}: {err[-2000:]}")
-    io_lines = [ln for ln in err.splitlines() if ln.startswith("I/O: ")]
-    want_io = f"I/O: native core ({native.codec()}), streaming path"
-    if len(streamed) != 1 or io_lines != [want_io]:
+    io_lines = _io_lines(err)
+    if len(streamed) != 1 or io_lines != [_streaming_line()]:
         fail(4, f"the deep panel did not go through run_streaming once on "
                 f"the native core: calls={len(streamed)} lines={io_lines}")
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
@@ -1004,6 +1026,105 @@ def phase_shards(torch, bam, fa, golden, n_shards=4):
     if not ok:
         fail("4b", "the sharded runs did not compute and load the shards "
                    "expected, or launched no window vote")
+    return runs
+
+
+@contextlib.contextmanager
+def _environ(**kv):
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _without_native_core():
+    """The process as it is where the native core cannot be had: get_lib()
+    decides anew under GENCORE_NO_NATIVE; the loaded core comes back after."""
+    from gencore_tpu_torch.io import native
+    saved = (native._lib, native._tried, native.BUILD_LOG)
+    native._lib, native._tried = None, False
+    try:
+        with _environ(GENCORE_NO_NATIVE="1"):
+            yield
+    finally:
+        native._lib, native._tried, native.BUILD_LOG = saved
+
+
+def phase_in_memory(torch, bam, fa, golden, n_windows=5):
+    """4c: the deep panel through the in-memory window pipeline
+    (parallel/pipeline.run_pipelined), the CLI's path for an input it does
+    not stream: once with the native core, each window written as it
+    retires (the out_writer route), and once as on a machine without the
+    core, pure-Python codec and the windows merged into one payload
+    (merged_payload). Both against the golden digests."""
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.io import native
+    from gencore_tpu_torch.parallel import pipeline
+    codec = native.codec()
+    calls = []
+    merged = []
+    orig_run = pipeline.run_pipelined
+    orig_merged = pipeline.merged_payload
+
+    def counted_run(*a, **k):
+        calls.append(k.get("out_writer") is not None)
+        return orig_run(*a, **k)
+
+    def counted_merged(tables):
+        merged.append(len(tables))
+        return orig_merged(tables)
+
+    runs = {}
+    cases = (("out_writer", contextlib.nullcontext,
+              f"I/O: native core ({codec}), in-memory window pipeline",
+              [True], False),
+             ("merged_payload", _without_native_core,
+              "I/O: pure-Python codec (native core unavailable: "
+              "GENCORE_NO_NATIVE is set), in-memory window pipeline",
+              [False], True))
+    for tag, core, want_io, want_calls, want_merged in cases:
+        del calls[:], merged[:]
+        with _patched(pipeline, "run_pipelined", counted_run), \
+                _patched(pipeline, "merged_payload", counted_merged), \
+                _environ(GENCORE_NO_STREAM="1"), core():
+            _zero_counters(vote)
+            rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
+                torch, bam, fa, os.path.join(WORK, f"in_memory_{tag}"),
+                golden, ["--windows", str(n_windows)])
+            launches = _counters(vote)
+        if rc:
+            fail("4c", f"CLI exit code {rc} ({tag}): {err[-2000:]}")
+        stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"\[stage\] (\S+): ([0-9.]+)s", err)}
+        runs[tag] = {"io_line": _io_lines(err), "run_s": t_run,
+                     "records_out": n_out, "kernel_launches": launches,
+                     "output_digest_equal": out_ok,
+                     "report_stats_equal": rep_ok,
+                     "run_pipelined_out_writer": list(calls),
+                     "merged_payload_windows": list(merged),
+                     "stage_seconds": stages}
+        ok = (out_ok and rep_ok and _io_lines(err) == [want_io]
+              and calls == want_calls and bool(merged) == want_merged
+              and launches["vote_window"] > 0)
+        if not ok:
+            emit({"phase": "4c", "ok": False, "run": tag, **runs[tag]})
+            fail("4c", f"the in-memory window pipeline ({tag}) differs from "
+                       "the golden digests, took another path, or launched "
+                       "no window vote")
+    if native.codec() != codec:
+        fail("4c", "the native core did not come back after the run "
+                   "without it")
+    emit({"phase": "4c", "name": "deep panel, in-memory window pipeline "
+                                 "(GENCORE_NO_STREAM), with and without the "
+                                 "native core, vs golden", "ok": True,
+          "n_windows": n_windows, **runs})
     return runs
 
 
@@ -1175,9 +1296,13 @@ def phase_busy(torch, bam, fa, golden):
         if rc or not (out_ok and rep_ok):
             fail(6, f"profiled deep-panel run ({tag}) failed or differs "
                     f"from the golden digests: rc={rc} {err[-1000:]}")
+        if _io_lines(err) != [_streaming_line()]:
+            fail(6, f"profiled deep-panel run ({tag}) did not take the "
+                    f"streaming path on the native core: {_io_lines(err)}")
         trace = os.path.join(d, "trace.json")
         prof.export_chrome_trace(trace)
         res[tag] = {"wall_s_profiled": t_run, "kernel_launches": counted,
+                    "io_line": _io_lines(err)[0],
                     **_device_activity(trace)}
         os.remove(trace)
     emit({"phase": 6, "name": "deep-panel device busy, before/after",
@@ -1208,6 +1333,7 @@ def main() -> int:
     full_bins = phase_full_bins(torch)
     bam, fa, golden, launches, largest = phase_full(torch, np)
     shard_runs = phase_shards(torch, bam, fa, golden)
+    mem_runs = phase_in_memory(torch, bam, fa, golden)
     rep = phase_replay(torch, np, largest)
     phase_busy(torch, bam, fa, golden)
     ud = phase_ultradeep(torch, np)
@@ -1225,6 +1351,10 @@ def main() -> int:
          "launches_sharded": [r["kernel_launches"]["vote_window"]
                               for r in shard_runs],
          "launches_sharded_in": "phase 4b, --shards 4 and its resume",
+         "launches_in_memory": [r["kernel_launches"]["vote_window"]
+                                for r in mem_runs.values()],
+         "launches_in_memory_in": "phase 4c, the in-memory window pipeline "
+                                  "with and without the native core",
          "max_abs_err": max(win_err, rep["max_abs_err"]),
          "ms": rep["ms"], "call_ms": rep["call_ms"],
          "plain_ms": rep["plain_ms"],

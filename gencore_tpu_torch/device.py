@@ -31,18 +31,18 @@ def resolve_device(device="cuda") -> torch.device:
 
 def local_devices(device, n: int) -> list:
     """The `n` devices of a `--devices n` run that starts at `device`:
-    cuda:0..n-1 (raises when the machine has fewer), or n times the CPU
-    device, over which the windows still go round."""
+    cuda:i..i+n-1 for `cuda:i` (raises when the machine has fewer), or n
+    times the CPU device, over which the windows still go round."""
     dev = resolve_device(device)
     if n < 1:
         raise ValueError(f"--devices {n}: need at least one device")
     if dev.type == "cpu":
         return [dev] * n
     have = torch.cuda.device_count()
-    if n > have:
-        raise RuntimeError(f"--devices {n} requested but this machine has "
-                           f"{have} CUDA device(s)")
-    return [dev] if n == 1 else [torch.device("cuda", i) for i in range(n)]
+    if dev.index + n > have:
+        raise RuntimeError(f"--devices {n} from {dev} requested but this "
+                           f"machine has {have} CUDA device(s)")
+    return [torch.device("cuda", dev.index + i) for i in range(n)]
 
 
 def device_scope(dev: torch.device):

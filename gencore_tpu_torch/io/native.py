@@ -7,7 +7,9 @@ library per hash of its sources, flags and DEFLATE codec: libdeflate
 where that is installed, else zlib. Any number of processes may start at
 once on an empty build directory: the build runs under an exclusive file
 lock, compiles to a temporary name and renames it into place, so a
-process only ever loads a whole library. Where there is no compiler or no
+process only ever loads a whole library. A compiler's refusal (no
+libdeflate.h, say) is recorded beside the libraries under the same key, so
+only the first process pays for it. Where there is no compiler or no
 codec library, get_lib() is None, why_not() says why, and callers use the
 pure-Python codec.
 """
@@ -61,6 +63,22 @@ def library_path(codec: str) -> str:
                         f"libgcio_{codec}_{h.hexdigest()[:16]}.so")
 
 
+def _failed_path(path: str) -> str:
+    """Where a compiler's refusal to build `path` is recorded."""
+    return path[:-len(".so")] + ".failed"
+
+
+def _recorded_failure(path: str):
+    """Raise the failure recorded for `path`, if there is one."""
+    try:
+        with open(_failed_path(path)) as f:
+            msg = f.read()
+    except OSError:
+        return
+    raise NativeCoreError(f"{msg} (recorded in {_failed_path(path)}: "
+                          "delete it to try again)")
+
+
 def _compile(codec: str, path: str):
     define, link = CODECS[codec]
     tmp = f"{path}.tmp{os.getpid()}"
@@ -69,9 +87,15 @@ def _compile(codec: str, path: str):
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
-            raise NativeCoreError(
-                f"{' '.join(cmd[:1])} failed for codec {codec} (exit "
-                f"{r.returncode}): {r.stderr.strip()[-400:]}")
+            # the same sources, flags and compiler will fail the same way
+            # (a missing header or library): later processes read this
+            # instead of compiling again under the lock
+            msg = (f"{' '.join(cmd[:1])} failed for codec {codec} (exit "
+                   f"{r.returncode}): {r.stderr.strip()[-400:]}")
+            with open(tmp, "w") as f:
+                f.write(msg)
+            os.replace(tmp, _failed_path(path))
+            raise NativeCoreError(msg)
         os.replace(tmp, path)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise NativeCoreError(f"{cmd[0]}: {e}") from e
@@ -88,10 +112,12 @@ def build(codec: str) -> str:
         raise ValueError(f"unknown codec {codec!r}: one of {sorted(CODECS)}")
     path = library_path(codec)
     if not os.path.exists(path):
+        _recorded_failure(path)
         os.makedirs(BUILD_DIR, exist_ok=True)
         with open(os.path.join(BUILD_DIR, "gcio.lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
             if not os.path.exists(path):      # else built while we waited
+                _recorded_failure(path)       # or refused while we waited
                 _compile(codec, path)
     return path
 

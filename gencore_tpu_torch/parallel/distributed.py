@@ -30,19 +30,36 @@ from gencore_tpu_torch.options import Options
 from gencore_tpu_torch.stats import Stats
 
 
+def rank_device(device, process_id: int, n_gpus: int):
+    """The CUDA device of rank `process_id` on a host with `n_gpus`: the
+    one `device` names when it carries an index, else cuda:(process_id
+    modulo n_gpus)."""
+    import torch
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", process_id % n_gpus)
+    return dev
+
+
 def init_runtime(coordinator: str, num_processes: int, process_id: int,
                  device="cuda", timeout_s: float = 300.0):
     """Bring up torch.distributed for this process: `coordinator` is
     "host:port" of process 0; the backend follows `device` (gloo for the
-    CPU, NCCL for CUDA, with this process's GPU made current). A hung
-    rendezvous or collective raises after timeout_s."""
+    CPU, NCCL for CUDA). This process's GPU is made current, so that a
+    later device="cuda" means it: the index that `device` names, else
+    process_id modulo the GPUs of this host, so that the ranks of one host
+    do not share a GPU. A hung rendezvous or collective raises after
+    timeout_s."""
     import torch
     import torch.distributed as dist
 
     from gencore_tpu_torch.device import resolve_device
-    dev = resolve_device(device)
-    if dev.type == "cuda":
+    if torch.device(device).type == "cuda":
+        resolve_device(device)          # raises without a CUDA device
+        dev = rank_device(device, process_id, torch.cuda.device_count())
         torch.cuda.set_device(dev)
+    else:
+        dev = resolve_device(device)
     dist.init_process_group(
         backend="nccl" if dev.type == "cuda" else "gloo",
         init_method=f"tcp://{coordinator}", world_size=num_processes,

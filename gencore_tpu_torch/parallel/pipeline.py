@@ -91,13 +91,6 @@ def plan_windows(batch: bamio.RecordBatch, header_lengths, n_windows: int,
     return out
 
 
-def _merge_window_stats(pre: Stats, post: Stats, eng: VectorEngine):
-    """Fold one window engine's stats into the global pair (per-read pre
-    stats were computed once globally; only cluster/molecule counters and
-    the full post stats come from windows) — mirrors windows.run_sharded."""
-    merge_shard_stats(pre, post, eng.pre_stats, eng.post_stats)
-
-
 def merged_payload(tables) -> np.ndarray:
     """Vectorized cross-window merge: one writer-ready payload (block_size-
     prefixed record stream) in global bamComp order. Stable lexsort over
@@ -372,7 +365,7 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
         engines_out.extend(e for e in engines if e is not None)
     for eng in engines:
         if eng is not None:
-            _merge_window_stats(pre, post, eng)
+            merge_shard_stats(pre, post, eng.pre_stats, eng.post_stats)
             if stage_totals is not None:
                 for k, v in eng.timer.totals.items():
                     stage_totals[k] = stage_totals.get(k, 0.0) + v

@@ -36,12 +36,12 @@ from gencore_tpu_torch.options import Options
 from gencore_tpu_torch.stats import Stats
 from gencore_tpu_torch.engine import VectorEngine
 from gencore_tpu_torch.parallel.pipeline import (plan_windows,
-                                                 _merge_window_stats,
                                                  flush_ready, _get_alive,
                                                  _put_alive,
                                                  window_flush_boundaries)
 from gencore_tpu_torch.parallel.windows import (global_checkpoint,
-                                                global_watermark)
+                                                global_watermark,
+                                                merge_shard_stats)
 
 
 # Auto-streaming size threshold (bytes of compressed BAM): above this the
@@ -486,7 +486,7 @@ def run_streaming(opt: Options, path: str, out_path: str,
     flush_ready(pending, None, writer)
     writer.close()
     for eng in stats_engines:
-        _merge_window_stats(pre, post, eng)
+        merge_shard_stats(pre, post, eng.pre_stats, eng.post_stats)
         if stage_totals is not None:
             for k, v in eng.timer.totals.items():
                 stage_totals[k] = stage_totals.get(k, 0.0) + v

@@ -267,6 +267,37 @@ def test_engine_on_cuda_matches_oracle(cuda, tmp_path):
     assert got == want
 
 
+def test_window_pipeline_on_cuda_matches_single_shot(cuda, tmp_path):
+    """parallel/pipeline.run_pipelined on the card: the windows' merged
+    records and payload equal one VectorEngine.run, and every window
+    launched the fused window kernel."""
+    from gencore_tpu_torch.engine import VectorEngine
+    from gencore_tpu_torch.io import bam as tbam
+    from gencore_tpu_torch.io.fasta import FastaRef as TFastaRef
+    from gencore_tpu_torch.options import Options as TOptions
+    from gencore_tpu_torch.parallel import pipeline, windows
+    from gencore_tpu_torch.tools import workloads
+
+    bam_path, fa, _ = workloads.small_panel(str(tmp_path))
+    reader = tbam.BamReader(bam_path)
+    ref = TFastaRef.load(fa)
+    eng = VectorEngine(TOptions(), reader.header, fasta=ref, device=cuda)
+    want = eng.run(reader.read_all()).encoded_records()
+    n0 = vote.WINDOW_LAUNCHES
+    tables, pre, post = pipeline.run_pipelined(
+        TOptions(), tbam.BamReader(bam_path).read_all(), reader.header,
+        fasta=ref, n_windows=4, device=cuda)
+    assert len(tables) > 1
+    assert vote.WINDOW_LAUNCHES - n0 >= len(tables)
+    assert windows.merged_records(tables) == want
+    payload = pipeline.merged_payload(tables).tobytes()
+    assert payload == b"".join(len(b).to_bytes(4, "little") + b
+                               for b in want)
+    assert (post.read, post.base) == (eng.post_stats.read,
+                                      eng.post_stats.base)
+    assert pre.molecule == eng.pre_stats.molecule
+
+
 def _jobs(rng, J, K, L):
     """Pre-gathered jobs [J, K, L] for consensus_kernel: IUPAC codes,
     absent members, ragged job lengths, positions without a reference."""

@@ -318,6 +318,45 @@ def test_missing_compiler_is_reported_not_raised(tmp_path):
         assert want in cp.stdout, cp.stdout
 
 
+def test_a_refused_build_is_recorded_and_not_tried_again(tmp_path):
+    """Where the first codec cannot be compiled (no libdeflate.h), the
+    first process records the refusal; later ones go straight to zlib
+    without starting the compiler for libdeflate again."""
+    log = tmp_path / "calls.log"
+    cxx = tmp_path / "cxx.sh"
+    cxx.write_text('#!/bin/sh\n'
+                   f'echo "$*" >> {log}\n'
+                   'case "$*" in *GCIO_CODEC_LIBDEFLATE*)\n'
+                   '  echo "fatal error: libdeflate.h: No such file" >&2\n'
+                   '  exit 1;; esac\n'
+                   'exec g++ "$@"\n')
+    cxx.chmod(0o755)
+    code = ("import sys\n"
+            "from gencore_tpu_torch.io import native\n"
+            "native.BUILD_DIR = sys.argv[1]\n"
+            "assert native.get_lib() is not None, native.why_not()\n"
+            "print('CODEC', native.codec())\n"
+            "try:\n"
+            "    native.build('libdeflate')\n"
+            "except native.NativeCoreError as e:\n"
+            "    print('REFUSED', e)\n")
+    env = dict(os.environ, PYTHONPATH=REPO, CXX=str(cxx))
+    env.pop("GENCORE_NO_NATIVE", None)
+    for _ in range(3):
+        cp = subprocess.run([sys.executable, "-c", code, str(tmp_path / "b")],
+                            capture_output=True, text=True, timeout=240,
+                            env=env)
+        assert cp.returncode == 0, cp.stderr[-2000:]
+        assert "CODEC zlib" in cp.stdout
+        assert "REFUSED" in cp.stdout and "libdeflate.h" in cp.stdout
+    calls = log.read_text().splitlines()
+    assert sum("GCIO_CODEC_LIBDEFLATE" in c for c in calls) == 1, calls
+    assert sum("GCIO_CODEC_ZLIB" in c for c in calls) == 1, calls
+    left = sorted(os.listdir(tmp_path / "b"))
+    assert len([f for f in left if f.endswith(".failed")]) == 1, left
+    assert not [f for f in left if ".tmp" in f], left
+
+
 def test_unloadable_library_gives_way_to_the_next_codec(tmp_path):
     """A build directory carried over from another machine may hold a
     libdeflate build that cannot load here: the zlib build takes over."""

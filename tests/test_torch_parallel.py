@@ -116,6 +116,31 @@ def test_local_devices():
             local_devices("cuda", 2)
 
 
+def test_local_devices_start_at_the_index_given(monkeypatch):
+    """`cuda:1` with 2 devices is cuda:1 and cuda:2, never cuda:0; a run
+    past the machine's last GPU raises (a machine of 4 GPUs stands in)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    assert local_devices("cuda", 1) == cuda[:1]
+    assert local_devices("cuda", 4) == cuda
+    assert local_devices("cuda:1", 2) == cuda[1:3]
+    assert local_devices("cuda:3", 1) == cuda[3:]
+    for dev, n in (("cuda", 5), ("cuda:1", 4), ("cuda:3", 2)):
+        with pytest.raises(RuntimeError, match="4 CUDA device"):
+            local_devices(dev, n)
+
+
+@pytest.mark.parametrize("device,pid,n_gpus,want", [
+    ("cuda", 0, 2, 0), ("cuda", 1, 2, 1), ("cuda", 5, 4, 1),
+    ("cuda", 3, 1, 0), ("cuda:1", 0, 2, 1), ("cuda:0", 1, 2, 0)])
+def test_rank_device(device, pid, n_gpus, want):
+    """Ranks of one host take different GPUs unless the caller names one."""
+    from gencore_tpu_torch.parallel.distributed import rank_device
+    assert rank_device(device, pid, n_gpus) == torch.device("cuda", want)
+
+
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
     d = tmp_path_factory.mktemp("devs")
