@@ -69,8 +69,29 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   8 parallel/mesh.py with one rank on the card (a torch.distributed NCCL
     group of one process, and a one-device mesh): sharded_consensus_step
     (the Bins16 kernel through kernels.consensus_kernel) against the plain
-    vote on the CPU, and stats_psum against the numpy sum, exact.
-Then the kernels line and the card line, and last
+    vote on the CPU, and stats_psum against the numpy sum, exact;
+  9 the case matrix of gencore_tpu_torch/tools/golden_compare.py: 13 CLI
+    cases over the JAX CLI's option surface (MI tags, duplex, -s/-c,
+    --no_duplex, -x, a BED, no FASTA, -a and the qual tiers, SAM in and
+    out, --quit_after_contig; read length 100, so L = 128), each on every
+    route the CLI allows (its own choice, --stream, --windows 3), against
+    the golden digests that the JAX CLI made
+    (gencore_tpu_torch/testdata/cases), with each run's vote launches
+    (counters zeroed just before it; every run must launch one); then both
+    kernels at L = 128 against their plain twins, exact: defaults_noumi's
+    window launch replayed, and vote_core on inputs of its shape;
+ 10 entry.entry() on the card against kernels.consensus_plain (exact), and
+    entry.dryrun_multichip(1) on cuda:0: 1-device records, stats_psum
+    against the host merge, the window plan and the busy-time rebalance,
+    and two host processes pinned to cores 0 and 1 on the one card;
+ 11 tools/measure_rss.py at scale 1 and 2 (the deep panel of 40,000 and
+    80,000 fragments): peak resident set (VmHWM, or where the kernel does
+    not report it, VmRSS sampled every 10 ms), tracemalloc peak and CUDA
+    max allocated / reserved of the in-memory window pipeline and of the
+    streaming path, each in a fresh process, whose outputs must hold the
+    same records.
+Then the kernels line (with each kernel's launches summed over phase 9)
+and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: the bytes each input is read once and each output written once
@@ -877,6 +898,35 @@ def phase_ultradeep(torch, np):
     return res
 
 
+def _window_recorder(np, vote, largest, per_launch=None, qtables=None):
+    """A stand-in for vote.pallas_vote_window that calls it and keeps, in
+    `largest`, the inputs of the launch with the most members (replayed
+    later); per_launch / qtables get each launch's classes (K, J, sum of
+    member counts) and whether it had a qual nibble table."""
+    orig = vote.pallas_vote_window
+
+    def recorded(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
+                 qtable, class_args, **kw):
+        info = [[K, J, int(np.asarray(class_args[4 * ci + 1])
+                         .astype(np.int64).sum())]
+                for ci, (K, J) in enumerate(kw["classes"])]
+        if per_launch is not None:
+            per_launch.append(info)
+            qtables.append(qtable is not None)
+        tot = sum(x[2] for x in info)
+        if tot > largest["sum_counts"]:
+            largest.update(
+                sum_counts=tot, classes=info,
+                args=[t.clone() for t in (seq_dev, qual_dev, score_dev)]
+                + [genome] + [np.array(a) for a in (gp, hr, hm, jp)]
+                + [None if qtable is None else np.array(qtable),
+                   [np.array(a) for a in class_args]], kw=dict(kw))
+        return orig(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
+                    qtable, class_args, **kw)
+
+    return recorded
+
+
 def phase_full(torch, np):
     from gencore_tpu_torch.core import vote
     from gencore_tpu_torch.io import native
@@ -899,7 +949,6 @@ def phase_full(torch, np):
     per_launch = []
     qtables = []
     largest = {"sum_counts": -1}
-    orig = vote.pallas_vote_window
     streamed = []
     orig_stream = streaming.run_streaming
 
@@ -907,24 +956,7 @@ def phase_full(torch, np):
         streamed.append(k.get("device"))
         return orig_stream(*a, **k)
 
-    def recorded(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
-                 qtable, class_args, **kw):
-        info = [[K, J, int(np.asarray(class_args[4 * ci + 1])
-                         .astype(np.int64).sum())]
-                for ci, (K, J) in enumerate(kw["classes"])]
-        per_launch.append(info)
-        qtables.append(qtable is not None)
-        tot = sum(x[2] for x in info)
-        if tot > largest["sum_counts"]:
-            largest.update(
-                sum_counts=tot, classes=info,
-                args=[t.clone() for t in (seq_dev, qual_dev, score_dev)]
-                + [genome] + [np.array(a) for a in (gp, hr, hm, jp)]
-                + [None if qtable is None else np.array(qtable),
-                   [np.array(a) for a in class_args]], kw=dict(kw))
-        return orig(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
-                    qtable, class_args, **kw)
-
+    recorded = _window_recorder(np, vote, largest, per_launch, qtables)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _patched(vote, "pallas_vote_window", recorded), \
@@ -1201,8 +1233,11 @@ def phase_mesh(torch, np):
     return res
 
 
-def phase_replay(torch, np, largest):
-    """The deep panel's largest window launch, replayed."""
+def _replay_window(torch, largest, phase):
+    """A recorded window launch replayed through the fused kernel and its
+    plain twin (on the CPU); fails the phase on any mismatching byte.
+    Returns (kernel inputs, qual table, class args, kw, mismatches, max
+    abs err)."""
     from gencore_tpu_torch.core import vote
     (seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
      class_args) = largest["args"]
@@ -1218,8 +1253,17 @@ def phase_replay(torch, np, largest):
                                   class_args, **kw)
     mism, err = _compare_window(got, want)
     if mism:
-        fail(5, f"vote_window kernel != twin on the deep panel's largest "
-                f"launch: {mism} mismatching bytes")
+        fail(phase, f"vote_window kernel != twin on a replayed launch "
+                    f"{largest['classes']}: {mism} mismatching bytes")
+    return mats, qt, qtable, class_args, kw, mism, err
+
+
+def phase_replay(torch, np, largest):
+    """The deep panel's largest window launch, replayed."""
+    from gencore_tpu_torch.core import vote
+    mats, qt, qtable, class_args, kw, mism, err = _replay_window(
+        torch, largest, 5)
+    seq_dev, refbase_dev = mats[0], mats[3]
     t = _timings(
         torch, lambda: vote.vote_window_plain(*mats, qt, class_args, **kw),
         lambda: vote.vote_window(*mats, qt, class_args, **kw),
@@ -1313,6 +1357,165 @@ def phase_busy(torch, bam, fa, golden):
     return res
 
 
+def phase_cases(torch, np):
+    """9: the case matrix of tools/golden_compare.py (13 CLI cases over
+    the JAX CLI's option surface) on every route each case allows, through
+    the port's CLI on cuda, each run held to the case's golden digests
+    (input, ordered output records, JSON report, normalized HTML report)
+    and required to launch a vote kernel (counters zeroed just before each
+    run); then, at L = 128, defaults_noumi's window launch replayed through
+    vote_window against vote_window_plain, and vote_core against
+    vote_core_plain on inputs of that launch's shape."""
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.tools import golden_compare as gc
+    wd = os.path.join(WORK, "cases")
+    t0 = time.perf_counter()
+    for case in gc.CASES.values():
+        gc.prepare(case, wd)
+    t_gen = time.perf_counter() - t0
+    runs = []
+    totals = {"vote": 0, "vote_full": 0, "vote_window": 0}
+    largest = {"sum_counts": -1}
+    t0 = time.perf_counter()
+    for name, case in gc.CASES.items():
+        golden = gc.load_golden(name)
+        for route in case.routes:
+            rec = (name, route) == ("defaults_noumi", "default")
+            with (_patched(vote, "pallas_vote_window",
+                           _window_recorder(np, vote, largest)) if rec
+                  else contextlib.nullcontext()):
+                _zero_counters(vote)
+                t = time.perf_counter()
+                got = gc.run_route(case, route, wd, device="cuda")
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                launches = _counters(vote)
+            run = {"case": name, "route": route, "run_s": dt,
+                   "io_line": got["io_line"],
+                   "records_out": got["output"]["records"],
+                   "kernel_launches": launches,
+                   "differences": gc.differences(got, golden)}
+            runs.append(run)
+            for k in totals:
+                totals[k] += launches[k]
+            if run["differences"] or not any(launches.values()):
+                emit({"phase": 9, "ok": False, **run})
+                fail(9, f"{name} on route {route} differs from its golden "
+                        f"digests ({run['differences']}) or launched no "
+                        "vote kernel")
+    t_runs = time.perf_counter() - t0
+    if largest["sum_counts"] < 0:
+        fail(9, "defaults_noumi launched no window vote to replay")
+    mats, _qt, _qtable, _ca, kw, w_mism, w_err = _replay_window(
+        torch, largest, 9)
+    N, L = mats[0].shape
+    if L != 128:
+        fail(9, f"defaults_noumi's window launch has L={L}, not 128")
+    K, J = kw["classes"][0]
+    arrs = _vote_inputs(np, K, J, L, N, 128)
+    cpu = [torch.from_numpy(a) for a in arrs]
+    got = vote.vote_core(*[t.cuda() for t in cpu], **KW)
+    torch.cuda.synchronize()
+    want = vote.vote_core_plain(*cpu, hi=KW["hi"], mod=KW["mod"],
+                                lo=KW["lo"], bsr=KW["base_score_req"],
+                                rnum=KW["ratio_num"], rden=KW["ratio_den"])
+    c_mism = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+    c_err = max(int((g.cpu().long() - w.long()).abs().max())
+                for g, w in zip(got, want))
+    if c_mism:
+        fail(9, f"vote kernel != plain twin at L=128 (K={K}, J={J}, N={N}): "
+                f"{c_mism} mismatches")
+    res = {"phase": 9, "name": "case matrix (tools/golden_compare.py) on "
+                               "cuda vs golden digests", "ok": True,
+           "cases": len(gc.CASES), "runs": len(runs),
+           "generate_s": t_gen, "runs_s": t_runs,
+           "kernel_launches": totals,
+           "gathered_cases": sorted({r["case"] for r in runs
+                                     if r["kernel_launches"]["vote"]}),
+           "L128": {"window_launch_K_J_sumcounts": largest["classes"],
+                    "N": N, "L": L, "vote_window_mismatches": w_mism,
+                    "vote_window_max_abs_err": w_err,
+                    "vote_core_shape": {"K": K, "J": J, "N": N},
+                    "vote_core_mismatches": c_mism,
+                    "vote_core_max_abs_err": c_err,
+                    "tolerance": "exact (0 mismatches)"},
+           "per_run": runs}
+    emit(res)
+    return res
+
+
+def phase_entry(torch):
+    """10: entry() on the card against kernels.consensus_plain on the same
+    inputs (exact), then dryrun_multichip(1) on cuda:0 with its pinned
+    2-host run (two processes on one card, one core each)."""
+    from gencore_tpu_torch import entry
+    from gencore_tpu_torch.core import kernels, vote
+    fn, args = entry.entry("cuda")
+    _zero_counters(vote)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = _counters(vote)
+    want = kernels.consensus_plain(*[a.cpu() for a in args], **entry.VOTE_KW)
+    mism = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+    err = max(int((g.cpu().long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    if mism or launches["vote_full"] != 1:
+        fail(10, f"entry() differs from consensus_plain ({mism} mismatches) "
+                 f"or did not launch the Bins16 kernel once: {launches}")
+    t0 = time.perf_counter()
+    _zero_counters(vote)
+    dry = entry.dryrun_multichip(1, device="cuda:0", busy_reps=2)
+    t_dry = time.perf_counter() - t0
+    dry_launches = _counters(vote)
+    if dry["pinned_efficiency"] is None or not dry_launches["vote_window"]:
+        fail(10, "dryrun_multichip(1) skipped its pinned 2-host run or "
+                 "launched no window vote")
+    res = {"phase": 10, "name": "entry() vs consensus_plain; "
+                                "dryrun_multichip(1) on cuda:0", "ok": True,
+           "entry": {"shape": list(args[0].shape), "mismatches": mism,
+                     "max_abs_err": err, "kernel_launches": launches,
+                     "tolerance": "exact (0 mismatches)"},
+           "dryrun": dry, "dryrun_s": t_dry,
+           "dryrun_kernel_launches_in_process": dry_launches}
+    emit(res)
+    return res
+
+
+def phase_rss(torch):
+    """11: tools/measure_rss.py at scale 1 and 2 on cuda: host (peak
+    resident set, tracemalloc) and device residency of the in-memory window
+    pipeline and of the streaming path, each in a fresh process; the two
+    outputs must hold the same records."""
+    from gencore_tpu_torch.tools import measure_rss
+    scales = []
+    for scale in (1, 2):
+        t0 = time.perf_counter()
+        r = measure_rss.measure(scale, device="cuda",
+                                workdir=os.path.join(WORK, "workloads"))
+        r["measure_s"] = time.perf_counter() - t0
+        scales.append(r)
+        if not r["outputs_identical"]:
+            fail(11, f"measure_rss at scale {scale}: the in-memory and the "
+                     "streaming outputs differ")
+    s1, s2 = scales
+
+    def ratio(key):
+        return (s2[key] / s1[key] if s1.get(key) and s2.get(key) is not None
+                else "not measured")
+
+    res = {"phase": 11, "name": "measure_rss, in-memory vs streaming, "
+                                "scale 1 and 2", "ok": True,
+           "ratios_scale_2_to_1": {
+               f"{mode}_{k}": ratio(f"{mode}_{k}")
+               for mode in ("in_memory", "streaming")
+               for k in ("peak_rss_mb", "sampled_rss_peak_mb",
+                         "tracemalloc_peak_mb", "cuda_max_allocated_mb",
+                         "cuda_max_reserved_mb")},
+           "scales": scales}
+    emit(res)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1338,6 +1541,14 @@ def main() -> int:
     phase_busy(torch, bam, fa, golden)
     ud = phase_ultradeep(torch, np)
     mesh_res = phase_mesh(torch, np)
+    t9 = time.perf_counter()
+    cases = phase_cases(torch, np)
+    phase_entry(torch)
+    phase_rss(torch)
+    t_new = time.perf_counter() - t9
+    cases_in = (f"phase 9, {cases['cases']} CLI cases on every route each "
+                f"allows ({cases['runs']} runs), counters zeroed before "
+                "each run and summed")
     pile = next(p for p in piles if (p["J"], p["K"]) == DEEP_TIMED)
     n_bytes = sum(p["bytes"] for p in full)
     n_ops = sum(p["int_ops"] for p in full)
@@ -1355,6 +1566,8 @@ def main() -> int:
                                 for r in mem_runs.values()],
          "launches_in_memory_in": "phase 4c, the in-memory window pipeline "
                                   "with and without the native core",
+         "launches_cases": cases["kernel_launches"]["vote_window"],
+         "launches_cases_in": cases_in,
          "max_abs_err": max(win_err, rep["max_abs_err"]),
          "ms": rep["ms"], "call_ms": rep["call_ms"],
          "plain_ms": rep["plain_ms"],
@@ -1368,6 +1581,8 @@ def main() -> int:
          "replaces": "gencore_tpu/core/pallas_vote.py:178",
          "launches": ud["kernel_launches"]["vote"],
          "launches_in": "phase 7, the ultra-deep pile (gathered path)",
+         "launches_cases": cases["kernel_launches"]["vote"],
+         "launches_cases_in": cases_in,
          "max_abs_err": max(vk["max_abs_err"],
                             max(p["max_abs_err"] for p in piles)),
          "ms": pile["ms"], "call_ms": pile["call_ms"],
@@ -1386,6 +1601,8 @@ def main() -> int:
          "launches_mesh": sum(r["kernel_launches"]["vote_full"]
                               for r in mesh_res.values()),
          "launches_mesh_in": "phase 8, mesh.sharded_consensus_step (K14)",
+         "launches_cases": cases["kernel_launches"]["vote_full"],
+         "launches_cases_in": cases_in,
          "max_abs_err": max(p["max_abs_err"] for p in full),
          "ms": sum(p["ms"] for p in full),
          "call_ms": sum(p["call_ms"] for p in full),
@@ -1393,7 +1610,8 @@ def main() -> int:
          "bound_ms": full_bound, "bound_by": full_by, "library_ms": None,
          "shape": f"phase 2d, sum over (J, K) in {list(FULL_SHAPES)}, "
                   f"L={L_PHASE2}"}],
-        "seconds": time.perf_counter() - t_start})
+        "seconds": time.perf_counter() - t_start,
+        "seconds_phases_9_to_11": t_new})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

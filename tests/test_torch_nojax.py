@@ -31,6 +31,9 @@ for n in names:
 for n in ("resume", "mesh", "distributed", "multihost", "windows",
           "pipeline", "streaming"):
     assert "gencore_tpu_torch.parallel." + n in names, n
+for n in ("entry", "tools.golden_compare", "tools.measure_rss",
+          "tools.make_golden", "tools.workloads"):
+    assert "gencore_tpu_torch." + n in names, n
 from gencore_tpu_torch.io import native
 assert native.get_lib() is not None, native.why_not()
 print("CORE", native.codec(), native.get_lib()._name)
