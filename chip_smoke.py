@@ -70,10 +70,11 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     group of one process, and a one-device mesh): sharded_consensus_step
     (the Bins16 kernel through kernels.consensus_kernel) against the plain
     vote on the CPU, and stats_psum against the numpy sum, exact;
-  9 the case matrix of gencore_tpu_torch/tools/golden_compare.py: 13 CLI
+  9 the case matrix of gencore_tpu_torch/tools/golden_compare.py: 15 CLI
     cases over the JAX CLI's option surface (MI tags, duplex, -s/-c,
     --no_duplex, -x, a BED, no FASTA, -a and the qual tiers, SAM in and
-    out, --quit_after_contig; read length 100, so L = 128), each on every
+    out, --quit_after_contig, and real duplex merges with and without -x;
+    read length 100, so L = 128), 41 runs, each on every
     route the CLI allows (its own choice, --stream, --windows 3), against
     the golden digests that the JAX CLI made
     (gencore_tpu_torch/testdata/cases), with each run's vote launches
@@ -83,13 +84,23 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
  10 entry.entry() on the card against kernels.consensus_plain (exact), and
     entry.dryrun_multichip(1) on cuda:0: 1-device records, stats_psum
     against the host merge, the window plan and the busy-time rebalance,
-    and two host processes pinned to cores 0 and 1 on the one card;
+    and two host processes pinned to cores 0 and 1 on the one card; then
+    one more pinned host of both shards through host_steps, which times
+    each step of multihost.run_host on its own (torch import, first CUDA
+    call, library loads, FASTA load, read_all, shard keys, and per shard
+    the engine construction, eng.run and the files), on its own line;
  11 tools/measure_rss.py at scale 1 and 2 (the deep panel of 40,000 and
     80,000 fragments): peak resident set (VmHWM, or where the kernel does
-    not report it, VmRSS sampled every 10 ms), tracemalloc peak and CUDA
-    max allocated / reserved of the in-memory window pipeline and of the
-    streaming path, each in a fresh process, whose outputs must hold the
-    same records.
+    not report it, VmRSS sampled every 10 ms), tracemalloc peak, glibc's
+    heap at the end, the pinned host pool (torch.cuda.host_memory_stats,
+    where this torch has it) and CUDA max allocated / reserved of the
+    in-memory window pipeline and of the streaming path, each in a fresh
+    process, whose outputs must hold the same records; and the streaming
+    path's growth from scale 1 to 2, traced and untraced;
+ 12 the port's native core with zlib under ThreadSanitizer: its exerciser
+    csrc/test_gcio.cpp built with -fsanitize=thread and run; a race or a
+    nonzero exit fails the run, a compiler that refuses the TSan build is
+    reported on its own line.
 Then the kernels line (with each kernel's launches summed over phase 9)
 and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1358,7 +1369,7 @@ def phase_busy(torch, bam, fa, golden):
 
 
 def phase_cases(torch, np):
-    """9: the case matrix of tools/golden_compare.py (13 CLI cases over
+    """9: the case matrix of tools/golden_compare.py (15 CLI cases over
     the JAX CLI's option surface) on every route each case allows, through
     the port's CLI on cuda, each run held to the case's golden digests
     (input, ordered output records, JSON report, normalized HTML report)
@@ -1394,7 +1405,10 @@ def phase_cases(torch, np):
                    "io_line": got["io_line"],
                    "records_out": got["output"]["records"],
                    "kernel_launches": launches,
+                   "summary": got["summary"],
                    "differences": gc.differences(got, golden)}
+            if got["summary"] != golden["summary"]:
+                run["differences"].append("summary")
             runs.append(run)
             for k in totals:
                 totals[k] += launches[k]
@@ -1428,6 +1442,9 @@ def phase_cases(torch, np):
     res = {"phase": 9, "name": "case matrix (tools/golden_compare.py) on "
                                "cuda vs golden digests", "ok": True,
            "cases": len(gc.CASES), "runs": len(runs),
+           "duplex_consensus_reads": {
+               r["case"]: r["summary"]["duplex_consensus_sequence"]
+               for r in runs if r["summary"]["duplex_consensus_sequence"]},
            "generate_s": t_gen, "runs_s": t_runs,
            "kernel_launches": totals,
            "gathered_cases": sorted({r["case"] for r in runs
@@ -1444,10 +1461,106 @@ def phase_cases(torch, np):
     return res
 
 
+def host_steps(bam, fa, n_shards, shard_ids, out_dir, device):
+    """The steps of parallel/multihost.run_host in its order, each timed on
+    its own, for one host process (phase 10 runs it in a fresh interpreter
+    pinned to one core); prints one JSON line {"steps": [[name, s], ...],
+    "timed_s": the sum of the steps that run_host's timer covers, ...}.
+    The two imports come before that timer, as in a host process; the
+    library loads and the first CUDA call, which run_host makes inside its
+    first engine run, are taken apart here so that each has its own time.
+    Each shard's engine stages (StageTimer sums) are printed beside it."""
+    mark = [time.perf_counter()]
+    steps = []
+
+    def lap(name):
+        now = time.perf_counter()
+        steps.append([name, now - mark[0]])
+        mark[0] = now
+
+    import torch
+    lap("import torch")
+    import pickle
+
+    import numpy as np
+
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.engine import VectorEngine
+    from gencore_tpu_torch.io import bam as bamio
+    from gencore_tpu_torch.io import native
+    from gencore_tpu_torch.io.fasta import FastaRef
+    from gencore_tpu_torch.options import Options
+    from gencore_tpu_torch.parallel import windows
+    lap("import the port's modules")
+    n_untimed = len(steps)
+    if device != "cpu":
+        torch.zeros(1, device=device)
+        torch.cuda.synchronize()
+        lap("first CUDA call (context)")
+        vote.build_library()
+        lap("kernel library load")
+    native.get_lib()
+    lap("native core load")
+    opt = Options(umi_prefix="UMI")
+    fasta = FastaRef.load(fa)
+    lap("FastaRef.load")
+    reader = bamio.BamReader(bam)
+    batch = reader.read_all()
+    header = reader.header
+    lap("read_all")
+    windows.resolve_umi_prefix(opt, batch)
+    ck = windows.global_checkpoint(batch)
+    wm = windows.global_watermark(batch, header.lengths)
+    kind, shard = windows.shard_of_reads(batch, header.lengths, n_shards)
+    lap("shard keys")
+    stages = {}
+    os.makedirs(out_dir, exist_ok=True)
+    for s in shard_ids:
+        sub = windows.subset_batch(batch,
+                                   np.nonzero((kind > 0) & (shard == s))[0])
+        eng = VectorEngine(opt, header, fasta=fasta, device=device)
+        lap(f"shard {s}: subset and engine construction")
+        table = eng.run(sub, checkpoint=ck, watermark=wm,
+                        count_pre_reads=False)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        lap(f"shard {s}: eng.run")
+        stages[s] = {k: round(v, 4) for k, v in sorted(
+            eng.timer.totals.items(), key=lambda kv: -kv[1])[:8]}
+        stem = os.path.join(out_dir, f"shard_{s}")
+        table.build_payload().tofile(stem + ".payload")
+        np.save(stem + ".keys.npy", table.record_keys())
+        with open(stem + ".stats.pkl", "wb") as f:
+            pickle.dump((eng.pre_stats, eng.post_stats), f)
+        lap(f"shard {s}: payload, keys and stats files")
+    print(json.dumps({"steps": steps,
+                      "timed_s": sum(t for _, t in steps[n_untimed:]),
+                      "reads": int(batch.n), "shards": list(shard_ids),
+                      "device": device, "torch_threads":
+                      torch.get_num_threads(), "eng_stages": stages}),
+          flush=True)
+
+
+def _pinned_host_steps(bam, fa, out_dir, core):
+    """host_steps for one host that runs both shards of two, in a fresh
+    interpreter pinned to `core` on cuda:0; returns its JSON line."""
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "chip_smoke.host_steps(%r, %r, 2, [0, 1], %r, 'cuda:0')"
+            % (REPO, bam, fa, out_dir))
+    r = subprocess.run(["taskset", "-c", str(core), sys.executable, "-c",
+                        code], capture_output=True, text=True, timeout=600,
+                       cwd=REPO)
+    if r.returncode != 0:
+        fail(10, f"the pinned host-steps driver failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
 def phase_entry(torch):
     """10: entry() on the card against kernels.consensus_plain on the same
     inputs (exact), then dryrun_multichip(1) on cuda:0 with its pinned
-    2-host run (two processes on one card, one core each)."""
+    2-host run (two processes on one card, one core each), then one more
+    pinned host of both shards through host_steps, which times each step
+    of run_host on its own (printed on its own line)."""
     from gencore_tpu_torch import entry
     from gencore_tpu_torch.core import kernels, vote
     fn, args = entry.entry("cuda")
@@ -1462,20 +1575,31 @@ def phase_entry(torch):
     if mism or launches["vote_full"] != 1:
         fail(10, f"entry() differs from consensus_plain ({mism} mismatches) "
                  f"or did not launch the Bins16 kernel once: {launches}")
+    wd = os.path.join(WORK, "hosts")
+    os.makedirs(wd, exist_ok=True)
+    t0 = time.perf_counter()
+    workload = entry._dryrun_workload(27000, wd)
+    t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
     _zero_counters(vote)
-    dry = entry.dryrun_multichip(1, device="cuda:0", busy_reps=2)
+    dry = entry.dryrun_multichip(1, device="cuda:0", busy_reps=2,
+                                 workload=workload)
     t_dry = time.perf_counter() - t0
     dry_launches = _counters(vote)
     if dry["pinned_efficiency"] is None or not dry_launches["vote_window"]:
         fail(10, "dryrun_multichip(1) skipped its pinned 2-host run or "
                  "launched no window vote")
+    steps = _pinned_host_steps(*workload, os.path.join(wd, "steps"),
+                               sorted(os.sched_getaffinity(0))[0])
+    emit({"phase": 10, "name": "run_host's steps, one host of both shards "
+                               "pinned to one core on cuda:0", **steps})
     res = {"phase": 10, "name": "entry() vs consensus_plain; "
                                 "dryrun_multichip(1) on cuda:0", "ok": True,
            "entry": {"shape": list(args[0].shape), "mismatches": mism,
                      "max_abs_err": err, "kernel_launches": launches,
                      "tolerance": "exact (0 mismatches)"},
-           "dryrun": dry, "dryrun_s": t_dry,
+           "dryrun": dry, "dryrun_s": t_dry, "generate_s": t_gen,
+           "host_steps_timed_s": steps["timed_s"],
            "dryrun_kernel_launches_in_process": dry_launches}
     emit(res)
     return res
@@ -1483,9 +1607,11 @@ def phase_entry(torch):
 
 def phase_rss(torch):
     """11: tools/measure_rss.py at scale 1 and 2 on cuda: host (peak
-    resident set, tracemalloc) and device residency of the in-memory window
-    pipeline and of the streaming path, each in a fresh process; the two
-    outputs must hold the same records."""
+    resident set, tracemalloc, glibc heap, pinned host pool) and device
+    residency of the in-memory window pipeline and of the streaming path,
+    each in a fresh process; the two outputs must hold the same records.
+    Also the streaming path's growth from scale 1 to 2: peak resident
+    set, its traced part and the rest."""
     from gencore_tpu_torch.tools import measure_rss
     scales = []
     for scale in (1, 2):
@@ -1503,8 +1629,34 @@ def phase_rss(torch):
         return (s2[key] / s1[key] if s1.get(key) and s2.get(key) is not None
                 else "not measured")
 
+    def growth(mode, key):
+        a, b = s1.get(f"{mode}_{key}"), s2.get(f"{mode}_{key}")
+        return None if a is None or b is None else b - a
+
+    def pinned(r):
+        hp = r.get("streaming_host_pinned")
+        return None if hp is None else {
+            "bytes": hp.get("allocated_bytes.current"),
+            "peak_bytes": hp.get("allocated_bytes.peak"),
+            "blocks": hp.get("allocations.current")}
+
+    # the streaming path's growth from scale 1 to 2, split into what
+    # tracemalloc sees and the rest, beside the pinned host pool and the
+    # glibc heap that could hold the rest
+    rss_g = growth("streaming", "peak_rss_mb")
+    traced_g = growth("streaming", "tracemalloc_peak_mb")
+    heap = [r.get("streaming_malloc_end_mb") or {} for r in (s1, s2)]
+    res_growth = {
+        "peak_rss_mb": rss_g, "tracemalloc_peak_mb": traced_g,
+        "untraced_mb": (None if rss_g is None or traced_g is None
+                        else rss_g - traced_g),
+        "malloc_free_in_arenas_end_mb": (
+            heap[1]["free_in_arenas"] - heap[0]["free_in_arenas"]
+            if heap[0] and heap[1] else None),
+        "pinned_host_pool": [pinned(r) for r in scales]}
     res = {"phase": 11, "name": "measure_rss, in-memory vs streaming, "
                                 "scale 1 and 2", "ok": True,
+           "streaming_growth_scale_1_to_2": res_growth,
            "ratios_scale_2_to_1": {
                f"{mode}_{k}": ratio(f"{mode}_{k}")
                for mode in ("in_memory", "streaming")
@@ -1514,6 +1666,39 @@ def phase_rss(torch):
            "scales": scales}
     emit(res)
     return res
+
+
+def phase_tsan():
+    """12: the port's native core (csrc/gcio.cpp behind gcio_codec.h) with
+    the zlib codec, the build this card's CLI runs, linked with its
+    exerciser csrc/test_gcio.cpp under ThreadSanitizer
+    (io/native.build_tsan) and run: fails on a nonzero exit or a race
+    report. Where the compiler refuses -fsanitize=thread, prints the
+    refusal on its own line and goes on."""
+    from gencore_tpu_torch.io import native
+    t0 = time.perf_counter()
+    try:
+        exe = native.build_tsan("zlib")
+    except native.NativeCoreError as e:
+        print("tsan: the zlib build was refused here: "
+              + " ".join(str(e).split()), flush=True)
+        emit({"phase": 12, "name": "native core under ThreadSanitizer "
+                                   "(zlib)", "ok": True, "built": False})
+        return
+    t_build = time.perf_counter() - t0
+    d = os.path.join(WORK, "tsan")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([exe, d], capture_output=True, text=True, timeout=300)
+    races = r.stderr.count("WARNING: ThreadSanitizer")
+    if r.returncode != 0 or races:
+        fail(12, f"the TSan exerciser exited {r.returncode} with {races} "
+                 f"race report(s): {r.stderr[-3000:]}")
+    emit({"phase": 12, "name": "native core under ThreadSanitizer (zlib)",
+          "ok": True, "built": True, "build_s": t_build,
+          "run_s": time.perf_counter() - t0, "races": 0,
+          "stdout": r.stdout.strip(),
+          "program": os.path.relpath(exe, REPO)})
 
 
 def main() -> int:
@@ -1546,6 +1731,7 @@ def main() -> int:
     phase_entry(torch)
     phase_rss(torch)
     t_new = time.perf_counter() - t9
+    phase_tsan()
     cases_in = (f"phase 9, {cases['cases']} CLI cases on every route each "
                 f"allows ({cases['runs']} runs), counters zeroed before "
                 "each run and summed")

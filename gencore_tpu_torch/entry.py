@@ -113,10 +113,12 @@ def _dryrun_workload(n_fragments: int, out_dir: str):
 
 
 def dryrun_multichip(n_devices: int, device="cuda", n_fragments: int = 27000,
-                     busy_reps: int = 5) -> dict:
+                     busy_reps: int = 5, workload=None) -> dict:
     """Run the checks above over `n_devices` devices from `device` (with
     "cpu": n times the CPU), print one line and return its numbers.
-    `busy_reps`: serialized runs whose median is each busy measurement."""
+    `busy_reps`: serialized runs whose median is each busy measurement.
+    `workload`: (bam, fasta) of the dryrun workload made beforehand by
+    _dryrun_workload(n_fragments, ...), else it is made here."""
     from gencore_tpu_torch.io import bam as bamio
     from gencore_tpu_torch.io.fasta import FastaRef
     from gencore_tpu_torch.options import Options
@@ -129,7 +131,7 @@ def dryrun_multichip(n_devices: int, device="cuda", n_fragments: int = 27000,
     devs = m.devices
     tmp = tempfile.mkdtemp(prefix="gencore_dryrun_")
     try:
-        bam_path, fa_path = _dryrun_workload(n_fragments, tmp)
+        bam_path, fa_path = workload or _dryrun_workload(n_fragments, tmp)
         fasta = FastaRef.load(fa_path)
         reader = bamio.BamReader(bam_path)
         batch = reader.read_all()
@@ -196,6 +198,7 @@ def dryrun_multichip(n_devices: int, device="cuda", n_fragments: int = 27000,
         # host scaling: N processes pinned to disjoint cores, same total
         # work, T(1 pinned host) / (N * T(N pinned hosts)), best of 2
         eff = None
+        host_times = []
         eff_line = "pinned-core-scaling=skipped(1 core)"
         cores = sorted(os.sched_getaffinity(0))
         if len(cores) >= 2:
@@ -210,8 +213,10 @@ def dryrun_multichip(n_devices: int, device="cuda", n_fragments: int = 27000,
                                pin_cores=cores[:1], device=host_dev)
                 mh.spawn_hosts(opts, bam_path, fa_path, nh, nh, dN,
                                pin_cores=cores[:nh], device=host_dev)
-                th1 = min(th1, max(mh.host_times(d1, 1)))
-                thN = min(thN, max(mh.host_times(dN, nh)))
+                host_times.append({"t1": mh.host_times(d1, 1),
+                                   "tN": mh.host_times(dN, nh)})
+                th1 = min(th1, max(host_times[-1]["t1"]))
+                thN = min(thN, max(host_times[-1]["tN"]))
                 r1, _, _ = mh.merge_hosts(d1, nh, reader.header)
                 rN, _, _ = mh.merge_hosts(dN, nh, reader.header)
                 _check(r1 == rN, "pinned multihost outputs differ between "
@@ -231,7 +236,8 @@ def dryrun_multichip(n_devices: int, device="cuda", n_fragments: int = 27000,
            "adopted_spread": _spread(adopted), "measurement_noise": noise,
            "planned_rows_per_window": rows_per_win,
            "planned_rows_spread": _spread(rows_per_win),
-           "pinned_efficiency": eff}
+           "pinned_efficiency": eff,
+           "pinned_host_times": host_times}
     print(f"dryrun_multichip({n_devices}): mesh=({m.size},) "
           f"devices={res['devices']} records={len(recsN)} "
           f"record-equivalent=True psum_stats={host} "

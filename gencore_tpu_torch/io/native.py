@@ -35,6 +35,10 @@ CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 # codec -> (define, link flag), in the order an unnamed build tries them
 CODECS = {"libdeflate": ("-DGCIO_CODEC_LIBDEFLATE", "-ldeflate"),
           "zlib": ("-DGCIO_CODEC_ZLIB", "-lz")}
+# the ThreadSanitizer exerciser of the core (csrc/test_gcio.cpp)
+TSAN_SOURCES = ("gcio.cpp", "gcio_codec.h", "test_gcio.cpp")
+TSAN_FLAGS = ("-O1", "-g", "-std=c++17", "-Wall", "-pthread",
+              "-fsanitize=thread")
 
 _lib = None
 _tried = False
@@ -51,21 +55,25 @@ def _compiler() -> list:
     return shlex.split(os.environ.get("CXX", "") or "g++")
 
 
-def library_path(codec: str) -> str:
-    """Path of the core for the current sources, flags and `codec`."""
-    h = hashlib.sha256(" ".join((*_compiler(), *CXXFLAGS,
+def _build_key(codec: str, flags, sources) -> str:
+    h = hashlib.sha256(" ".join((*_compiler(), *flags,
                                  *CODECS[codec])).encode())
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR,
-                        f"libgcio_{codec}_{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
+
+
+def library_path(codec: str) -> str:
+    """Path of the core for the current sources, flags and `codec`."""
+    return os.path.join(BUILD_DIR, f"libgcio_{codec}_"
+                        f"{_build_key(codec, CXXFLAGS, SOURCES)}.so")
 
 
 def _failed_path(path: str) -> str:
     """Where a compiler's refusal to build `path` is recorded."""
-    return path[:-len(".so")] + ".failed"
+    return os.path.splitext(path)[0] + ".failed"
 
 
 def _recorded_failure(path: str):
@@ -79,11 +87,12 @@ def _recorded_failure(path: str):
                           "delete it to try again)")
 
 
-def _compile(codec: str, path: str):
+def _compile(codec: str, path: str, flags, sources):
     define, link = CODECS[codec]
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [*_compiler(), *CXXFLAGS, define,
-           os.path.join(CSRC_DIR, SOURCES[0]), "-o", tmp, link]
+    cmd = [*_compiler(), *flags, define,
+           *(os.path.join(CSRC_DIR, n) for n in sources
+             if n.endswith(".cpp")), "-o", tmp, link]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
@@ -104,13 +113,12 @@ def _compile(codec: str, path: str):
             os.remove(tmp)
 
 
-def build(codec: str) -> str:
-    """Path of the core built with `codec` ("libdeflate" or "zlib");
-    compiles it first when this build directory lacks it. Raises
-    NativeCoreError."""
+def _check_codec(codec: str):
     if codec not in CODECS:
         raise ValueError(f"unknown codec {codec!r}: one of {sorted(CODECS)}")
-    path = library_path(codec)
+
+
+def _build(codec: str, path: str, flags, sources) -> str:
     if not os.path.exists(path):
         _recorded_failure(path)
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -118,8 +126,30 @@ def build(codec: str) -> str:
             fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
             if not os.path.exists(path):      # else built while we waited
                 _recorded_failure(path)       # or refused while we waited
-                _compile(codec, path)
+                _compile(codec, path, flags, sources)
     return path
+
+
+def build(codec: str) -> str:
+    """Path of the core built with `codec` ("libdeflate" or "zlib");
+    compiles it first when this build directory lacks it. Raises
+    NativeCoreError."""
+    _check_codec(codec)
+    return _build(codec, library_path(codec), CXXFLAGS, SOURCES)
+
+
+def build_tsan(codec: str) -> str:
+    """Path of csrc/test_gcio.cpp and the core linked into one program
+    under ThreadSanitizer (`-fsanitize=thread`) with `codec`, built as
+    build() builds the core (same lock, same record of a refusal). Run
+    it with a scratch directory as its argument: it exits 0 when every
+    check holds, and TSan reports a race on stderr as `WARNING:
+    ThreadSanitizer`. Raises NativeCoreError when the compiler refuses
+    the build (no TSan runtime, say)."""
+    _check_codec(codec)
+    path = os.path.join(BUILD_DIR, f"test_gcio_tsan_{codec}_"
+                        f"{_build_key(codec, TSAN_FLAGS, TSAN_SOURCES)}")
+    return _build(codec, path, TSAN_FLAGS, TSAN_SOURCES)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

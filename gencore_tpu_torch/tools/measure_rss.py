@@ -11,7 +11,10 @@ kernel does not report VmHWM the largest resident set sampled every 10 ms;
 `peak_rss_from` says which; null when neither is there; the sampled peak
 is also given alone), the tracemalloc peak (Python and numpy allocations;
 tensors allocated by torch are not seen) and, on CUDA,
-torch.cuda.max_memory_allocated / max_memory_reserved. The streaming run
+torch.cuda.max_memory_allocated / max_memory_reserved and, where this
+torch has torch.cuda.host_memory_stats, the pinned host allocator's
+blocks (`host_pinned`); and glibc's heap at the end of the run
+(`malloc_end_mb`, from mallinfo2). The streaming run
 holds one coordinate window and the per-record index, not the file, so
 its peak resident set should stay near flat as the input grows; the two
 outputs must hold the same records (compared decoded, not as compressed
@@ -112,11 +115,39 @@ res = {"mode": mode, "seconds": seconds,
        "peak_rss_from": source,
        "sampled_rss_peak_mb": sampled[0] / 1024 if sampled[0] else None,
        "tracemalloc_peak_mb": peak / (1 << 20)}
+# the C heap at the end of the run (glibc's mallinfo2, summed over its
+# arenas): what the native core, torch's CPU allocator and numpy's C side
+# hold or keep cached, none of which tracemalloc sees
+try:
+    import ctypes
+
+    class MallInfo2(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_size_t) for n in (
+            "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+            "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+    mallinfo2 = ctypes.CDLL(None).mallinfo2
+    mallinfo2.restype = MallInfo2
+    mi = mallinfo2()
+    res["malloc_end_mb"] = {"arenas": mi.arena / (1 << 20),
+                            "mmapped": mi.hblkhd / (1 << 20),
+                            "in_use": (mi.uordblks + mi.hblkhd) / (1 << 20),
+                            "free_in_arenas": mi.fordblks / (1 << 20)}
+except (OSError, AttributeError):
+    res["malloc_end_mb"] = None
 if dev.type == "cuda":
     res["cuda_max_allocated_mb"] = (torch.cuda.max_memory_allocated(dev)
                                     / (1 << 20))
     res["cuda_max_reserved_mb"] = (torch.cuda.max_memory_reserved(dev)
                                    / (1 << 20))
+    # torch's caching allocator of pinned host blocks (device->host
+    # downloads): resident, and not seen by tracemalloc
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    res["host_pinned"] = None if stats is None else {
+        k: v for k, v in stats().items()
+        if k.split(".")[0] in ("allocated_bytes", "active_bytes",
+                               "allocations", "num_host_alloc",
+                               "num_host_free")}
 print(json.dumps(res))
 """
 

@@ -1,10 +1,11 @@
 """The port's CLI (`--device cpu`) against the JAX package's CLI over the
 case matrix of gencore_tpu_torch/tools/golden_compare.py at its quick size
-(300 fragments): every case on the port's default route, and three cases
+(300 fragments): every case on the port's default route, and four cases
 on `--stream`, each held to the JAX CLI's default run of the same input.
 Compared: the ordered output records (SAM text for SAM output), the JSON
 report without its `command` line and the HTML report after
-`normalize_html`. Tolerance 0."""
+`normalize_html`. Tolerance 0. The two duplex-pair cases must merge
+duplexes (a duplex consensus count above 0 in the report)."""
 
 import contextlib
 import io
@@ -18,6 +19,8 @@ from gencore_tpu_torch.io.sam import open_alignment
 from gencore_tpu_torch.tools import golden_compare as gc
 
 torch.set_num_threads(1)
+
+DUPLEX_PAIR_CASES = ("duplex_pairs", "duplex_pairs_x")
 
 
 def _outputs(case, stem):
@@ -64,9 +67,12 @@ def test_port_cli_matches_jax_cli_on_case(tmp_path, monkeypatch, name):
     assert "in-memory single-shot run" in res["io_line"]
     if name != "duplex_only":   # no duplex pair in its input: no output
         assert len(got[0]) > 100
+    if name in DUPLEX_PAIR_CASES:   # real duplex merges, not a no-op
+        assert res["summary"]["duplex_consensus_sequence"] > 0
 
 
-@pytest.mark.parametrize("name", ["duplex_umi", "thresholds", "no_ref"])
+@pytest.mark.parametrize("name", ["duplex_umi", "thresholds", "no_ref",
+                                  "duplex_pairs_x"])
 def test_port_cli_streaming_matches_jax_cli_on_case(tmp_path, monkeypatch,
                                                     name):
     monkeypatch.setenv("GENCORE_COMPILE_CACHE", "0")

@@ -1,9 +1,10 @@
 """The committed golden digests of the case matrix
 (gencore_tpu_torch/testdata/cases/<case>.json, made by the JAX CLI on the
 CPU through `make_golden --case`): every case's generator still makes
-the input the golden was made from; two cases recomputed at full size on
-every route they take, with the port's CLI on the CPU, equal their
-goldens; and SAM input gives the records of the BAM-input run."""
+the input the golden was made from; the duplex-pair goldens count merged
+duplex reads; three cases recomputed at full size on every route they
+take, with the port's CLI on the CPU, equal their goldens; and SAM input
+gives the records of the BAM-input run."""
 
 import json
 import os
@@ -33,14 +34,28 @@ def test_every_case_has_a_golden_and_no_other():
     files = sorted(f[:-5] for f in os.listdir(gc.CASES_DIR)
                    if f.endswith(".json"))
     assert files == sorted(gc.CASES)
-    assert len(files) == 13
+    assert len(files) == 15
     for name in files:
         with open(gc.golden_path(name)) as f:
             assert json.load(f)["workload"].startswith(
                 f"golden_compare case {name}:")
 
 
-@pytest.mark.parametrize("name", ["thresholds", "big_mixed"])
+@pytest.mark.parametrize("name", ["duplex_pairs", "duplex_pairs_x"])
+def test_duplex_pair_goldens_hold_merged_duplexes(name):
+    """The JAX CLI's report for the duplex-pair cases counts duplex
+    consensus reads, so the duplex step is exercised, not a no-op; with
+    -x it writes no single-strand read."""
+    summary = gc.load_golden(name)["summary"]
+    assert summary["duplex_consensus_sequence"] > 0
+    if "-x" in gc.CASES[name].args:
+        assert summary["single_stranded_consensus_sequence"] == 0
+    else:
+        assert summary["single_stranded_consensus_sequence"] > 0
+
+
+@pytest.mark.parametrize("name", ["thresholds", "big_mixed",
+                                  "duplex_pairs_x"])
 def test_port_cli_matches_golden_at_full_size(tmp_path, monkeypatch, name):
     monkeypatch.setenv("GENCORE_COMPILE_CACHE", "0")
     golden = gc.load_golden(name)

@@ -1,9 +1,14 @@
 """Two subprocess hosts through the port's parallel/multihost.py
 (`python -m gencore_tpu_torch.parallel.multihost`, --device cpu): the
 merged records and stats equal the port's single-shot run and the JAX
-package's multihost merge of the same input. Tolerance 0."""
+package's multihost merge of the same input. Tolerance 0. And a host's
+timer starts after torch and the port's modules are imported, as the
+reference host's starts after JAX's."""
 
+import json
 import os
+import subprocess
+import sys
 
 import torch
 
@@ -69,3 +74,59 @@ def test_host_options_pass_through(tmp_path):
     merged, _, post = multihost.merge_hosts(out_dir, 3, reader.header)
     assert sorted(merged) == want
     assert post.sscs_num == eng.post_stats.sscs_num
+
+
+# A host process as spawn_hosts starts it (`python -m ...multihost`, here
+# through runpy), with time.perf_counter wrapped so that the call that
+# starts run_host's timer records which modules are loaded at that moment.
+_TIMER_PROBE = r"""
+import json, runpy, sys, time
+WATCH = ("torch", "gencore_tpu_torch.engine", "gencore_tpu_torch.io.bam",
+         "gencore_tpu_torch.io.fasta", "gencore_tpu_torch.parallel.windows")
+real = time.perf_counter
+seen = []
+
+
+def probe():
+    if sys._getframe(1).f_code.co_name == "run_host":
+        seen.append([m for m in WATCH if m in sys.modules])
+    return real()
+
+
+time.perf_counter = probe
+sys.argv = ["multihost"] + sys.argv[1:]
+try:
+    runpy.run_module("gencore_tpu_torch.parallel.multihost",
+                     run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+print("SEEN", json.dumps(seen))
+"""
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_host_timer_starts_after_the_imports(tmp_path):
+    """run_host's host_<h>.time leaves out the interpreter's start and the
+    imports of torch and of the port's modules: at the perf_counter call
+    that starts its timer they are all in sys.modules (checked by module,
+    not by timing)."""
+    sb = make_random_workload(97, n_fragments=40, umi_mode="single",
+                              contig_len=200_000, n_contigs=1)
+    bam_path = str(tmp_path / "in.bam")
+    sb.write_bam(bam_path)
+    out_dir = str(tmp_path / "host")
+    cp = subprocess.run(
+        [sys.executable, "-c", _TIMER_PROBE, "--bam", bam_path,
+         "--shard_ids", "0,1", "--n_shards", "2", "--out_dir", out_dir,
+         "--host_id", "0", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+    assert cp.returncode == 0, cp.stderr[-2000:]
+    seen = json.loads(cp.stdout.split("SEEN", 1)[1])
+    assert len(seen) == 2   # the timer's start and its end
+    assert seen[0] == ["torch", "gencore_tpu_torch.engine",
+                       "gencore_tpu_torch.io.bam",
+                       "gencore_tpu_torch.io.fasta",
+                       "gencore_tpu_torch.parallel.windows"]
+    assert multihost.host_times(out_dir, 1)[0] > 0

@@ -7,7 +7,9 @@ All of it is byte and integer work: tolerance 0. Compressed bytes are
 never compared across codecs, only what they inflate to.
 
 Also: eight processes calling get_lib() at once on an empty build
-directory all load a whole library."""
+directory all load a whole library; and the core, linked with its
+exerciser csrc/test_gcio.cpp under ThreadSanitizer, runs without a race
+report with each codec."""
 
 import os
 import struct
@@ -373,3 +375,21 @@ def test_unloadable_library_gives_way_to_the_next_codec(tmp_path):
                         env=dict(os.environ, PYTHONPATH=REPO))
     assert cp.returncode == 0, cp.stderr[-2000:]
     assert "CODEC zlib" in cp.stdout
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_tsan_native_core(codec, tmp_path):
+    """The port's threaded core is data-race-free with each codec: the
+    exerciser csrc/test_gcio.cpp, linked with the core under
+    ThreadSanitizer (native.build_tsan), runs clean. Skips where the
+    compiler refuses the TSan build, as tests/test_native_io.py does."""
+    try:
+        exe = native.build_tsan(codec)
+    except native.NativeCoreError as e:
+        pytest.skip(f"tsan build unavailable for {codec}: {str(e)[-200:]}")
+    assert exe.startswith(native.BUILD_DIR)
+    r = subprocess.run([exe, str(tmp_path)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "WARNING: ThreadSanitizer" not in r.stderr, r.stderr[-2000:]
+    assert f"test_gcio OK ({codec})" in r.stdout
