@@ -12,14 +12,20 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     source, in parallel, sm_90a), registers and spills per kernel;
   2 each kernel against its plain twin on the same inputs, exact (0
     mismatches):
-      2a gc_vote (csrc/vote.cu, Bins6) against vote_core_plain at J=4096,
-         L=160, N=40960 for every k-class K in {4, 16, 32, 64, 128, 256};
-      2b gc_vote_window (csrc/vote_window.cu) against vote_window_plain at
-         the same shapes, member counts 0..K, job lengths <= L, out_len =
-         L and 136, with and without a qual table;
-      2c gc_vote at the deep-pile shapes J in {8, 32, 128}, K in {512,
-         2048, 4096}, L=160 (disjoint member groups, K/2 < count <= K),
-         with the CTAs per job (split) each launch used;
+      2a gc_vote_epilogue (csrc/vote.cu's gathered entry: Bins6 with the
+         epilogue fused) against vote_gathered_plain (vote_core_plain +
+         _epilogue_core) at J=4096, L=160, N=40960 for every k-class K in
+         {4, 16, 32, 64, 128, 256}, dense, sparse and sparse with a qual
+         table;
+      2b gc_vote_window (csrc/vote_window.cu, the refbase rows built in the
+         kernel from the genome and host rows) against vote_window_plain
+         at the same shapes, member counts 0..K, job lengths <= L, out_len
+         = L and 136, with and without a qual table;
+      2c gc_vote_epilogue at the deep-pile shapes J in {8, 32, 128}, K in
+         {512, 2048, 4096}, L=160 (disjoint member groups, K/2 < count <=
+         K), with the CTAs per job (split) each launch used, against the
+         composition it replaced (csrc/vote.cu's vote alone, gc_vote, then
+         the plain _epilogue_core): both device and call times;
       2d gc_vote_full (csrc/vote.cu, Bins16: kernels.fused_vote_kernel on
          CUDA tensors) against kernels.fused_vote_plain on the card, all 16
          nt16 codes, lenDiff shifts, job lengths <= L;
@@ -44,6 +50,10 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     (gencore_tpu_torch/testdata): wall seconds, reads/s, the codec, the
     stage sums, each window launch's (K, J, sum of member counts) per class
     and whether it had a qual nibble table;
+  phases 4, 4b, 4c, 7 and 9 run with the plain _epilogue_core and
+    refbase_combine made to raise on CUDA tensors inside vote.py's Pallas
+    counterparts (pallas_vote_window, pallas_vote_gathered, pallas_vote):
+    on the card those run hand kernels only;
   4b the same input with `--shards 4 --checkpoint_dir D`, then again after
     one shard's files were deleted from D (resume): both equal to the
     golden digests, the second run recomputing exactly that shard;
@@ -56,15 +66,16 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   5 the deep panel's largest window launch, replayed: the fused kernel
     against its twin (exact) and timed against the plain composition on
     the card, with its bound;
-  6 device busy time and launch count of one deep-panel run (torch.profiler)
-    before, with the plain composition put back for that run only
-    (vote_window_plain on CUDA tensors: csrc/vote.cu plus the plain-torch
-    epilogue and concat), and after, with the fused kernel; both must take
+  6 device busy time, kernel and memcpy counts of one deep-panel run and
+    one ultra-deep run (torch.profiler) before, with the composition this
+    slice replaced put back for those runs only (the plain refbase
+    assembly ahead of the window kernel; csrc/vote.cu's vote alone plus
+    the plain epilogue on the gathered paths), and after; all must take
     the streaming path;
   7 the ultra-deep pile (workloads.ultradeep: 40 loci x 1,500 pairs, UMI
     grouping off) through the CLI on cuda, which must take the streaming
     path, against its golden digests: wall
-    seconds and reads/s, then a profiled run with each gathered vote
+    seconds and reads/s, then a recorded run with each gathered vote
     launch's (K, J), split, device time and share of its bound;
   8 parallel/mesh.py with one rank on the card (a torch.distributed NCCL
     group of one process, and a one-device mesh): sharded_consensus_step
@@ -80,7 +91,7 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     (gencore_tpu_torch/testdata/cases), with each run's vote launches
     (counters zeroed just before it; every run must launch one); then both
     kernels at L = 128 against their plain twins, exact: defaults_noumi's
-    window launch replayed, and vote_core on inputs of its shape;
+    window launch replayed, and the gathered entry on inputs of its shape;
  10 entry.entry() on the card against kernels.consensus_plain (exact), and
     entry.dryrun_multichip(1) on cuda:0: 1-device records, stats_psum
     against the host merge, the window plan and the busy-time rebalance,
@@ -203,8 +214,10 @@ def phase_build():
     for m in re.finditer(r"Compiling entry function '(\S+)'(.*?)Used (\d+) "
                          r"registers", vote.BUILD_LOG, re.S):
         fn = m.group(1)
+        out = re.search(r"OutE(\d)E", fn)   # vote.cu's Out: 0 the vote alone
         name = ("vote_window" if "vote_window" in fn else
-                "vote (16 bins)" if "Bins16" in fn else "vote")
+                "vote (16 bins)" if "Bins16" in fn else
+                "vote alone" if out and out.group(1) == "0" else "vote")
         if "decide_kernel" in fn:   # vote.cu's second pass (split > 1)
             name += ", decide"
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
@@ -347,39 +360,113 @@ def _vote_inputs(np, K, J, L, N, seed):
             valid.astype(np.uint8), refbase)
 
 
+GATHERED_MODES = ("dense", "sparse", "sparse_qtable")
+
+
+def _qtable(np):
+    """A qual table for _matrices' values: 41 escapes, 30 listed twice
+    (the last matching index wins)."""
+    qt = np.zeros(16, dtype=np.uint8)
+    qt[1:7] = [2, 12, 18, 25, 30, 36]
+    qt[9] = 30
+    return qt
+
+
+def _gathered_args(np, arrs, seed, mode):
+    """The gathered entry's arguments from a vote's members (seq, qual,
+    score, rows, valid, refbase), as engine._vote_pallas gives them:
+    templates row0 = rows[0], job lengths <= L (most L), the qual table in
+    mode sparse_qtable; and its keywords (out_len = L, sparse)."""
+    seq, qual, score, rows, valid, refbase = arrs
+    rng = np.random.default_rng(seed)
+    L = seq.shape[1]
+    job_len = rng.integers(1, L + 1, size=rows.shape[1]).astype(np.int32)
+    job_len[::3] = L
+    qtable = _qtable(np) if mode == "sparse_qtable" else None
+    return ((seq, qual, score, rows, np.ascontiguousarray(rows[0]), valid,
+             job_len, refbase, qtable),
+            dict(out_len=L, sparse=mode != "dense", **KW))
+
+
+def _gathered_bound(np, args, kw):
+    """(bytes, int ops) of the gathered entry on these inputs: each valid
+    member row read once (3 B per position), each template row not among
+    them once (2 B), the row indices, flags, template rows, job lengths,
+    refbase and qual table once; written once the dense rows (1.5 B per
+    output position), diff and minc (8 B per job) and, sparse, the wire
+    fields (27 or 22 B per job) and the escape count; 10 ops per (valid
+    member, position)."""
+    seq, _q, _s, rows, row0, valid, _jl, _rb, qtable = args
+    N, L = seq.shape
+    K, J = rows.shape
+    v = valid.astype(bool)
+    members = np.unique(np.clip(rows[v], 0, N - 1))
+    tmpl = np.setdiff1d(np.unique(np.clip(row0, 0, N - 1)), members)
+    ol = min(kw["out_len"] or L, L)
+    n_bytes = (len(members) * 3 * L + len(tmpl) * 2 * L + K * J * 5 + 8 * J
+               + J * L + (16 if qtable is not None else 0)
+               + J * (ol // 2 + ol) + 8 * J)
+    if kw["sparse"]:
+        n_bytes += J * ((5 if qtable is not None else 10) + 22) + 4
+    return n_bytes, OPS_PER_MEMBER_POS * int(v.sum()) * L
+
+
+def _compare(got, want):
+    """(mismatching elements, max abs difference) of two output tuples of
+    the gathered entry (the sparse fields flattened in)."""
+    def flat(r):
+        return [t.cpu() for t in (*r[:4], *(r[4] if len(r) > 4 else ()))]
+    g, w = flat(got), flat(want)
+    if len(g) != len(w) or any(a.shape != b.shape or a.dtype != b.dtype
+                               for a, b in zip(g, w)):
+        return -1, -1
+    mism = sum(int((a != b).sum()) for a, b in zip(g, w))
+    err = max((int((a.long() - b.long()).abs().max()) for a, b in zip(g, w)
+               if a.numel()), default=0)
+    return mism, err
+
+
 def phase_vote_kernel(torch, np):
+    """2a: the gathered entry against its plain twin (on the card) for
+    every k-class and mode; timed as the engine runs it, sparse with a
+    qual table, against the plain composition."""
     from gencore_tpu_torch.core import vote
     dev = torch.device("cuda", 0)
     J, L, N = J_PHASE2, L_PHASE2, N_PHASE2
-    th = dict(hi=KW["hi"], mod=KW["mod"], lo=KW["lo"],
-              bsr=KW["base_score_req"], rnum=KW["ratio_num"],
-              rden=KW["ratio_den"])
     per_k = []
     worst = 0
     for K in K_CLASSES:
         arrs = _vote_inputs(np, K, J, L, N, K)
-        cpu = [torch.from_numpy(a) for a in arrs]
-        gpu = [t.to(dev) for t in cpu]
-        got = vote.vote_core(*gpu, **KW)
-        torch.cuda.synchronize(dev)
-        want = vote.vote_core_plain(*cpu, **th)
-        mism = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
-        err = max(int((g.cpu().long() - w.long()).abs().max())
-                  for g, w in zip(got, want))
-        worst = max(worst, err)
-        t = _timings(torch, lambda: vote.vote_core_plain(*gpu, **th),
-                     lambda: vote.vote_core(*gpu, **KW), "vote_kernel", 2, 20)
-        n_bytes, n_ops = _vote_bound(np, arrs[3], arrs[4], K, J, L)
+        modes = {}
+        for mode in GATHERED_MODES:
+            args, kw = _gathered_args(np, arrs, K, mode)
+            gpu = [None if a is None else torch.from_numpy(a).to(dev)
+                   for a in args]
+            got = vote.vote_gathered(*gpu, **kw)
+            want = vote.vote_gathered_plain(*gpu, **kw)
+            torch.cuda.synchronize(dev)
+            mism, err = _compare(got, want)
+            worst = max(worst, err)
+            modes[mode] = {"mismatches": mism, "max_abs_err": err}
+            if mism:
+                fail("2a", f"gathered kernel != plain twin at K={K}, {mode}: "
+                           f"{mism} mismatches")
+        t = _timings(torch, lambda: vote.vote_gathered_plain(*gpu, **kw),
+                     lambda: vote.vote_gathered(*gpu, **kw), "vote_kernel",
+                     2, 20)
+        n_bytes, n_ops = _gathered_bound(np, args, kw)
         b_ms, b_by = bound(n_bytes, n_ops)
-        per_k.append({"K": K, "J": J, "L": L, "N": N, "mismatches": mism,
-                      "max_abs_err": err, **t, "bytes": n_bytes,
+        per_k.append({"K": K, "J": J, "L": L, "N": N, "modes": modes,
+                      "max_abs_err": max(m["max_abs_err"]
+                                         for m in modes.values()),
+                      "timed_mode": "sparse_qtable", **t, "bytes": n_bytes,
                       "int_ops": n_ops, "bound_ms": b_ms, "bound_by": b_by,
                       "share_of_bound": b_ms / t["ms"]})
-        if mism:
-            fail("2a", f"vote kernel != plain twin at K={K}: {mism} "
-                       "mismatches")
-    emit({"phase": "2a", "name": "gc_vote vs vote_core_plain", "ok": True,
-          "tolerance": "exact (0 mismatches)", "per_k": per_k})
+        del gpu, got, want
+    emit({"phase": "2a", "name": "gc_vote_epilogue vs vote_gathered_plain",
+          "ok": True, "tolerance": "exact (0 mismatches)",
+          "plain": "vote_gathered_plain on CUDA tensors (vote_core_plain + "
+                   "_epilogue_core)", "per_k": per_k})
     n_bytes = sum(p["bytes"] for p in per_k)
     n_ops = sum(p["int_ops"] for p in per_k)
     b_ms, b_by = bound(n_bytes, n_ops)
@@ -409,48 +496,68 @@ def _pile_inputs(np, K, J, L, seed):
             valid.astype(np.uint8), refbase)
 
 
-def _vote_bound(np, rows, valid, K, J, L):
-    """(bytes, int ops) of a vote over these members: each valid member
-    row read once, the row indices, flags and refbase read once, four
-    int32 [J, L] outputs written once; 10 ops per (valid member,
-    position)."""
-    v = valid.astype(bool)
-    n_rows = len(np.unique(rows[v]))
-    n_bytes = n_rows * 3 * L + K * J * 5 + J * L + 16 * J * L
-    return n_bytes, OPS_PER_MEMBER_POS * int(v.sum()) * L
+def _composition(vote, args, kw):
+    """What the gathered entry replaced: csrc/vote.cu's vote alone, then
+    the plain epilogue on its four int32 arrays (templates gathered by
+    row0)."""
+    seq, qual, score, rows, row0, valid, job_len, refbase, qtable = args
+    th = {k: v for k, v in kw.items() if k not in ("out_len", "sparse")}
+    cseq, cqual, chg, minc_pos = vote.vote_core(seq, qual, score, rows, valid,
+                                                refbase, **th)
+    r0 = row0.long().clamp(0, seq.shape[0] - 1)
+    return vote._epilogue_core(cseq, cqual, chg, minc_pos, seq[r0], qual[r0],
+                               job_len, out_len=kw["out_len"],
+                               sparse=kw["sparse"], qtable=qtable)
 
 
 def phase_deep_piles(torch, np):
-    """2c: gc_vote at the deep-pile shapes against vote_core_plain (on the
-    card), with its device time, bound and share."""
+    """2c: the gathered entry at the deep-pile shapes against its plain
+    twin (on the card), with its device and call times, bound and share,
+    beside the composition it replaced (the vote alone, then the plain
+    epilogue): that composition's call time and its vote kernel's device
+    time. Sparse with a qual table, as the engine runs a deep pile."""
     from gencore_tpu_torch.core import vote
     dev = torch.device("cuda", 0)
-    th = dict(hi=KW["hi"], mod=KW["mod"], lo=KW["lo"],
-              bsr=KW["base_score_req"], rnum=KW["ratio_num"],
-              rden=KW["ratio_den"])
     per_shape = []
     for J, K in DEEP_SHAPES:
         arrs = _pile_inputs(np, K, J, L_PHASE2, J + K)
-        gpu = [torch.from_numpy(a).to(dev) for a in arrs]
-        got = vote.vote_core(*gpu, **KW)
-        want = vote.vote_core_plain(*gpu, **th)
+        args, kw = _gathered_args(np, arrs, J + K, "sparse_qtable")
+        gpu = [None if a is None else torch.from_numpy(a).to(dev)
+               for a in args]
+
+        def kern():
+            return vote.vote_gathered(*gpu, **kw)
+
+        def before():
+            return _composition(vote, gpu, kw)
+
+        got = kern()
+        want = vote.vote_gathered_plain(*gpu, **kw)
+        old = before()
         torch.cuda.synchronize(dev)
-        mism = sum(int((g != w).sum()) for g, w in zip(got, want))
-        err = max(int((g.long() - w.long()).abs().max())
-                  for g, w in zip(got, want))
-        if mism:
-            fail("2c", f"vote kernel != plain twin at J={J}, K={K}: {mism} "
-                       "mismatches")
+        mism, err = _compare(got, want)
+        mism_old, _ = _compare(old, want)
+        if mism or mism_old:
+            fail("2c", f"gathered kernel ({mism}) or the composition before "
+                       f"({mism_old}) != plain twin at J={J}, K={K}")
         if (J, K) == DEEP_TIMED:   # the ultradeep run's shape: with plain
-            t = _timings(torch, lambda: vote.vote_core_plain(*gpu, **th),
-                         lambda: vote.vote_core(*gpu, **KW), "vote_kernel",
-                         1, 5, profile_plain=False)
+            t = _timings(torch, lambda: vote.vote_gathered_plain(*gpu, **kw),
+                         kern, "vote_kernel", 1, 5, profile_plain=False)
         else:
-            t = {"ms": _kernel_ms(torch, lambda: vote.vote_core(*gpu, **KW)),
-                 "call_ms": _time_ms(torch,
-                                     lambda: vote.vote_core(*gpu, **KW), 5)}
+            t = {"ms": _kernel_ms(torch, kern),
+                 "call_ms": _time_ms(torch, kern, 5)}
+        th = {k: v for k, v in kw.items() if k not in ("out_len", "sparse")}
+        vote_args = [gpu[i] for i in (0, 1, 2, 3, 5, 7)]
+        # in turns: before, after, after, before
+        b1, k1, k2, b2 = (_time_ms(torch, f, 5)
+                          for f in (before, kern, kern, before))
+        t.update(vote_only_ms=_kernel_ms(
+                     torch, lambda: vote.vote_core(*vote_args, **th)),
+                 composition_call_ms=(b1 + b2) / 2,
+                 composition_call_ms_runs=[b1, b2],
+                 call_ms_in_turns=[k1, k2])
         ms = t["ms"]
-        n_bytes, n_ops = _vote_bound(np, arrs[3], arrs[4], K, J, L_PHASE2)
+        n_bytes, n_ops = _gathered_bound(np, args, kw)
         b_ms, b_by = bound(n_bytes, n_ops)
         per_shape.append({"J": J, "K": K, "L": L_PHASE2, "N": len(arrs[0]),
                           "split": vote.split_size(K, J),
@@ -459,9 +566,10 @@ def phase_deep_piles(torch, np):
                           "bytes": n_bytes, "int_ops": n_ops,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "share_of_bound": b_ms / ms})
-        del gpu, got, want
-    emit({"phase": "2c", "name": "gc_vote at deep-pile shapes vs "
-                                 "vote_core_plain", "ok": True,
+        del gpu, got, want, old
+    emit({"phase": "2c", "name": "gc_vote_epilogue at deep-pile shapes vs "
+                                 "vote_gathered_plain, beside the vote alone "
+                                 "+ plain epilogue", "ok": True,
           "tolerance": "exact (0 mismatches)", "per_shape": per_shape})
     return per_shape
 
@@ -571,43 +679,68 @@ def _window_class_args(np, rng, K, J, N, Jw, L):
     return [base, counts, jl, ridx]
 
 
-def _window_bound(np, class_args, classes, N, L, Jw, out_len, qtable):
+def _refbase_sources(np, rng, Jw, L, G=1 << 20, nh=64):
+    """A window's refbase sources as engine._refbase_host_args makes them:
+    the NT16 genome padded by 4096, genome starts (a few past the end:
+    they clamp), host rows (row 0 all zero) for 1 in 8 jobs, int16 host
+    map, uint16 job lengths <= L."""
+    genome = np.pad(np.array([1, 2, 4, 8], np.uint8)[
+        rng.integers(0, 4, size=G)], (0, 4096))
+    gp = rng.integers(0, G, size=Jw).astype(np.int32)
+    gp[:4] = len(genome) - L + 5
+    hr = np.array([0, 1, 2, 4, 8], np.uint8)[rng.integers(0, 5, size=(nh, L))]
+    hr[0] = 0
+    hm = np.where(rng.random(Jw) < 0.875, -1,
+                  rng.integers(0, nh, size=Jw)).astype(np.int16)
+    jp = rng.integers(0, L + 1, size=Jw).astype(np.uint16)
+    jp[::3] = L
+    return genome, gp, hr, hm, jp
+
+
+def _window_bound(np, class_args, classes, N, L, srcs, out_len, qtable):
     """(bytes, int ops) the fused window kernel must move and do on these
-    inputs: every member row, template row of an empty job and refbase row
-    read once, the job table and qual table, the wire buffer and the
-    dense fallback written once; 10 ops per (member, position)."""
+    inputs: every member row and template row of an empty job read once,
+    the refbase sources (gp, hm, jp; each genome slice up to its length,
+    each host row used) once, the job table and qual table once; the
+    window's refbase rows, the wire buffer and the dense fallback written
+    once; 10 ops per (member, position)."""
     from gencore_tpu_torch.core import vote
+    gp, hr, hm, jp = (np.asarray(a) for a in srcs[1:])
+    Jw = len(gp)
     member = np.zeros(N, dtype=bool)
     tmpl = np.zeros(N, dtype=bool)
-    refrows = np.zeros(Jw, dtype=bool)
     n_members = 0
     Jt = 0
     for ci, (K, J) in enumerate(classes):
-        base, counts, _jl, ridx = (np.asarray(a).astype(np.int64) for a in
-                                   class_args[4 * ci:4 * ci + 4])
+        base, counts, _jl, _ridx = (np.asarray(a).astype(np.int64) for a in
+                                    class_args[4 * ci:4 * ci + 4])
         cnt = np.clip(counts, 0, K)
         n_members += int(cnt.sum())
         off = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
         member[np.clip(np.repeat(base, cnt) + off, 0, N - 1)] = True
         tmpl[np.clip(base[cnt == 0], 0, N - 1)] = True
-        refrows[np.clip(ridx, 0, Jw - 1)] = True
         Jt += J
     ol = min(out_len, L)
+    hm = hm.astype(np.int64)
+    ref_bytes = (12 * Jw + int(np.minimum(jp[hm < 0], L).sum())
+                 + len(np.unique(np.clip(hm[hm >= 0], 0, len(hr) - 1))) * L)
     n_bytes = (int(member.sum()) * 3 * L + int((tmpl & ~member).sum()) * 2 * L
-               + int(refrows.sum()) * L + 24 * Jt
+               + ref_bytes + Jw * L + 24 * Jt
                + (16 if qtable is not None else 0)
                + vote.wire_size(Jt, len(classes), qtable) + Jt * (ol // 2 + ol))
     return n_bytes, OPS_PER_MEMBER_POS * n_members * L, n_members
 
 
 def _compare_window(got, want):
-    """(mismatching bytes, max abs difference) of two (flat, dense)."""
-    pairs = [(got[0], want[0])] + [
-        (g, w) for gd, wd in zip(got[1], want[1]) for g, w in zip(gd, wd)]
+    """(mismatching bytes, max abs difference) of two (flat, refbase_dev,
+    dense)."""
+    pairs = [(got[0], want[0]), (got[1], want[1])] + [
+        (g, w) for gd, wd in zip(got[2], want[2]) for g, w in zip(gd, wd)]
     mism = 0
     err = 0
     for g, w in pairs:
         g = g.cpu()
+        w = w.cpu()
         if g.shape != w.shape:
             return -1, -1
         mism += int((g != w).sum())
@@ -620,30 +753,26 @@ def phase_window_kernel(torch, np):
     from gencore_tpu_torch.core import vote
     dev = torch.device("cuda", 0)
     J, L, N = J_PHASE2, L_PHASE2, N_PHASE2
-    Jw = J
+    Jw = J + J // 4            # the window's other jobs: refbase rows only
     per_k = []
     worst = 0
     for K in K_CLASSES:
         rng = np.random.default_rng(1000 + K)
         seq, qual, score = _matrices(np, rng, L, N)
-        refbase = np.array([0, 1, 2, 4, 8], np.uint8)[
-            rng.integers(0, 5, size=(Jw, L))]
-        refbase[::4] = 0
+        srcs = _refbase_sources(np, rng, Jw, L)
         class_args = _window_class_args(np, rng, K, J, N, Jw, L)
         classes = ((K, J),)
-        qtable = np.zeros(16, dtype=np.uint8)
-        qtable[1:7] = [2, 12, 18, 25, 30, 36]      # 41 escapes: bad > 0
-        cpu = [torch.from_numpy(a) for a in (seq, qual, score, refbase)]
+        qtable = _qtable(np)
+        cpu = [torch.from_numpy(a) for a in (seq, qual, score, srcs[0])]
         gpu = [t.to(dev) for t in cpu]
         variants = []
         for out_len in (L, 136):
             for qt in (None, qtable):
                 kw = dict(classes=classes, L=L, out_len=out_len, **KW)
-                qc = None if qt is None else torch.from_numpy(qt)
-                got = vote.vote_window(*gpu, None if qc is None else
-                                       qc.to(dev), class_args, **kw)
+                got = vote.vote_window(*gpu, *srcs[1:], qt, class_args, **kw)
                 torch.cuda.synchronize(dev)
-                want = vote.vote_window_plain(*cpu, qc, class_args, **kw)
+                want = vote.vote_window_plain(*cpu, *srcs[1:], qt, class_args,
+                                              **kw)
                 mism, err = _compare_window(got, want)
                 worst = max(worst, err)
                 variants.append({"out_len": out_len,
@@ -654,23 +783,26 @@ def phase_window_kernel(torch, np):
                                f"out_len={out_len}, qtable={qt is not None}:"
                                f" {mism} mismatching bytes")
         # timed as the main path runs it: out_len = L, with a qual table
-        qg = torch.from_numpy(qtable).to(dev)
         kw = dict(classes=classes, L=L, out_len=L, **KW)
         t = _timings(
-            torch, lambda: vote.vote_window_plain(*gpu, qg, class_args, **kw),
-            lambda: vote.vote_window(*gpu, qg, class_args, **kw),
+            torch,
+            lambda: vote.vote_window_plain(*gpu, *srcs[1:], qtable,
+                                           class_args, **kw),
+            lambda: vote.vote_window(*gpu, *srcs[1:], qtable, class_args,
+                                     **kw),
             "vote_window_kernel", 2, 20)
         n_bytes, n_ops, n_members = _window_bound(
-            np, class_args, classes, N, L, Jw, L, qtable)
+            np, class_args, classes, N, L, srcs, L, qtable)
         b_ms, b_by = bound(n_bytes, n_ops)
-        per_k.append({"K": K, "J": J, "L": L, "N": N,
+        per_k.append({"K": K, "J": J, "Jw": Jw, "L": L, "N": N,
                       "sum_counts": n_members, "variants": variants, **t,
                       "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
                       "bound_by": b_by, "share_of_bound": b_ms / t["ms"]})
     emit({"phase": "2b", "name": "gc_vote_window vs vote_window_plain",
-          "ok": True, "tolerance": "exact (0 mismatching bytes)",
-          "plain": "vote_window_plain on CUDA tensors (csrc/vote.cu + "
-                   "plain-torch epilogue and concat)",
+          "ok": True, "tolerance": "exact (0 mismatching bytes, refbase "
+                                   "rows included)",
+          "plain": "vote_window_plain on CUDA tensors (refbase_combine, "
+                   "vote_core_plain, _epilogue_core and concat_sparse)",
           "per_k": per_k})
     return worst
 
@@ -682,6 +814,67 @@ def _cli(args):
     with contextlib.redirect_stderr(err):
         rc = cli.main(args)
     return rc, err.getvalue()
+
+
+@contextlib.contextmanager
+def _no_plain_on_card(torch):
+    """For the run inside: vote.py's plain _epilogue_core and
+    refbase_combine raise on CUDA tensors when called from within one of
+    its Pallas counterparts (pallas_vote_window, pallas_vote_gathered,
+    pallas_vote), whose whole body on the card must be hand kernels. The
+    engine's own refbase assembly for the routes that do not fuse the
+    window (engine._refbase_combine_fn, K11) stays allowed. Yields counts:
+    entries into the counterparts and plain calls made inside them."""
+    import threading
+
+    from gencore_tpu_torch.core import vote
+    depth = threading.local()
+    lock = threading.Lock()
+    seen = {"counterpart_calls": 0, "plain_calls_inside": 0}
+
+    def count(key):
+        with lock:
+            seen[key] += 1
+
+    def entry(orig):
+        def f(*a, **k):
+            count("counterpart_calls")
+            depth.n = getattr(depth, "n", 0) + 1
+            try:
+                return orig(*a, **k)
+            finally:
+                depth.n -= 1
+        return f
+
+    def plain(name, orig):
+        def f(*a, **k):
+            if getattr(depth, "n", 0):
+                count("plain_calls_inside")
+                if any(isinstance(x, torch.Tensor) and x.is_cuda
+                       for x in (*a, *k.values())):
+                    raise AssertionError(
+                        f"plain vote.{name} ran on CUDA tensors inside a "
+                        "Pallas counterpart")
+            return orig(*a, **k)
+        return f
+
+    with contextlib.ExitStack() as stack:
+        for name in ("pallas_vote_window", "pallas_vote_gathered",
+                     "pallas_vote"):
+            stack.enter_context(_patched(vote, name,
+                                         entry(getattr(vote, name))))
+        for name in ("_epilogue_core", "refbase_combine"):
+            stack.enter_context(_patched(vote, name,
+                                         plain(name, getattr(vote, name))))
+        yield seen
+
+
+def _guard_ok(phase, seen):
+    """Fails the phase unless the counterparts ran and no plain epilogue
+    or refbase assembly ran inside them."""
+    if not seen["counterpart_calls"] or seen["plain_calls_inside"]:
+        fail(phase, f"the plain-version guard saw {seen}: a counterpart ran "
+                    "a plain version on the card, or none ran")
 
 
 @contextlib.contextmanager
@@ -805,6 +998,7 @@ def _zero_counters(vote):
     vote.LAUNCHES = 0
     vote.FULL_LAUNCHES = 0
     vote.WINDOW_LAUNCHES = 0
+    vote.VOTE_ONLY_LAUNCHES = 0
 
 
 def phase_full_bins(torch):
@@ -849,18 +1043,21 @@ def phase_full_bins(torch):
 def phase_ultradeep(torch, np):
     """7: the ultra-deep amplicon pile (bench.make_ultradeep_workload, 40
     loci x 1,500 pairs, UMI grouping off) through the CLI on cuda against
-    its golden digests: wall seconds and reads/s of one run, then a run
-    that records each gathered vote launch's inputs, replayed for its
-    (K, J), split, device time and share of its bound."""
+    its golden digests, with no plain version inside the Pallas
+    counterparts: wall seconds and reads/s of one run, then a run that
+    records each gathered launch's inputs (vote.vote_gathered), replayed
+    for its (K, J), split, device time and share of its bound."""
     from gencore_tpu_torch.core import vote
     bam, fa, golden, n_in, t_gen = _golden_workload("ultradeep", 7)
-    _zero_counters(vote)
-    rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
-        torch, bam, fa, os.path.join(WORK, "ultradeep"), golden)
-    launches = _counters(vote)
+    with _no_plain_on_card(torch) as guard:
+        _zero_counters(vote)
+        rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
+            torch, bam, fa, os.path.join(WORK, "ultradeep"), golden)
+        launches = _counters(vote)
     if rc or not (out_ok and rep_ok) or launches["vote"] == 0:
         fail(7, f"ultradeep run failed, differs from the golden digests, or "
                 f"launched no gathered vote: rc={rc} {launches} {err[-1500:]}")
+    _guard_ok(7, guard)
     io_lines = _io_lines(err)
     if io_lines != [_streaming_line()]:
         fail(7, f"the ultradeep run did not take the streaming path on the "
@@ -870,14 +1067,15 @@ def phase_ultradeep(torch, np):
 
     # a second run records each gathered launch's inputs, replayed after
     calls = []
-    orig = vote.vote_core
+    orig = vote.vote_gathered
 
     def recorded(*args, **kw):
         out = orig(*args, **kw)
-        calls.append(([t.clone() for t in args], dict(kw)))
+        calls.append(([None if t is None else t.clone() for t in args],
+                      dict(kw)))
         return out
 
-    with _patched(vote, "vote_core", recorded):
+    with _patched(vote, "vote_gathered", recorded):
         rc, err, t_rec, _n, out_ok2, rep_ok2 = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "ultradeep_rec"), golden)
     if rc or not (out_ok2 and rep_ok2) or _io_lines(err) != io_lines:
@@ -886,13 +1084,14 @@ def phase_ultradeep(torch, np):
     per_launch = []
     for args, kw in calls:
         K, J = args[3].shape
-        ms = _kernel_ms(torch, lambda: vote.vote_core(*args, **kw))
-        r = args[3].cpu().numpy()
-        v = args[4].cpu().numpy()
-        b_ms, b_by = bound(*_vote_bound(np, r, v, K, J, args[0].shape[1]))
+        ms = _kernel_ms(torch, lambda: vote.vote_gathered(*args, **kw))
+        host = [None if t is None else t.cpu().numpy() for t in args]
+        b_ms, b_by = bound(*_gathered_bound(np, host, kw))
         per_launch.append({"K": K, "J": J,
-                           "members": int(v.astype(bool).sum()),
-                           "split": vote.split_size(K, J), "ms": ms,
+                           "members": int(host[5].astype(bool).sum()),
+                           "split": vote.split_size(K, J),
+                           "sparse": kw["sparse"],
+                           "qtable": args[8] is not None, "ms": ms,
                            "bound_ms": b_ms,
                            "bound_by": b_by, "share_of_bound": b_ms / ms})
     del calls
@@ -901,12 +1100,13 @@ def phase_ultradeep(torch, np):
            "cli_args": golden.get("cli_args", []), "reads_in": n_in,
            "records_out": n_out, "generate_s": t_gen, "run_s": t_run,
            "reads_per_s": n_in / t_run, "run_s_recorded": t_rec,
-           "kernel_launches": launches, "gathered_launches": per_launch,
+           "kernel_launches": launches, "plain_guard": guard,
+           "gathered_launches": per_launch,
            "gathered_vote_ms": sum(p["ms"] for p in per_launch),
            "output_digest_equal": out_ok, "report_stats_equal": rep_ok,
            "stage_seconds": stages}
     emit(res)
-    return res
+    return res, (bam, fa, golden)
 
 
 def _window_recorder(np, vote, largest, per_launch=None, qtables=None):
@@ -970,8 +1170,10 @@ def phase_full(torch, np):
     recorded = _window_recorder(np, vote, largest, per_launch, qtables)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the guard goes on last, so that it wraps the recorder
     with _patched(vote, "pallas_vote_window", recorded), \
-            _patched(streaming, "run_streaming", counted_stream):
+            _patched(streaming, "run_streaming", counted_stream), \
+            _no_plain_on_card(torch) as guard:
         _zero_counters(vote)
         rc, err, t_run, n_out, output_ok, report_ok = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "full"), golden)
@@ -979,6 +1181,7 @@ def phase_full(torch, np):
     peak = torch.cuda.max_memory_allocated()
     if rc:
         fail(4, f"CLI exit code {rc}: {err[-2000:]}")
+    _guard_ok(4, guard)
     io_lines = _io_lines(err)
     if len(streamed) != 1 or io_lines != [_streaming_line()]:
         fail(4, f"the deep panel did not go through run_streaming once on "
@@ -996,6 +1199,7 @@ def phase_full(torch, np):
           "records_out": n_out, "generate_s": t_gen, "setup_s": t_setup,
           "run_s": t_run, "reads_per_s": n_in / t_run,
           "max_memory_allocated": peak, "kernel_launches": launches,
+          "plain_guard": guard,
           "window_launches_K_J_sumcounts": per_launch,
           "input_digest_equal": input_ok, "output_digest_equal": output_ok,
           "report_stats_equal": report_ok, "stage_seconds": stages})
@@ -1033,16 +1237,19 @@ def phase_shards(torch, bam, fa, golden, n_shards=4):
             _patched(resume.WindowCheckpoint, "load_shard", load_shard):
         for tag in ("first", "resumed"):
             done["recorded"], done["loaded"] = [], []
-            _zero_counters(vote)
-            rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
-                torch, bam, fa, os.path.join(WORK, f"shards_{tag}"), golden,
-                extra)
-            launches = _counters(vote)
+            with _no_plain_on_card(torch) as guard:
+                _zero_counters(vote)
+                rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
+                    torch, bam, fa, os.path.join(WORK, f"shards_{tag}"),
+                    golden, extra)
+                launches = _counters(vote)
             if rc or not (out_ok and rep_ok):
                 fail("4b", f"--shards {n_shards} run ({tag}) failed or "
                            f"differs from the golden digests: rc={rc} "
                            f"{err[-1500:]}")
+            _guard_ok("4b", guard)
             runs.append({"run": tag, "run_s": t_run, "records_out": n_out,
+                         "plain_guard": guard,
                          "shards_computed": list(done["recorded"]),
                          "shards_loaded": list(done["loaded"]),
                          "kernel_launches": launches,
@@ -1136,7 +1343,8 @@ def phase_in_memory(torch, bam, fa, golden, n_windows=5):
         del calls[:], merged[:]
         with _patched(pipeline, "run_pipelined", counted_run), \
                 _patched(pipeline, "merged_payload", counted_merged), \
-                _environ(GENCORE_NO_STREAM="1"), core():
+                _environ(GENCORE_NO_STREAM="1"), core(), \
+                _no_plain_on_card(torch) as guard:
             _zero_counters(vote)
             rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
                 torch, bam, fa, os.path.join(WORK, f"in_memory_{tag}"),
@@ -1144,12 +1352,14 @@ def phase_in_memory(torch, bam, fa, golden, n_windows=5):
             launches = _counters(vote)
         if rc:
             fail("4c", f"CLI exit code {rc} ({tag}): {err[-2000:]}")
+        _guard_ok("4c", guard)
         stages = {m.group(1): float(m.group(2)) for m in re.finditer(
             r"\[stage\] (\S+): ([0-9.]+)s", err)}
         runs[tag] = {"io_line": _io_lines(err), "run_s": t_run,
                      "records_out": n_out, "kernel_launches": launches,
                      "output_digest_equal": out_ok,
                      "report_stats_equal": rep_ok,
+                     "plain_guard": guard,
                      "run_pipelined_out_writer": list(calls),
                      "merged_payload_windows": list(merged),
                      "stage_seconds": stages}
@@ -1246,45 +1456,47 @@ def phase_mesh(torch, np):
 
 def _replay_window(torch, largest, phase):
     """A recorded window launch replayed through the fused kernel and its
-    plain twin (on the CPU); fails the phase on any mismatching byte.
-    Returns (kernel inputs, qual table, class args, kw, mismatches, max
-    abs err)."""
+    plain twin (on the CPU); fails the phase on any mismatching byte
+    (refbase rows included). Returns (matrices and genome on the card,
+    the refbase sources, qual table, class args, kw, mismatches, max abs
+    err)."""
     from gencore_tpu_torch.core import vote
     (seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
      class_args) = largest["args"]
     kw = largest["kw"]
-    dev = seq_dev.device
-    refbase_dev = vote._window_refbase(genome, gp, hr, hm, jp, kw["L"], dev)
-    qt = None if qtable is None else vote.to_device(qtable, dev)
-    mats = (seq_dev, qual_dev, score_dev, refbase_dev)
-    got = vote.vote_window(*mats, qt, class_args, **kw)
+    mats = (seq_dev, qual_dev, score_dev, genome)
+    srcs = (gp, hr, hm, jp)
+    got = vote.vote_window(*mats, *srcs, qtable, class_args, **kw)
     torch.cuda.synchronize()
-    want = vote.vote_window_plain(*[t.cpu() for t in mats],
-                                  None if qt is None else qt.cpu(),
+    want = vote.vote_window_plain(*[t.cpu() for t in mats], *srcs, qtable,
                                   class_args, **kw)
     mism, err = _compare_window(got, want)
     if mism:
         fail(phase, f"vote_window kernel != twin on a replayed launch "
                     f"{largest['classes']}: {mism} mismatching bytes")
-    return mats, qt, qtable, class_args, kw, mism, err
+    return mats, srcs, qtable, class_args, kw, mism, err
 
 
 def phase_replay(torch, np, largest):
-    """The deep panel's largest window launch, replayed."""
+    """The deep panel's largest window launch, replayed: the kernel
+    against the plain composition on the card (refbase_combine,
+    vote_core_plain, _epilogue_core, concat_sparse)."""
     from gencore_tpu_torch.core import vote
-    mats, qt, qtable, class_args, kw, mism, err = _replay_window(
+    mats, srcs, qtable, class_args, kw, mism, err = _replay_window(
         torch, largest, 5)
-    seq_dev, refbase_dev = mats[0], mats[3]
     t = _timings(
-        torch, lambda: vote.vote_window_plain(*mats, qt, class_args, **kw),
-        lambda: vote.vote_window(*mats, qt, class_args, **kw),
+        torch,
+        lambda: vote.vote_window_plain(*mats, *srcs, qtable, class_args,
+                                       **kw),
+        lambda: vote.vote_window(*mats, *srcs, qtable, class_args, **kw),
         "vote_window_kernel", 5, 50)
-    N, L = seq_dev.shape
+    N, L = mats[0].shape
     n_bytes, n_ops, n_members = _window_bound(
-        np, class_args, kw["classes"], N, L, refbase_dev.shape[0],
+        np, class_args, kw["classes"], N, L, (None, *srcs),
         kw["out_len"] or L, qtable)
     b_ms, b_by = bound(n_bytes, n_ops)
     res = {"classes_K_J_sumcounts": largest["classes"], "N": N, "L": L,
+           "Jw": len(srcs[0]), "host_rows": len(srcs[1]),
            "out_len": kw["out_len"], "qtable": qtable is not None,
            "mismatches": mism, "max_abs_err": err, **t, "bytes": n_bytes,
            "int_ops": n_ops, "bound_ms": b_ms, "bound_by": b_by,
@@ -1326,45 +1538,81 @@ def _device_activity(trace_path):
             "device_span_ms": span / 1e3, "vote_kernels_ms": vote_us / 1e3}
 
 
-def phase_busy(torch, bam, fa, golden):
-    """One profiled deep-panel run with the plain composition (before the
-    fused kernel) and one with the fused kernel (after)."""
+def _window_before(torch, np, vote):
+    """vote.vote_window as the window path ran before the refbase assembly
+    moved into the kernel: the plain refbase_combine on the card (four
+    copies up, ~12 launches) and the qual table's own copy, then the
+    kernel reading those rows as host rows already on the card."""
+    kernel = vote.vote_window
+
+    def f(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
+          class_args, **kw):
+        dev = seq_dev.device
+        I32 = torch.int32
+        refbase = vote.refbase_combine(
+            genome, vote.to_device(gp, dev, I32), vote.to_device(hr, dev),
+            vote.to_device(hm, dev, I32), vote.to_device(jp, dev, I32),
+            kw["L"])
+        qt = None if qtable is None else vote.to_device(qtable, dev)
+        Jw = refbase.shape[0]
+        zeros = np.zeros(Jw, dtype=np.int32)
+        return kernel(seq_dev, qual_dev, score_dev, genome, zeros, refbase,
+                      np.arange(Jw, dtype=np.int32), zeros, qt, class_args,
+                      **kw)
+    return f
+
+
+def phase_busy(torch, np, runs):
+    """6: one profiled run of each workload in `runs` ((tag, bam, fasta,
+    golden), on its streaming path) before, with the composition this
+    slice replaced put back for that run only, and after."""
     from torch.profiler import ProfilerActivity, profile
 
     from gencore_tpu_torch.core import vote
     res = {}
-    for tag in ("before", "after"):
-        d = os.path.join(WORK, f"busy_{tag}")
-        os.makedirs(d, exist_ok=True)
-        with contextlib.ExitStack() as stack:
-            if tag == "before":
-                stack.enter_context(_patched(vote, "vote_window",
-                                             vote.vote_window_plain))
-            vote.LAUNCHES = 0
-            vote.WINDOW_LAUNCHES = 0
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                rc, err, t_run, _n, out_ok, rep_ok = _deep_panel_run(
-                    torch, bam, fa, d, golden)
-            counted = {"vote": vote.LAUNCHES,
-                       "vote_window": vote.WINDOW_LAUNCHES}
-        if rc or not (out_ok and rep_ok):
-            fail(6, f"profiled deep-panel run ({tag}) failed or differs "
-                    f"from the golden digests: rc={rc} {err[-1000:]}")
-        if _io_lines(err) != [_streaming_line()]:
-            fail(6, f"profiled deep-panel run ({tag}) did not take the "
-                    f"streaming path on the native core: {_io_lines(err)}")
-        trace = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(trace)
-        res[tag] = {"wall_s_profiled": t_run, "kernel_launches": counted,
-                    "io_line": _io_lines(err)[0],
-                    **_device_activity(trace)}
-        os.remove(trace)
-    emit({"phase": 6, "name": "deep-panel device busy, before/after",
-          "ok": True,
-          "before": "vote_window_plain (csrc/vote.cu + plain-torch "
-                    "epilogue and concat), substituted for this run only",
-          "after": "pallas_vote_window (csrc/vote_window.cu)", **res})
+    for wl, bam, fa, golden in runs:
+        res[wl] = {}
+        for tag in ("before", "after"):
+            d = os.path.join(WORK, f"busy_{wl}_{tag}")
+            os.makedirs(d, exist_ok=True)
+            with contextlib.ExitStack() as stack:
+                if tag == "before":
+                    stack.enter_context(_patched(
+                        vote, "vote_window", _window_before(torch, np, vote)))
+                    stack.enter_context(_patched(
+                        vote, "vote_gathered",
+                        lambda *a, **k: _composition(vote, a, k)))
+                _zero_counters(vote)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    rc, err, t_run, _n, out_ok, rep_ok = _deep_panel_run(
+                        torch, bam, fa, d, golden)
+                counted = _counters(vote)
+                counted["vote_alone"] = vote.VOTE_ONLY_LAUNCHES
+            if rc or not (out_ok and rep_ok):
+                fail(6, f"profiled {wl} run ({tag}) failed or differs from "
+                        f"the golden digests: rc={rc} {err[-1000:]}")
+            if _io_lines(err) != [_streaming_line()]:
+                fail(6, f"profiled {wl} run ({tag}) did not take the "
+                        f"streaming path on the native core: {_io_lines(err)}")
+            trace = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(trace)
+            res[wl][tag] = {"wall_s_profiled": t_run,
+                            "kernel_launches": counted,
+                            **_device_activity(trace)}
+            os.remove(trace)
+        b, a = res[wl]["before"], res[wl]["after"]
+        res[wl]["fewer"] = {k: b[k] - a[k] for k in ("kernels", "memcpys",
+                                                    "memsets")}
+    emit({"phase": 6, "name": "device busy, kernels and memcpys per run, "
+                              "before/after", "ok": True,
+          "before": "the plain refbase assembly ahead of the window kernel "
+                    "(refbase_combine; its rows read as host rows) and, on "
+                    "the gathered paths, csrc/vote.cu's vote alone + the "
+                    "plain _epilogue_core, substituted for that run only",
+          "after": "pallas_vote_window (csrc/vote_window.cu, refbase in the "
+                   "kernel); pallas_vote_gathered / pallas_vote (csrc/"
+                   "vote.cu's gathered entry, the epilogue fused)", **res})
     return res
 
 
@@ -1388,13 +1636,15 @@ def phase_cases(torch, np):
     totals = {"vote": 0, "vote_full": 0, "vote_window": 0}
     largest = {"sum_counts": -1}
     t0 = time.perf_counter()
+    guards = {"counterpart_calls": 0, "plain_calls_inside": 0}
     for name, case in gc.CASES.items():
         golden = gc.load_golden(name)
         for route in case.routes:
             rec = (name, route) == ("defaults_noumi", "default")
-            with (_patched(vote, "pallas_vote_window",
-                           _window_recorder(np, vote, largest)) if rec
-                  else contextlib.nullcontext()):
+            with _no_plain_on_card(torch) as guard, \
+                    (_patched(vote, "pallas_vote_window",
+                              _window_recorder(np, vote, largest)) if rec
+                     else contextlib.nullcontext()):
                 _zero_counters(vote)
                 t = time.perf_counter()
                 got = gc.run_route(case, route, wd, device="cuda")
@@ -1412,6 +1662,11 @@ def phase_cases(torch, np):
             runs.append(run)
             for k in totals:
                 totals[k] += launches[k]
+            for k in guards:
+                guards[k] += guard[k]
+            if guard["plain_calls_inside"]:
+                fail(9, f"{name} on route {route}: a plain version ran inside "
+                        f"a Pallas counterpart: {guard}")
             if run["differences"] or not any(launches.values()):
                 emit({"phase": 9, "ok": False, **run})
                 fail(9, f"{name} on route {route} differs from its golden "
@@ -1420,25 +1675,24 @@ def phase_cases(torch, np):
     t_runs = time.perf_counter() - t0
     if largest["sum_counts"] < 0:
         fail(9, "defaults_noumi launched no window vote to replay")
-    mats, _qt, _qtable, _ca, kw, w_mism, w_err = _replay_window(
+    _guard_ok(9, guards)
+    mats, _srcs, _qtable, _ca, kw, w_mism, w_err = _replay_window(
         torch, largest, 9)
     N, L = mats[0].shape
     if L != 128:
         fail(9, f"defaults_noumi's window launch has L={L}, not 128")
     K, J = kw["classes"][0]
-    arrs = _vote_inputs(np, K, J, L, N, 128)
-    cpu = [torch.from_numpy(a) for a in arrs]
-    got = vote.vote_core(*[t.cuda() for t in cpu], **KW)
+    args, gkw = _gathered_args(np, _vote_inputs(np, K, J, L, N, 128), 128,
+                               "sparse_qtable")
+    gpu = [None if a is None else torch.from_numpy(a).cuda() for a in args]
+    got = vote.vote_gathered(*gpu, **gkw)
     torch.cuda.synchronize()
-    want = vote.vote_core_plain(*cpu, hi=KW["hi"], mod=KW["mod"],
-                                lo=KW["lo"], bsr=KW["base_score_req"],
-                                rnum=KW["ratio_num"], rden=KW["ratio_den"])
-    c_mism = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
-    c_err = max(int((g.cpu().long() - w.long()).abs().max())
-                for g, w in zip(got, want))
+    want = vote.vote_gathered_plain(*[None if a is None else a.cpu()
+                                      for a in gpu], **gkw)
+    c_mism, c_err = _compare(got, want)
     if c_mism:
-        fail(9, f"vote kernel != plain twin at L=128 (K={K}, J={J}, N={N}): "
-                f"{c_mism} mismatches")
+        fail(9, f"gathered kernel != plain twin at L=128 (K={K}, J={J}, "
+                f"N={N}): {c_mism} mismatches")
     res = {"phase": 9, "name": "case matrix (tools/golden_compare.py) on "
                                "cuda vs golden digests", "ok": True,
            "cases": len(gc.CASES), "runs": len(runs),
@@ -1446,15 +1700,15 @@ def phase_cases(torch, np):
                r["case"]: r["summary"]["duplex_consensus_sequence"]
                for r in runs if r["summary"]["duplex_consensus_sequence"]},
            "generate_s": t_gen, "runs_s": t_runs,
-           "kernel_launches": totals,
+           "kernel_launches": totals, "plain_guard": guards,
            "gathered_cases": sorted({r["case"] for r in runs
                                      if r["kernel_launches"]["vote"]}),
            "L128": {"window_launch_K_J_sumcounts": largest["classes"],
                     "N": N, "L": L, "vote_window_mismatches": w_mism,
                     "vote_window_max_abs_err": w_err,
-                    "vote_core_shape": {"K": K, "J": J, "N": N},
-                    "vote_core_mismatches": c_mism,
-                    "vote_core_max_abs_err": c_err,
+                    "gathered_shape": {"K": K, "J": J, "N": N},
+                    "gathered_mismatches": c_mism,
+                    "gathered_max_abs_err": c_err,
                     "tolerance": "exact (0 mismatches)"},
            "per_run": runs}
     emit(res)
@@ -1723,8 +1977,9 @@ def main() -> int:
     shard_runs = phase_shards(torch, bam, fa, golden)
     mem_runs = phase_in_memory(torch, bam, fa, golden)
     rep = phase_replay(torch, np, largest)
-    phase_busy(torch, bam, fa, golden)
-    ud = phase_ultradeep(torch, np)
+    ud, ud_wl = phase_ultradeep(torch, np)
+    phase_busy(torch, np, [("deep_panel", bam, fa, golden),
+                           ("ultradeep", *ud_wl)])
     mesh_res = phase_mesh(torch, np)
     t9 = time.perf_counter()
     cases = phase_cases(torch, np)
@@ -1763,8 +2018,15 @@ def main() -> int:
                   f"(K, J, sum counts) {rep['classes_K_J_sumcounts']}, "
                   f"N={rep['N']}, L={rep['L']}"},
         {"name": "vote", "route": "cuda",
-         "source": "gencore_tpu_torch/csrc/vote.cu (Bins6)",
-         "replaces": "gencore_tpu/core/pallas_vote.py:178",
+         "source": "gencore_tpu_torch/csrc/vote.cu (gc_vote_epilogue: "
+                   "Bins6 with the epilogue of csrc/epilogue.cuh)",
+         "replaces": "gencore_tpu/core/pallas_vote.py:474",
+         "also_replaces": ["gencore_tpu/core/pallas_vote.py:350 "
+                           "(pallas_vote)",
+                           "gencore_tpu/core/pallas_vote.py:178 "
+                           "(_pallas_core)",
+                           "gencore_tpu/core/pallas_vote.py:229 "
+                           "(_epilogue_core)"],
          "launches": ud["kernel_launches"]["vote"],
          "launches_in": "phase 7, the ultra-deep pile (gathered path)",
          "launches_cases": cases["kernel_launches"]["vote"],
@@ -1775,9 +2037,12 @@ def main() -> int:
          "plain_ms": pile["plain_ms"],
          "bound_ms": pile["bound_ms"], "bound_by": pile["bound_by"],
          "library_ms": None,
+         "vote_alone_ms": pile["vote_only_ms"],
+         "replaced_composition_call_ms": pile["composition_call_ms"],
          "shape": f"phase 2c, J={pile['J']}, K={pile['K']}, L={pile['L']}, "
-                  f"split {pile['split']}; phase 2a sum over K in "
-                  f"{list(K_CLASSES)} at J={J_PHASE2}: {vk['ms']} ms"},
+                  f"split {pile['split']}, sparse with a qual table; phase "
+                  f"2a sum over K in {list(K_CLASSES)} at J={J_PHASE2}: "
+                  f"{vk['ms']} ms"},
         {"name": "vote (16 bins)", "route": "cuda",
          "source": "gencore_tpu_torch/csrc/vote.cu (Bins16)",
          "replaces": "gencore_tpu/core/kernels.py:421 (fused_vote_kernel, "

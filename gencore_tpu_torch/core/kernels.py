@@ -238,13 +238,14 @@ def fused_vote_kernel(seq_all, qual_all, score_all, rows, shifts, valid,
     outside the matrix, which no caller passes.
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (`vote.vote_full`, full_bins=True only: =ACGTN data takes the
-    six-bin `vote.vote_core`)."""
+    six-bin kernels of `vote.pallas_vote_window` and
+    `vote.pallas_vote_gathered`)."""
     dev = seq_all.device
     if dev.type == "cuda":
         if not full_bins:
             raise ValueError("fused_vote_kernel: on CUDA only full_bins=True "
                              "has a kernel (=ACGTN data votes through "
-                             "vote.vote_core)")
+                             "vote.pallas_vote_gathered)")
         return vote.vote_full(
             seq_all, qual_all, score_all, rows, shifts, valid, job_len,
             refbase, hi=hi, mod=mod, lo=lo, base_score_req=base_score_req,

@@ -1,30 +1,39 @@
 """Consensus vote: the hand-written CUDA kernels, their plain twins, and
-the device programs around them (port of gencore_tpu/core/pallas_vote.py).
+the entry points around them (port of gencore_tpu/core/pallas_vote.py).
+On CUDA tensors every entry point's whole body is one hand kernel; on CPU
+tensors it runs the kernel's plain twin.
 
 * `pallas_vote_window` — EVERY fast vote bucket of one window, the main
-  path. On CUDA tensors it launches `csrc/vote_window.cu` once per window:
-  vote, rollback, nibble packing and the sparse wire encoding fused, one
-  block per job (`vote_window`). On CPU tensors it runs the kernel's plain
-  twin `vote_window_plain`, the same function composed of `vote_core`,
-  `_epilogue_core` and `concat_sparse` (a port of _pallas_window_all); on
-  CUDA tensors that composition is what the window path ran before the
-  fused kernel (`vote_core` launches csrc/vote.cu).
-* `vote_core` — the vote of Group::makeConsensus (group.cpp:369-526) over K
-  member rows read by index from the device-resident [N, L] matrices. On a
-  CUDA tensor it launches `csrc/vote.cu` (the Bins6 rules, each job's
-  members split across up to 16 CTAs, `split_size`); on a
-  CPU tensor it runs `vote_core_plain`, the same computation in plain
-  PyTorch (a port of the Pallas `_vote_block`). The gathered and
-  pre-gathered entry points use it.
+  path: refbase assembly, vote, rollback, nibble packing and the sparse
+  wire encoding. On CUDA tensors it launches `csrc/vote_window.cu` once
+  per window (`vote_window`, one block per job); on CPU tensors it runs
+  the kernel's plain twin `vote_window_plain`, the composition of
+  `refbase_combine`, `vote_core_plain`, `_epilogue_core` and
+  `concat_sparse` (a port of _pallas_window_all).
+* `pallas_vote_gathered`, `pallas_vote` — the per-bucket entry points,
+  with the JAX package's names and layouts at their boundaries: the vote
+  over K member rows read by index from the device-resident [N, L]
+  matrices (or from the host-gathered [K, S, L] block) plus the epilogue.
+  On CUDA tensors they launch `csrc/vote.cu`'s gathered entry
+  (`vote_gathered`: the Bins6 rules, each job's members split across up
+  to 16 CTAs, `split_size`, the epilogue where each job is decided); on
+  CPU tensors its plain twin `vote_gathered_plain` (`vote_core_plain`
+  then `_epilogue_core`).
 * `vote_full` — the full-bins vote of kernels.fused_vote_kernel (K9: all
   16 nt16 bins, lenDiff shifts, per-job rollback) through the Bins16
-  instantiation of the same kernel; CUDA tensors only (its twin is
+  instantiation of `csrc/vote.cu`; CUDA tensors only (its twin is
   kernels.fused_vote_plain).
+* `vote_core` — `csrc/vote.cu`'s vote alone (its four int32 [J, L]
+  arrays, what the Pallas `_pallas_core` returns); no path of the port
+  calls it: chip_smoke.py times it as the vote half of the composition
+  `vote_gathered` replaced. `vote_core_plain` is the plain vote (a port of
+  the Pallas `_vote_block`).
 * `_epilogue_core` — per-read rollback (group.cpp:538-566), nibble packing
-  and the sparse wire encoding, in plain PyTorch (XLA in the JAX package).
-* `pallas_vote_gathered`, `pallas_vote` — the per-bucket entry points, with
-  the JAX package's names and layouts at their boundaries so each can be
-  held against its counterpart.
+  and the sparse wire encoding, in plain PyTorch (XLA in the JAX package):
+  the plain twins' half of what the kernels fuse.
+* `refbase_combine` — the refbase rows of a window in plain PyTorch: the
+  window kernel's twin builds them with it, and the engine's routes that
+  do not fuse the window (engine._refbase_combine_fn, K11) call it.
 
 Only the device of the tensors selects between a kernel and its twin.
 The kernel library builds at first use from `gencore_tpu_torch/csrc/*.cu`
@@ -57,12 +66,14 @@ NEG_INF = -0x7FFFFFFF
 SPARSE_DIFFS = 4
 SPARSE_RUNS = 10
 
-# kernel launches, CUDA tensors only: `vote_core` (csrc/vote.cu, Bins6),
-# `vote_full` (csrc/vote.cu, Bins16) and `pallas_vote_window`
-# (csrc/vote_window.cu); a vote.cu launch with a split counts once
+# kernel launches, CUDA tensors only: `vote_gathered` (csrc/vote.cu, Bins6
+# with the epilogue), `vote_full` (csrc/vote.cu, Bins16), `vote_window`
+# (csrc/vote_window.cu) and `vote_core` (csrc/vote.cu, the vote alone); a
+# vote.cu launch with a split counts once
 LAUNCHES = 0
 FULL_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+VOTE_ONLY_LAUNCHES = 0
 
 SMS = 132           # H100 SXM streaming multiprocessors
 MAX_SPLIT = 16      # CTAs per job
@@ -156,11 +167,13 @@ def build_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         P = ctypes.c_void_p
         I = ctypes.c_int
+        lib.gc_vote_epilogue.argtypes = [P] * 22 + [I] * 12 + [P, P]
+        lib.gc_vote_epilogue.restype = ctypes.c_int
         lib.gc_vote.argtypes = [P] * 10 + [I] * 11 + [P, P]
         lib.gc_vote.restype = ctypes.c_int
         lib.gc_vote_full.argtypes = [P] * 12 + [I] * 11 + [P, P]
         lib.gc_vote_full.restype = ctypes.c_int
-        lib.gc_vote_window.argtypes = [P] * 10 + [I] * 12 + [P]
+        lib.gc_vote_window.argtypes = [P] * 15 + [I] * 14 + [P]
         lib.gc_vote_window.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -226,23 +239,121 @@ def _launch(fn, lib_fn, ptrs, ints, K, J, L, fields, dev):
         raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
 
 
-def vote_core(seq_src, qual_src, score_src, rows, valid, refbase, *, hi, mod,
-              lo, base_score_req, ratio_num, ratio_den):
-    """Vote over members seq_src[rows[k, j]] (k < K) of each job j.
+def _out_len(fn, out_len, L, sparse):
+    """The output length ol = min(out_len, L) the kernels cut at."""
+    ol = L if out_len is None else min(out_len, L)
+    if ol < 2 or ol % 2:
+        raise ValueError(f"{fn}: output length {ol} must be even, >= 2")
+    if sparse and ol > 256:
+        raise ValueError(f"{fn}: the sparse encoding needs an output length "
+                         f"<= 256 (positions fit a byte), got {ol}")
+    return ol
 
-    seq_src/qual_src u8 [N, L], score_src i8 [N, L], rows i32 [K, J],
-    valid u8 [K, J] (any 0/1 type on the CPU), refbase u8 [J, L] (0 = no
-    reference base).
-    Returns (cand_seq, cand_qual, changed, minc_pos), each i32 [J, L] —
-    what the JAX package's _pallas_core returns for seq_src[rows].
-    CPU tensors run the plain twin; CUDA tensors launch the kernel."""
+
+def vote_gathered(seq_src, qual_src, score_src, rows, row0, valid, job_len,
+                  refbase, qtable=None, *, hi, mod, lo, base_score_req,
+                  ratio_num, ratio_den, out_len=None, sparse=False):
+    """csrc/vote.cu's gathered entry: the vote over members seq_src[rows[k,
+    j]] (k < K) of each job j with the epilogue fused where the job is
+    decided (rollback, nibble packing and, with sparse, the wire encoding;
+    templates seq_src/qual_src[row0[j]]). Arguments and result as
+    vote_gathered_plain's, equal byte for byte; every tensor on the
+    matrices' device, which must be a CUDA device."""
     th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
     dev = seq_src.device
-    if dev.type == "cpu":
-        return vote_core_plain(seq_src, qual_src, score_src, rows, valid,
-                               refbase, **th)
+    I32 = torch.int32
+    K, J = rows.shape
+    N, L = seq_src.shape
+    _check("vote_gathered", [spec for spec in (
+        ("seq_src", seq_src, torch.uint8, (N, L)),
+        ("qual_src", qual_src, torch.uint8, (N, L)),
+        ("score_src", score_src, torch.int8, (N, L)),
+        ("rows", rows, I32, (K, J)),
+        ("row0", row0, I32, (J,)),
+        ("valid", valid, torch.uint8, (K, J)),
+        ("job_len", job_len, I32, (J,)),
+        ("refbase", refbase, torch.uint8, (J, L)),
+        ("qtable", qtable, torch.uint8, (16,))) if spec[1] is not None], dev)
+    _check_rows("vote_gathered", seq_src, qual_src, score_src, K, J)
+    ol = _out_len("vote_gathered", out_len, L, sparse)
     if dev.type != "cuda":
-        raise ValueError(f"vote_core: unsupported device {dev}")
+        raise ValueError(f"vote_gathered: needs CUDA tensors, got {dev}")
+    lib = build_library()
+    pseq = torch.empty((J, ol // 2), dtype=torch.uint8, device=dev)
+    new_qual = torch.empty((J, ol), dtype=torch.uint8, device=dev)
+    diff = torch.empty(J, dtype=I32, device=dev)
+    minc = torch.empty(J, dtype=I32, device=dev)
+    enc = None
+    wire = [None] * 9
+    if sparse:
+        enc = _sparse_fields(J, qtable is not None, dev)
+        wire = [t.data_ptr() for t in enc]
+    _launch("gc_vote_epilogue", lib.gc_vote_epilogue,
+            [t.data_ptr() if t is not None else None
+             for t in (seq_src, qual_src, score_src, rows, row0, valid,
+                       job_len, refbase, qtable, pseq, new_qual, diff,
+                       minc)] + wire,
+            [K, J, L, N, ol, th["hi"], th["mod"], th["lo"], th["bsr"],
+             th["rnum"], th["rden"]], K, J, L, 4 * len(BINS) + 3, dev)
+    global LAUNCHES
+    LAUNCHES += 1
+    if not sparse:
+        return pseq, new_qual, diff, minc
+    return pseq, new_qual, diff, minc, enc
+
+
+def _sparse_fields(J, with_qtable, dev):
+    """The nine fields of one bucket's sparse encoding (see _epilogue_core),
+    views of one device buffer: qv, qs, nr, sp, sb, nd u8, diff and minc
+    int16 [J], bad int32 []."""
+    qvw = SPARSE_RUNS // 2 if with_qtable else SPARSE_RUNS
+    widths = (qvw, SPARSE_RUNS, 1, SPARSE_DIFFS, SPARSE_DIFFS // 2, 1)
+    o16 = J * sum(widths) + (J * sum(widths)) % 2
+    o32 = o16 + 4 * J + (-(o16 + 4 * J)) % 4
+    buf = torch.empty(o32 + 4, dtype=torch.uint8, device=dev)
+    out = []
+    off = 0
+    for w in widths:
+        v = buf[off:off + J * w]
+        out.append(v.view(J, w) if w > 1 else v)
+        off += J * w
+    out.append(buf[o16:o16 + 2 * J].view(torch.int16))
+    out.append(buf[o16 + 2 * J:o16 + 4 * J].view(torch.int16))
+    out.append(buf[o32:o32 + 4].view(torch.int32).reshape(()))
+    return tuple(out)
+
+
+def vote_gathered_plain(seq_src, qual_src, score_src, rows, row0, valid,
+                        job_len, refbase, qtable=None, *, hi, mod, lo,
+                        base_score_req, ratio_num, ratio_den, out_len=None,
+                        sparse=False):
+    """The gathered entry's plain twin, on any device: `vote_core_plain`
+    over members seq_src[rows[k, j]] then `_epilogue_core` with templates
+    seq_src/qual_src[row0[j]] (rows and row0 clamp to the matrix).
+    seq_src/qual_src u8 [N, L], score_src i8 [N, L], rows i32 [K, J], row0
+    i32 [J], valid u8 [K, J], job_len i32 [J], refbase u8 [J, L], qtable
+    u8 [16] or None. Returns (pseq, new_qual, diff, minc[, enc])."""
+    th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
+    cseq, cqual, chg, minc_pos = vote_core_plain(
+        seq_src, qual_src, score_src, rows, valid, refbase, **th)
+    r0 = _clamp_rows(row0, seq_src.shape[0])
+    return _epilogue_core(cseq, cqual, chg, minc_pos, seq_src[r0],
+                          qual_src[r0], job_len, out_len=out_len,
+                          sparse=sparse, qtable=qtable)
+
+
+def vote_core(seq_src, qual_src, score_src, rows, valid, refbase, *, hi, mod,
+              lo, base_score_req, ratio_num, ratio_den):
+    """csrc/vote.cu's vote alone over members seq_src[rows[k, j]] (k < K)
+    of each job j: seq_src/qual_src u8 [N, L], score_src i8 [N, L], rows
+    i32 [K, J], valid u8 [K, J], refbase u8 [J, L] (0 = no reference
+    base). Returns (cand_seq, cand_qual, changed, minc_pos), each i32
+    [J, L], equal to vote_core_plain's (what the JAX package's _pallas_core
+    returns for seq_src[rows]). CUDA tensors only; no path of the port
+    calls it (chip_smoke.py times it as the vote half of the composition
+    vote_gathered replaced)."""
+    th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
+    dev = seq_src.device
     K, J = rows.shape
     N, L = seq_src.shape
     _check("vote_core", (
@@ -253,6 +364,8 @@ def vote_core(seq_src, qual_src, score_src, rows, valid, refbase, *, hi, mod,
         ("valid", valid, torch.uint8, (K, J)),
         ("refbase", refbase, torch.uint8, (J, L))), dev)
     _check_rows("vote_core", seq_src, qual_src, score_src, K, J)
+    if dev.type != "cuda":
+        raise ValueError(f"vote_core: needs CUDA tensors, got {dev}")
     lib = build_library()
     outs = [torch.empty((J, L), dtype=torch.int32, device=dev)
             for _ in range(4)]
@@ -261,8 +374,8 @@ def vote_core(seq_src, qual_src, score_src, rows, valid, refbase, *, hi, mod,
                                     valid, refbase, *outs)],
             [K, J, L, N, th["hi"], th["mod"], th["lo"], th["bsr"],
              th["rnum"], th["rden"]], K, J, L, 4 * len(BINS) + 3, dev)
-    global LAUNCHES
-    LAUNCHES += 1
+    global VOTE_ONLY_LAUNCHES
+    VOTE_ONLY_LAUNCHES += 1
     return tuple(outs)
 
 
@@ -567,36 +680,34 @@ def pallas_vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
     (csrc/vote_window.cu, `vote_window`) once; CPU tensors run its plain
     twin `vote_window_plain`."""
     dev = seq_dev.device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type == "cuda":
+        fn = vote_window
+    elif dev.type == "cpu":
+        fn = vote_window_plain
+    else:
         raise ValueError(f"pallas_vote_window: unsupported device {dev}")
-    refbase_dev = _window_refbase(genome, gp, hr, hm, jp, L, dev)
-    qtable = None if qtable is None else to_device(qtable, dev)
-    fn = vote_window if dev.type == "cuda" else vote_window_plain
-    flat, dense = fn(seq_dev, qual_dev, score_dev, refbase_dev, qtable,
-                     class_args, classes=classes, L=L, hi=hi, mod=mod, lo=lo,
-                     base_score_req=base_score_req, ratio_num=ratio_num,
-                     ratio_den=ratio_den, out_len=out_len)
-    return flat, refbase_dev, dense
+    return fn(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
+              class_args, classes=classes, L=L, hi=hi, mod=mod, lo=lo,
+              base_score_req=base_score_req, ratio_num=ratio_num,
+              ratio_den=ratio_den, out_len=out_len)
 
 
-def _window_refbase(genome, gp, hr, hm, jp, L, dev):
-    I32 = torch.int32
-    return refbase_combine(genome, to_device(gp, dev, I32), to_device(hr, dev),
-                           to_device(hm, dev, I32), to_device(jp, dev, I32), L)
-
-
-def vote_window_plain(seq_dev, qual_dev, score_dev, refbase_dev, qtable,
-                      class_args, *, classes, L, hi, mod, lo, base_score_req,
-                      ratio_num, ratio_den, out_len):
-    """The fused window kernel's plain twin: per k-class, `vote_core` over
-    rows base..base+K-1 masked by the member count, `_epilogue_core` with
+def vote_window_plain(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
+                      qtable, class_args, *, classes, L, hi, mod, lo,
+                      base_score_req, ratio_num, ratio_den, out_len):
+    """The fused window kernel's plain twin, on any device: the refbase
+    rows (`refbase_combine`), then per k-class `vote_core_plain` over rows
+    base..base+K-1 masked by the member count and `_epilogue_core` with
     the sparse encoding, then `concat_sparse` (the composition the JAX
-    package's _pallas_window_all makes). Returns (flat u8 wire buffer,
-    [per-class (pseq, qual) dense fallbacks])."""
+    package's _pallas_window_all makes). Arguments and result as
+    pallas_vote_window's."""
     dev = seq_dev.device
     I32 = torch.int32
-    kw = dict(hi=hi, mod=mod, lo=lo, base_score_req=base_score_req,
-              ratio_num=ratio_num, ratio_den=ratio_den)
+    refbase_dev = refbase_combine(
+        to_device(genome, dev), to_device(gp, dev, I32), to_device(hr, dev),
+        to_device(hm, dev, I32), to_device(jp, dev, I32), L)
+    qtable = None if qtable is None else to_device(qtable, dev)
+    th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
     n_pad = seq_dev.shape[0]
     encs = []
     dense = []
@@ -604,24 +715,29 @@ def vote_window_plain(seq_dev, qual_dev, score_dev, refbase_dev, qtable,
         base_row, counts, jl, ridx = (to_device(a, dev, I32) for a in
                                       class_args[4 * ci:4 * ci + 4])
         k_iota = torch.arange(K, dtype=I32, device=dev)[:, None]
-        rows_t = (base_row[None, :] + k_iota).clamp(0, n_pad - 1).to(I32)
+        rows_t = base_row[None, :] + k_iota
         valid = (k_iota < counts[None, :]).to(torch.uint8)
         refbase = refbase_dev[_clamp_rows(ridx, refbase_dev.shape[0])]
-        cseq, cqual, chg, minc_pos = vote_core(
-            seq_dev, qual_dev, score_dev, rows_t.contiguous(), valid,
-            refbase.contiguous(), **kw)
+        cseq, cqual, chg, minc_pos = vote_core_plain(
+            seq_dev, qual_dev, score_dev, rows_t, valid, refbase, **th)
         br = _clamp_rows(base_row, n_pad)
         res = _epilogue_core(cseq, cqual, chg, minc_pos, seq_dev[br],
                              qual_dev[br], jl, out_len=out_len, sparse=True,
                              qtable=qtable)
         encs.append(res[4])
         dense.append((res[0], res[1]))
-    return concat_sparse(encs), dense
+    return concat_sparse(encs), refbase_dev, dense
 
 
 def _host(a):
     return (a.cpu().numpy() if isinstance(a, torch.Tensor)
             else np.asarray(a)).reshape(-1)
+
+
+def _fits_i32(fn, name, a):
+    if (a.size and np.iinfo(a.dtype).max >= 2**31
+            and (int(a.min()) < -2**31 or int(a.max()) >= 2**31)):
+        raise ValueError(f"{fn}: {name} does not fit int32")
 
 
 def window_job_table(class_args, classes, out=None):
@@ -636,10 +752,7 @@ def window_job_table(class_args, classes, out=None):
             raise ValueError(f"vote_window: class {ci} needs {J} jobs in "
                              "each of its four arguments")
         for a in c:
-            if (a.size and np.iinfo(a.dtype).max >= 2**31
-                    and (int(a.min()) < -2**31 or int(a.max()) >= 2**31)):
-                raise ValueError("vote_window: a job field does not fit "
-                                 "int32")
+            _fits_i32("vote_window", "a job field", a)
     Jt = sum(J for _K, J in classes)
     tab = np.empty((6, Jt), dtype=np.int32) if out is None else out
     off = 0
@@ -657,91 +770,176 @@ def window_job_table(class_args, classes, out=None):
     return tab
 
 
-def vote_window(seq_dev, qual_dev, score_dev, refbase_dev, qtable, class_args,
-                *, classes, L, hi, mod, lo, base_score_req, ratio_num,
-                ratio_den, out_len):
-    """Launch csrc/vote_window.cu over every class of one window: returns
-    (flat u8 wire buffer, [per-class (pseq, qual) dense fallbacks]), equal
-    byte for byte to vote_window_plain's. CUDA tensors only."""
+def window_upload_layout(Jt, Jw, qtable_bytes, hr_bytes):
+    """Byte offsets of the parts of the window kernel's one upload, and its
+    size: the job table int32 [6, Jt], the refbase sources gp, hm, jp
+    int32 [Jw], then the qual table (16 bytes, or none) and the host rows
+    u8 [nh, L] (none when the kernel reads them from the device)."""
+    lay = {"jobs": 0, "gp": 24 * Jt}
+    lay["hm"] = lay["gp"] + 4 * Jw
+    lay["jp"] = lay["hm"] + 4 * Jw
+    lay["qtable"] = lay["jp"] + 4 * Jw
+    lay["hr"] = lay["qtable"] + qtable_bytes
+    lay["size"] = lay["hr"] + hr_bytes
+    return lay
+
+
+def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
+                  out=None):
+    """The window kernel's one upload, u8, in window_upload_layout's
+    order: window_job_table, the refbase sources gp, hm, jp of every job
+    of the window as int32, then the qual table and the host rows when
+    given. Filled into `out` when given."""
+    gp, hm, jp = _host(gp), _host(hm), _host(jp)
+    Jw = len(gp)
+    if len(hm) != Jw or len(jp) != Jw:
+        raise ValueError(f"vote_window: gp, hm and jp need one entry per job "
+                         f"of the window, got {Jw}, {len(hm)}, {len(jp)}")
+    for name, a in (("gp", gp), ("hm", hm), ("jp", jp)):
+        _fits_i32("vote_window", name, a)
+    Jt = sum(J for _K, J in classes)
+    qt = None if qtable is None else _host(qtable).astype(np.uint8)
+    if qt is not None and qt.shape != (16,):
+        raise ValueError(f"vote_window: qtable has {qt.size} entries, not 16")
+    hrb = None if hr is None else np.ascontiguousarray(hr, dtype=np.uint8)
+    lay = window_upload_layout(Jt, Jw, 0 if qt is None else 16,
+                               0 if hrb is None else hrb.nbytes)
+    buf = np.empty(lay["size"], dtype=np.uint8) if out is None else out
+    ints = buf[:lay["qtable"]].view(np.int32)
+    window_job_table(class_args, classes, out=ints[:6 * Jt].reshape(6, Jt))
+    ints[6 * Jt:6 * Jt + Jw] = gp
+    ints[6 * Jt + Jw:6 * Jt + 2 * Jw] = hm
+    ints[6 * Jt + 2 * Jw:] = jp
+    if qt is not None:
+        buf[lay["qtable"]:lay["hr"]] = qt
+    if hrb is not None:
+        buf[lay["hr"]:] = hrb.reshape(-1)
+    return buf
+
+
+def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
+                class_args, *, classes, L, hi, mod, lo, base_score_req,
+                ratio_num, ratio_den, out_len):
+    """Launch csrc/vote_window.cu over every class of one window, the
+    refbase rows built in the kernel: arguments and result as
+    pallas_vote_window's, equal byte for byte to vote_window_plain's. The
+    job table, gp, hm, jp, a host qual table and host rows go up in one
+    pinned copy (window_upload); a qtable or hr already on the device is
+    read where it lies. CUDA tensors only."""
     dev = seq_dev.device
-    if dev.type != "cuda":
-        raise ValueError(f"vote_window: needs CUDA tensors, got {dev}")
     N, Lm = seq_dev.shape
     if Lm != L:
         raise ValueError(f"vote_window: matrices are {Lm} wide, L={L}")
-    Jw = refbase_dev.shape[0]
+    if L % 16 or not 0 < L <= 256:
+        raise ValueError(f"vote_window: L={L} must be a multiple of 16 in "
+                         "(0, 256] (one block per job, 16-byte row copies)")
+    qt_dev = qtable if isinstance(qtable, torch.Tensor) else None
+    hr_dev = hr if isinstance(hr, torch.Tensor) else None
+    hr_host = None if hr_dev is not None else np.asarray(hr)
+    G = genome.shape[0]
+    nh = (hr_dev if hr_dev is not None else hr_host).shape[0]
     _check("vote_window", [
         spec for spec in (
             ("seq_dev", seq_dev, torch.uint8, (N, L)),
             ("qual_dev", qual_dev, torch.uint8, (N, L)),
             ("score_dev", score_dev, torch.int8, (N, L)),
-            ("refbase_dev", refbase_dev, torch.uint8, (Jw, L)),
-            ("qtable", qtable, torch.uint8, (16,))) if spec[1] is not None],
+            ("genome", genome, torch.uint8, (G,)),
+            ("qtable", qt_dev, torch.uint8, (16,)),
+            ("hr", hr_dev, torch.uint8, (nh, L))) if spec[1] is not None],
         dev)
-    if L % 16 or not 0 < L <= 256:
-        raise ValueError(f"vote_window: L={L} must be a multiple of 16 in "
-                         "(0, 256] (one block per job, 16-byte row copies)")
+    if hr_host is not None and hr_host.shape != (nh, L):
+        raise ValueError(f"vote_window: hr has shape {hr_host.shape}, "
+                         f"expected ({nh}, {L})")
     for name, t in (("seq_dev", seq_dev), ("qual_dev", qual_dev),
                     ("score_dev", score_dev)):
         if t.data_ptr() % 16:
             raise ValueError(f"vote_window: {name} is not 16-byte aligned")
-    ol = L if out_len is None else min(out_len, L)
-    if ol < 2 or ol % 2:
-        raise ValueError(f"vote_window: output length {ol} must be even, >= 2")
-    if N == 0 or Jw == 0:
-        raise ValueError("vote_window: needs at least one source and refbase row")
-    if N >= 2**31 or Jw >= 2**31:
-        raise ValueError("vote_window: a dimension does not fit the kernel's int")
-    nb = len(classes)
+    ol = _out_len("vote_window", out_len, L, True)
+    Jw = len(_host(gp))
+    if len(_host(hm)) != Jw or len(_host(jp)) != Jw:
+        raise ValueError("vote_window: gp, hm and jp need one entry per job "
+                         "of the window")
     Jt = sum(J for _K, J in classes)
-    # the job table goes up from pinned memory without a host sync
-    staged = torch.empty((6, Jt), dtype=torch.int32, pin_memory=True)
-    window_job_table(class_args, classes, out=staged.numpy())
+    if N == 0 or Jw == 0 or Jt == 0 or nh == 0:
+        raise ValueError("vote_window: needs at least one source row, job, "
+                         "window job and host row")
+    if G < L:
+        raise ValueError(f"vote_window: the genome ({G}) is shorter than "
+                         f"L={L}")
+    if max(N, Jw, Jt, G, nh) >= 2**31:
+        raise ValueError("vote_window: a dimension does not fit the "
+                         "kernel's int")
+    if dev.type != "cuda":
+        raise ValueError(f"vote_window: needs CUDA tensors, got {dev}")
+    nb = len(classes)
+    qt_host = None if qtable is None or qt_dev is not None else qtable
+    lay = window_upload_layout(Jt, Jw, 0 if qt_host is None else 16,
+                               0 if hr_host is None else hr_host.nbytes)
+    # one pinned upload, without a host sync
+    staged = torch.empty(lay["size"], dtype=torch.uint8, pin_memory=True)
+    window_upload(class_args, classes, gp, hm, jp, qt_host, hr_host,
+                  out=staged.numpy())
+    up = staged.to(dev, non_blocking=True)
+    at = {k: up.data_ptr() + v for k, v in lay.items()}
+    qt_ptr = (qt_dev.data_ptr() if qt_dev is not None
+              else None if qt_host is None else at["qtable"])
+    hr_ptr = hr_dev.data_ptr() if hr_dev is not None else at["hr"]
     flat = torch.empty(wire_size(Jt, nb, qtable), dtype=torch.uint8,
                        device=dev)
+    refbase_dev = torch.empty((Jw, L), dtype=torch.uint8, device=dev)
     pseq = torch.empty((Jt, ol // 2), dtype=torch.uint8, device=dev)
     qual = torch.empty((Jt, ol), dtype=torch.uint8, device=dev)
-    if Jt:
-        jobs = staged.to(dev, non_blocking=True)
-        scratch = torch.empty(nb + 1, dtype=torch.int32, device=dev)
-        lib = build_library()
-        th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.gc_vote_window(
-                seq_dev.data_ptr(), qual_dev.data_ptr(), score_dev.data_ptr(),
-                refbase_dev.data_ptr(), jobs.data_ptr(),
-                None if qtable is None else qtable.data_ptr(),
-                flat.data_ptr(), pseq.data_ptr(), qual.data_ptr(),
-                scratch.data_ptr(), N, L, Jw, Jt, nb, ol, th["hi"], th["mod"],
-                th["lo"], th["bsr"], th["rnum"], th["rden"], stream)
-        if err != 0:
-            raise RuntimeError(f"gc_vote_window launch failed: cudaError_t {err}")
-        global WINDOW_LAUNCHES
-        WINDOW_LAUNCHES += 1
-    else:
-        flat.zero_()
+    scratch = torch.empty(nb + 1, dtype=torch.int32, device=dev)
+    lib = build_library()
+    th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gc_vote_window(
+            seq_dev.data_ptr(), qual_dev.data_ptr(), score_dev.data_ptr(),
+            genome.data_ptr(), at["gp"], at["hm"], at["jp"], hr_ptr,
+            refbase_dev.data_ptr(), at["jobs"], qt_ptr, flat.data_ptr(),
+            pseq.data_ptr(), qual.data_ptr(), scratch.data_ptr(), N, L, G,
+            nh, Jw, Jt, nb, ol, th["hi"], th["mod"], th["lo"], th["bsr"],
+            th["rnum"], th["rden"], stream)
+    if err != 0:
+        raise RuntimeError(f"gc_vote_window launch failed: cudaError_t {err}")
+    global WINDOW_LAUNCHES
+    WINDOW_LAUNCHES += 1
     dense = []
     off = 0
     for _K, J in classes:
         dense.append((pseq[off:off + J], qual[off:off + J]))
         off += J
-    return flat, dense
+    return flat, refbase_dev, dense
 
 
 def refbase_combine(genome, gpos, host_rows, host_map, jl, L):
     """Refbase rows: a genome slice at gpos for contiguous-M jobs
-    (host_map < 0; the slice start clamps like jax dynamic_slice), else
-    host_rows[host_map] (engine._refbase_combine_fn)."""
+    (host_map < 0; zero at and beyond jl), else host_rows[host_map]
+    (engine._refbase_combine_fn). The slice start goes as in
+    jax.lax.dynamic_slice: a negative start counts once from the genome's
+    end, then clamps to [0, len(genome) - L]."""
     dev = genome.device
     I32 = torch.int32
     hm = host_map.to(I32)
-    start = gpos.to(torch.int64).clamp(0, max(genome.shape[0] - L, 0))
+    G = genome.shape[0]
+    start = gpos.to(torch.int64)
+    start = torch.where(start < 0, start + G, start).clamp(0, max(G - L, 0))
     g = genome[start[:, None] + torch.arange(L, device=dev)[None, :]]
     keep = torch.arange(L, dtype=I32, device=dev)[None, :] < jl.to(I32)[:, None]
     g = torch.where(keep, g, torch.zeros((), dtype=g.dtype, device=dev))
     h = host_rows[_clamp_rows(hm, host_rows.shape[0])]
     return torch.where((hm < 0)[:, None], g, h)
+
+
+def _gathered(dev):
+    """The gathered entry for tensors on `dev`: the kernel on a CUDA
+    device, its plain twin on the CPU."""
+    if dev.type == "cuda":
+        return vote_gathered
+    if dev.type == "cpu":
+        return vote_gathered_plain
+    raise ValueError(f"gathered vote: unsupported device {dev}")
 
 
 def pallas_vote_gathered(seq_dev, qual_dev, score_dev, rows_t, row0, valid,
@@ -750,23 +948,21 @@ def pallas_vote_gathered(seq_dev, qual_dev, score_dev, rows_t, row0, valid,
                          sparse=False):
     """Vote over member rows rows_t [K, J] of the device matrices plus the
     epilogue with template rows row0 [J] (port of the JAX function of the
-    same name). Returns (pseq, new_qual, diff, minc[, enc])."""
+    same name; host arrays go to the matrices' device). Returns (pseq,
+    new_qual, diff, minc[, enc])."""
     dev = seq_dev.device
-    n_pad = seq_dev.shape[0]
-    rows_t = to_device(rows_t, dev, torch.int32).clamp(0, n_pad - 1)
-    valid = to_device(valid, dev, torch.uint8)
-    refbase = to_device(refbase, dev, torch.uint8)
-    r0 = _clamp_rows(to_device(row0, dev), n_pad)
-    if qtable is not None:
-        qtable = to_device(qtable, dev)
-    cseq, cqual, chg, minc_pos = vote_core(
-        seq_dev, qual_dev, score_dev, rows_t.contiguous(), valid.contiguous(),
-        refbase.contiguous(), hi=hi, mod=mod, lo=lo,
-        base_score_req=base_score_req, ratio_num=ratio_num,
-        ratio_den=ratio_den)
-    return _epilogue_core(cseq, cqual, chg, minc_pos, seq_dev[r0],
-                          qual_dev[r0], to_device(job_len, dev),
-                          out_len=out_len, sparse=sparse, qtable=qtable)
+    I32 = torch.int32
+    return _gathered(dev)(
+        seq_dev, qual_dev, score_dev,
+        to_device(rows_t, dev, I32).contiguous(),
+        to_device(row0, dev, I32).contiguous(),
+        to_device(valid, dev, torch.uint8).contiguous(),
+        to_device(job_len, dev, I32).contiguous(),
+        to_device(refbase, dev, torch.uint8).contiguous(),
+        None if qtable is None else to_device(qtable, dev, torch.uint8),
+        hi=hi, mod=mod, lo=lo, base_score_req=base_score_req,
+        ratio_num=ratio_num, ratio_den=ratio_den, out_len=out_len,
+        sparse=sparse)
 
 
 def pallas_vote(seq, qual, score, valid, job_len, refbase, *, hi, mod, lo,
@@ -774,23 +970,21 @@ def pallas_vote(seq, qual, score, valid, job_len, refbase, *, hi, mod, lo,
                 sparse=False, device=None):
     """Vote over members the host has gathered: seq/qual u8 [K, S, L],
     score i8 [K, S, L], valid [K, S], job_len [S], refbase u8 [S, L] (host
-    arrays or tensors; host arrays go to `device`). The kernel reads the
-    [K*S, L] view with rows k*S + j. Returns (pseq, new_qual, diff, minc)."""
+    arrays or tensors; host arrays go to `device`). The gathered entry
+    reads the [K*S, L] view with rows k*S + j and templates row j (member
+    0's rows). Returns (pseq, new_qual, diff, minc[, enc])."""
     dev = device if device is not None else (
         seq.device if isinstance(seq, torch.Tensor) else torch.device("cpu"))
     seq = to_device(seq, dev, torch.uint8)
     qual = to_device(qual, dev, torch.uint8)
     score = to_device(score, dev, torch.int8)
     K, S, L = seq.shape
-    rows = (torch.arange(K, dtype=torch.int32, device=dev)[:, None] * S
-            + torch.arange(S, dtype=torch.int32, device=dev)[None, :])
-    cseq, cqual, chg, minc_pos = vote_core(
-        seq.reshape(K * S, L), qual.reshape(K * S, L),
-        score.reshape(K * S, L), rows.contiguous(),
+    rows = torch.arange(K * S, dtype=torch.int32, device=dev).view(K, S)
+    return _gathered(dev)(
+        seq.reshape(K * S, L).contiguous(), qual.reshape(K * S, L).contiguous(),
+        score.reshape(K * S, L).contiguous(), rows, rows[0],
         to_device(valid, dev, torch.uint8).contiguous(),
-        to_device(refbase, dev, torch.uint8).contiguous(), hi=hi, mod=mod,
-        lo=lo, base_score_req=base_score_req, ratio_num=ratio_num,
-        ratio_den=ratio_den)
-    return _epilogue_core(cseq, cqual, chg, minc_pos, seq[0], qual[0],
-                          to_device(job_len, dev), out_len=out_len,
-                          sparse=sparse)
+        to_device(job_len, dev, torch.int32).contiguous(),
+        to_device(refbase, dev, torch.uint8).contiguous(), None, hi=hi,
+        mod=mod, lo=lo, base_score_req=base_score_req, ratio_num=ratio_num,
+        ratio_den=ratio_den, out_len=out_len, sparse=sparse)

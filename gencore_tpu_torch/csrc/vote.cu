@@ -2,12 +2,22 @@
 // (job, position), over member rows gathered by index, with each job's
 // members split across several CTAs (split-K).
 //
-// Two instantiations of one kernel pair, by bin set (vote_rules.cuh):
-//   * Bins6 (gc_vote) replaces the Pallas kernel of the JAX package,
-//     gencore_tpu/core/pallas_vote.py:_pallas_core (its _kernel/_vote_block
-//     body and the sentinel pre-pass), and folds in the member gather that
-//     the JAX program materializes as seq_dev[rows_t] before the call.
-//     Outputs cand_seq, cand_qual, changed, minc_pos, int32 [J, L].
+// Instantiations of one kernel pair, by bin set (vote_rules.cuh) and
+// output:
+//   * Bins6 with the epilogue (gc_vote_epilogue) replaces what the JAX
+//     package's pallas_vote_gathered (gencore_tpu/core/pallas_vote.py:474)
+//     and pallas_vote (:350) compute: the member gather seq_dev[rows_t],
+//     the Pallas kernel (_pallas_core :178, its _kernel/_vote_block body
+//     and the sentinel pre-pass) and _epilogue_core (:229, through
+//     _epilogue_gathered :335): rollback, the dense nibble-packed rows and,
+//     with `sparse`, the wire encoding (epilogue.cuh, shared with
+//     vote_window.cu), run where each job is decided. Outputs pseq u8
+//     [J, ol/2], new_qual u8 [J, ol], diff and minc int32 [J] and the
+//     sparse fields.
+//   * Bins6 alone (gc_vote) writes the vote's four int32 [J, L] arrays
+//     (cand_seq, cand_qual, changed, minc_pos), what _pallas_core returns;
+//     no path of the port calls it: chip_smoke.py times it as the vote
+//     half of the composition the epilogue entry replaced.
 //   * Bins16 (gc_vote_full) is the counterpart of the XLA program K9,
 //     gencore_tpu/core/kernels.py:fused_vote_kernel with full_bins=True:
 //     member loads at clip(shift + pos, 0, L-1), members counted only at
@@ -34,6 +44,10 @@
 //     leader CTA of a thread-block cluster through distributed shared
 //     memory was 14-31% slower at the deep-pile shapes in an on-card A/B
 //     (PERF.md, PR 3). With C = 1 the CTA decides itself, one launch;
+//   * where the job's rows are finished in the kernel (the epilogue entry,
+//     Bins16) the job is decided by one block, since the rollback needs
+//     every position: its decided rows wait in shared memory (4 x L
+//     bytes) until the job's minc is known;
 //   * within a CTA, the slice's row indices and valid flags are read once
 //     per batch of blockDim members, and the valid ones compacted into
 //     shared memory (ballot + popc prefix), so absent members cost no
@@ -46,18 +60,22 @@
 //
 // Bins6 semantics carried over exactly from the Pallas kernel:
 //   * an invalid member, k = 0 included, reads as seq = 255 (SENTINEL),
-//     qual = 0, score = 0; the template base is member 0 after that
+//     qual = 0, score = 0; the vote's template base is member 0 after that
 //     substitution, so a padded job yields sentinel outputs as in JAX
 //     (absent members matter only through that template and the sentinel
 //     ref-match rule, which one extra add per CTA reproduces: it is
 //     idempotent);
+//   * the epilogue's template is the raw row row0[j] (seq and qual),
+//     whether member 0 is valid or not (pallas_vote's seq[0] of the
+//     host-gathered block is row j of its [K*S, L] view);
 //   * a stored seq of 255 also zeroes that member's qual and score;
 //   * the score is signed int8;
 //   * the elections scan bins in the order (0, 1, 2, 4, 8, 15) with
 //     `>` on the score and `>=` on the qual sum (later bins win ties), then
 //     the virtual empty bin 14 (13 or 14 for the second election);
 //   * the ratio test is top_score*rden < rnum*total_score in wrapping int32;
-//   * row indices are clamped to [0, N-1], as JAX clamps a gather.
+//   * row indices are clamped to [0, N-1], as JAX clamps a gather;
+//   * the epilogue's rules are listed in epilogue.cuh.
 // Bins16 semantics carried over from K9: members count where valid and
 // pos < job_len; the template is member 0's (shifted) row whether valid
 // or not; outside the job length the output is the template; row indices
@@ -67,6 +85,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epilogue.cuh"
 #include "staging.cuh"
 #include "vote_rules.cuh"
 
@@ -93,34 +112,49 @@ struct Args {
   const int32_t* rows;     // member k of job j at [k * sk + j * sj]
   const uint8_t* valid;    // same layout
   const int32_t* shifts;   // same layout (Bins16)
-  const int32_t* job_len;  // [J] (Bins16)
+  const int32_t* job_len;  // [J] (Bins16, epilogue)
+  const int32_t* row0;     // [J] the epilogue's template rows
   const uint8_t* refbase;  // [J, L]
+  const uint8_t* qtable;   // [16] or null (epilogue)
   void* out[4];
+  gc_epilogue::Wire wire;  // epilogue, sparse; wire.qv null when dense
+  int* bad;                // epilogue, sparse: the bucket's escape count
   int* part;               // C > 1: partial accumulators [C][J][fields][L]
-  int K, J, L, N, sk, sj;
+  int K, J, L, N, sk, sj, ol;
   int hi, mod, lo, bsr, rnum, rden;
 };
 
+// What a kernel writes: the vote's four arrays (Bins6 alone), the
+// epilogue's outputs (Bins6), or K9's rows (Bins16). The last two finish
+// each job in one block from its rows in shared memory (4 x L bytes).
+enum class Out { kVote, kEpilogue, kK9 };
+
+template <Out O>
+constexpr bool kRows = O != Out::kVote;
+
 // Dynamic shared memory of vote_kernel: the staging ring, the compacted
-// rows and shifts of one batch, and (Bins16) the job's per-position rows
-// until its rollback is known.
+// rows and shifts of one batch, and the job's decided rows until its
+// rollback is known.
 template <class B>
 __host__ __device__ size_t ring_bytes(int L, int T) {
   return static_cast<size_t>(kStages) * kChunk * 3 * (B::kBins == 16 ? L : T);
 }
 
-template <class B>
+template <class B, Out O>
 size_t smem_bytes(int L, int T) {
   return ring_bytes<B>(L, T) + 2 * sizeof(int) * T +
-         (B::kBins == 16 ? 4 * static_cast<size_t>(L) : 0);
+         (kRows<O> ? 4 * static_cast<size_t>(L) : 0);
 }
 
-// Member 0's base and qual at position p (the template): Bins6 reads the
-// sentinel for an absent member 0; Bins16 reads member 0's shifted row
-// whether valid or not.
-template <class B>
-__device__ __forceinline__ void load_template(const Args& a, size_t at0, int p,
-                                              int& base, int& qual) {
+// Position p's templates: the vote's (base, qual: Bins6 reads the
+// sentinel for an absent member 0; Bins16 member 0's shifted row whether
+// valid or not) and the epilogue's (ts, tq: Bins16 the same; Bins6 the
+// raw row row0[j]).
+template <class B, Out O>
+__device__ __forceinline__ void load_template(const Args& a, size_t jt, int p,
+                                              int& base, int& qual, int& ts,
+                                              int& tq) {
+  const size_t at0 = jt * a.sj;
   const size_t r0 = static_cast<size_t>(clampi(a.rows[at0], 0, a.N - 1)) * a.L;
   base = kSentinel;
   qual = 0;
@@ -128,23 +162,30 @@ __device__ __forceinline__ void load_template(const Args& a, size_t at0, int p,
     const int x = clampi(a.shifts[at0] + p, 0, a.L - 1);
     base = a.seq[r0 + x];
     qual = a.qual[r0 + x];
-  } else if (a.valid[at0]) {
-    base = a.seq[r0 + p];
+    ts = base;
+    tq = qual;
+    return;
+  }
+  if (a.valid[at0]) base = a.seq[r0 + p];
+  if (O == Out::kEpilogue) {
+    const size_t t0 = static_cast<size_t>(clampi(a.row0[jt], 0, a.N - 1)) * a.L;
+    ts = a.seq[t0 + p];
+    tq = a.qual[t0 + p];
   }
 }
 
-// Decide position p of job j and write it: Bins6 writes the four int32
-// outputs; Bins16 keeps its rows in `rowbuf` (4 x L) until the job's
-// rollback is known and returns its (changed, minc) contribution.
-template <class B>
+// Decide position p of job j: Out::kVote writes the four int32 outputs;
+// the others keep the position in `rows` (epilogue.cuh) until the job's
+// rollback is known and return its (changed, minc) contribution.
+template <class B, Out O>
 __device__ __forceinline__ int2 decide_pos(const Args& a, const VoteAcc<B>& acc,
                                            size_t jt, int p, bool live, int rb,
-                                           int out_base, int tqual, int jl,
-                                           uint8_t* rowbuf) {
+                                           int out_base, int ts, int tq,
+                                           int jl, uint8_t* rows) {
   const int L = a.L;
   const VoteOut o = gc_vote_rules::vote_decide<B>(
       acc, out_base, rb, rb != 0, a.hi, a.mod, a.lo, a.bsr, a.rnum, a.rden);
-  if (B::kBins != 16) {
+  if (O == Out::kVote) {
     if (live) {
       const size_t at = jt * L + p;
       static_cast<int32_t*>(a.out[0])[at] = o.cand_seq;
@@ -154,45 +195,50 @@ __device__ __forceinline__ int2 decide_pos(const Args& a, const VoteAcc<B>& acc,
     }
     return make_int2(0, 0);
   }
-  // K9: changed only inside the job length; outside it the template
-  const bool pv = live && p < jl;
-  const int chg = pv ? o.changed : 0;
-  if (live) {
-    rowbuf[p] = static_cast<uint8_t>(chg ? o.cand_seq : out_base);
-    rowbuf[L + p] = static_cast<uint8_t>(pv ? o.cand_qual : tqual);
-    rowbuf[2 * L + p] = static_cast<uint8_t>(out_base);
-    rowbuf[3 * L + p] = static_cast<uint8_t>(tqual);
-  }
-  return make_int2(chg, pv ? o.minc_pos : 0);
+  if (!live) return make_int2(0, 0);
+  return gc_epilogue::put_position(rows, L, p, p < jl, o, ts, tq);
 }
 
-// Bins16: the per-read rollback (group.cpp:538-566) and the job's writes.
-template <class B>
+// The job's writes once it is decided: Bins16 its rolled-back rows, the
+// epilogue entry the dense rows and the sparse fields (epilogue.cuh).
+template <Out O>
 __device__ __forceinline__ void finish_job(const Args& a, size_t jt,
-                                           const uint8_t* rowbuf, int diff,
-                                           int minc) {
-  if (B::kBins != 16) return;
+                                           uint8_t* rows, int diff, int minc,
+                                           gc_epilogue::Slots& slots) {
   const int L = a.L;
-  const int rbk = minc > 5 ? 2 * L : 0;
-  for (int p = threadIdx.x; p < L; p += blockDim.x) {
-    static_cast<uint8_t*>(a.out[0])[jt * L + p] = rowbuf[rbk + p];
-    static_cast<uint8_t*>(a.out[1])[jt * L + p] = rowbuf[rbk + L + p];
+  const int n = O == Out::kK9 ? L : a.ol;
+  gc_epilogue::rollback(rows, L, n, minc);
+  if (O == Out::kK9) {
+    for (int p = threadIdx.x; p < L; p += blockDim.x) {
+      static_cast<uint8_t*>(a.out[0])[jt * L + p] = rows[p];
+      static_cast<uint8_t*>(a.out[1])[jt * L + p] = rows[L + p];
+    }
+  } else {
+    gc_epilogue::write_dense(rows, L, n,
+                             static_cast<uint8_t*>(a.out[0]) + jt * (n >> 1),
+                             static_cast<uint8_t*>(a.out[1]) + jt * n);
+    if (a.wire.qv != nullptr) {
+      const int nbad = gc_epilogue::encode_sparse(rows, L, n, a.qtable, slots,
+                                                  a.wire, jt, diff, minc);
+      if (threadIdx.x == 0 && nbad) atomicAdd(a.bad, nbad);
+    }
   }
   if (threadIdx.x == 0) {
     static_cast<int32_t*>(a.out[2])[jt] = diff;
     static_cast<int32_t*>(a.out[3])[jt] = minc;
   }
-  __syncthreads();  // rowbuf is rewritten by the next job
+  __syncthreads();  // rows are rewritten by the next job
 }
 
 // Grid (C, 1, jobs): CTA `rank` = blockIdx.x votes its slice of the
 // members of job blockIdx.z (+ gridDim.z ...) over every tile; with C = 1
 // it decides, else it writes its partial accumulators for decide_kernel.
-template <class B>
+template <class B, Out O>
 __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
   constexpr bool kFull = B::kBins == 16;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int warp_cnt[kMaxThreads / 32];
+  __shared__ gc_epilogue::Slots slots;
 
   const int C = static_cast<int>(gridDim.x);
   const int rank = static_cast<int>(blockIdx.x);
@@ -202,7 +248,7 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
   uint8_t* ring = smem;
   int* crow = reinterpret_cast<int*>(smem + ring_bytes<B>(L, T));
   int* cshift = crow + T;
-  uint8_t* rowbuf = reinterpret_cast<uint8_t*>(cshift + T);  // 4 x L
+  uint8_t* rows = reinterpret_cast<uint8_t*>(cshift + T);  // 4 x L
 
   const int slice = (a.K + C - 1) / C;
   const int k_begin = min(rank * slice, a.K);
@@ -211,7 +257,7 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
 
   for (int j = blockIdx.z; j < a.J; j += gridDim.z) {
     const size_t jt = static_cast<size_t>(j);
-    const int jl = kFull ? a.job_len[j] : L;
+    const int jl = kRows<O> ? a.job_len[j] : L;
     int diff = 0, minc = 0;
     for (int tile = 0; tile < ntiles; ++tile) {
       const int p0 = tile * T;
@@ -223,8 +269,8 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
       const bool has_ref = rb != 0;
 
       // the template loads go in flight first
-      int out_base = kSentinel, tqual = 0;
-      if (C == 1 && live) load_template<B>(a, jt * a.sj, p, out_base, tqual);
+      int out_base = kSentinel, tqual = 0, ts = 0, tq = 0;
+      if (C == 1 && live) load_template<B, O>(a, jt, p, out_base, tqual, ts, tq);
 
       VoteAcc<B> acc;
       acc.init();
@@ -308,38 +354,35 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
                                  VoteAcc<B>::kFields * L + p, L);
         continue;
       }
-      const int2 d = decide_pos<B>(a, acc, jt, p, live, rb, out_base, tqual,
-                                   jl, rowbuf);
-      if (kFull) {
-        diff += __syncthreads_count(d.x != 0);
-        minc += __syncthreads_count(d.y > 0) - __syncthreads_count(d.y < 0);
-      }
+      const int2 d = decide_pos<B, O>(a, acc, jt, p, live, rb, out_base, ts,
+                                      tq, jl, rows);
+      if (kRows<O>) gc_epilogue::count_block(d, diff, minc);
     }
-    if (C == 1) finish_job<B>(a, jt, rowbuf, diff, minc);
+    if (C == 1 && kRows<O>) finish_job<O>(a, jt, rows, diff, minc, slots);
   }
 }
 
 // The second pass with C > 1, one block of 32 x C threads per job (and,
-// for Bins6, per 32-position chunk): warp g reads rank g's partials of 32
-// positions (coalesced) into shared memory, warp 0 merges the C of them
-// and decides: the ranks are read in parallel, where one thread per
-// position reading them one after another took ~21 us per launch at
-// C = 16 on an H100 (PERF.md, PR 3).
-template <class B>
+// for the vote alone, per 32-position chunk): warp g reads rank g's
+// partials of 32 positions (coalesced) into shared memory, warp 0 merges
+// the C of them and decides: the ranks are read in parallel, where one
+// thread per position reading them one after another took ~21 us per
+// launch at C = 16 on an H100 (PERF.md §6).
+template <class B, Out O>
 __global__ void __launch_bounds__(32 * 16) decide_kernel(const Args a, int C) {
-  constexpr bool kFull = B::kBins == 16;
   constexpr int F = VoteAcc<B>::kFields;
   extern __shared__ __align__(16) uint8_t dsmem[];
   int* xch = reinterpret_cast<int*>(dsmem);             // [C][F][32]
-  uint8_t* rowbuf = dsmem + sizeof(int) * C * F * 32;   // Bins16: 4 x L
+  uint8_t* rows = dsmem + sizeof(int) * C * F * 32;     // 4 x L
   __shared__ int job_diff, job_minc;
+  __shared__ gc_epilogue::Slots slots;
   const int L = a.L;
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const int g = static_cast<int>(threadIdx.x) >> 5;
   const int nchunks = (L + 31) / 32;
   for (int j = blockIdx.z; j < a.J; j += gridDim.z) {
     const size_t jt = static_cast<size_t>(j);
-    const int jl = kFull ? a.job_len[j] : L;
+    const int jl = kRows<O> ? a.job_len[j] : L;
     int diff = 0, minc = 0;
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int p = ch * 32 + lane;
@@ -351,60 +394,67 @@ __global__ void __launch_bounds__(32 * 16) decide_kernel(const Args a, int C) {
       __syncthreads();
       if (g == 0) {
         for (int r = 1; r < C; ++r) acc.merge(xch + r * F * 32 + lane, 32);
-        int rb = 0, out_base = kSentinel, tqual = 0;
+        int rb = 0, out_base = kSentinel, tqual = 0, ts = 0, tq = 0;
         if (live) {
           rb = a.refbase[jt * L + p];
-          load_template<B>(a, jt * a.sj, p, out_base, tqual);
+          load_template<B, O>(a, jt, p, out_base, tqual, ts, tq);
         }
-        const int2 d = decide_pos<B>(a, acc, jt, p, live, rb, out_base, tqual,
-                                     jl, rowbuf);
-        if (kFull) {
-          diff += __popc(__ballot_sync(0xffffffffu, d.x != 0));
-          minc += __popc(__ballot_sync(0xffffffffu, d.y > 0)) -
-                  __popc(__ballot_sync(0xffffffffu, d.y < 0));
-        }
+        const int2 d = decide_pos<B, O>(a, acc, jt, p, live, rb, out_base, ts,
+                                        tq, jl, rows);
+        if (kRows<O>) gc_epilogue::count_warp(d, diff, minc);
       }
       __syncthreads();  // xch is rewritten by the next chunk
     }
-    if (kFull) {
+    if (kRows<O>) {
       if (threadIdx.x == 0) {
         job_diff = diff;
         job_minc = minc;
       }
       __syncthreads();
-      finish_job<B>(a, jt, rowbuf, job_diff, job_minc);
+      finish_job<O>(a, jt, rows, job_diff, job_minc, slots);
     }
   }
 }
 
-template <class B>
+template <class B, Out O>
 int launch(const Args& a, int split, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (O == Out::kEpilogue && a.wire.qv != nullptr) {
+    if (a.bad == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    e = cudaMemsetAsync(a.bad, 0, sizeof(int), st);  // also when J == 0
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (a.J <= 0 || a.L <= 0) return 0;
   if (a.K <= 0 || a.N <= 0 || (a.L & 15) || split < 1 || split > 16 ||
       (split > 1 && a.part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (O == Out::kEpilogue &&
+      (a.ol < 2 || a.ol > a.L || (a.ol & 1) ||
+       (a.wire.qv != nullptr && a.ol > 256)))
+    return static_cast<int>(cudaErrorInvalidValue);
   int T = ((a.L + 31) / 32) * 32;
   if (T > kMaxThreads) T = kMaxThreads;
   const int C = split < a.K ? split : a.K;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int gz = a.J < 65535 ? a.J : 65535;
-  const size_t smem = smem_bytes<B>(a.L, T);
-  cudaError_t e = cudaFuncSetAttribute(
-      vote_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const size_t smem = smem_bytes<B, O>(a.L, T);
+  e = cudaFuncSetAttribute(vote_kernel<B, O>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  vote_kernel<B><<<dim3(C, 1, gz), T, smem, st>>>(a);
+  vote_kernel<B, O><<<dim3(C, 1, gz), T, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || C == 1) return static_cast<int>(e);
   const size_t dsmem = sizeof(int) * C * VoteAcc<B>::kFields * 32 +
-                       (B::kBins == 16 ? 4 * static_cast<size_t>(a.L) : 0);
-  e = cudaFuncSetAttribute(decide_kernel<B>,
+                       (kRows<O> ? 4 * static_cast<size_t>(a.L) : 0);
+  e = cudaFuncSetAttribute(decide_kernel<B, O>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(dsmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  // Bins16 decides a job in one block (its rollback needs every position)
-  const int gx = B::kBins == 16 ? 1 : (a.L + 31) / 32;
-  decide_kernel<B><<<dim3(gx, 1, gz), 32 * C, dsmem, st>>>(a, C);
+  // a job whose rows are finished here is decided in one block (its
+  // rollback needs every position)
+  const int gx = kRows<O> ? 1 : (a.L + 31) / 32;
+  decide_kernel<B, O><<<dim3(gx, 1, gz), 32 * C, dsmem, st>>>(a, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -412,11 +462,56 @@ int launch(const Args& a, int split, void* stream) {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // `split` CTAs per job; with split > 1, part is int32 scratch of
-// [split, J, fields, L] (fields = 27 for gc_vote, 67 for gc_vote_full)
-// and a second kernel decides.
-// seq/qual u8 [N, L], score i8 [N, L] (16-byte aligned, L % 16 == 0),
-// rows i32 [K, J] (clamped to [0, N-1]), valid u8 [K, J], refbase u8
-// [J, L]; outputs cand_seq, cand_qual, changed, minc_pos i32 [J, L].
+// [split, J, fields, L] (fields = 27 for gc_vote and gc_vote_epilogue, 67
+// for gc_vote_full) and a second kernel decides.
+//
+// The gathered vote with its epilogue: seq/qual u8 [N, L], score i8 [N, L]
+// (16-byte aligned, L % 16 == 0), rows i32 [K, J] (clamped to [0, N-1]),
+// row0 i32 [J] (the templates, clamped), valid u8 [K, J], job_len i32
+// [J], refbase u8 [J, L], qtable u8 [16] or null; outputs pseq u8
+// [J, ol/2], new_qual u8 [J, ol], diff, minc i32 [J] (2 <= ol <= L, ol
+// even) and, when qv is not null (ol <= 256), the sparse fields qv u8
+// [J, 10] (with a qtable [J, 5]), qs u8 [J, 10], nr u8 [J], sp u8 [J, 4],
+// sb u8 [J, 2], nd u8 [J], df, mc int16 [J] and bad i32 [1] (zeroed here).
+extern "C" int gc_vote_epilogue(
+    const void* seq, const void* qual, const void* score, const void* rows,
+    const void* row0, const void* valid, const void* job_len,
+    const void* refbase, const void* qtable, void* pseq, void* new_qual,
+    void* diff, void* minc, void* qv, void* qs, void* nr, void* sp, void* sb,
+    void* nd, void* df, void* mc, void* bad, int K, int J, int L, int N,
+    int ol, int hi, int mod, int lo, int bsr, int rnum, int rden, int split,
+    void* part, void* stream) {
+  Args a = {};
+  a.seq = static_cast<const uint8_t*>(seq);
+  a.qual = static_cast<const uint8_t*>(qual);
+  a.score = static_cast<const int8_t*>(score);
+  a.rows = static_cast<const int32_t*>(rows);
+  a.row0 = static_cast<const int32_t*>(row0);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.job_len = static_cast<const int32_t*>(job_len);
+  a.refbase = static_cast<const uint8_t*>(refbase);
+  a.qtable = static_cast<const uint8_t*>(qtable);
+  a.out[0] = pseq;
+  a.out[1] = new_qual;
+  a.out[2] = diff;
+  a.out[3] = minc;
+  a.wire.qv = static_cast<uint8_t*>(qv);
+  a.wire.qs = static_cast<uint8_t*>(qs);
+  a.wire.nr = static_cast<uint8_t*>(nr);
+  a.wire.sp = static_cast<uint8_t*>(sp);
+  a.wire.sb = static_cast<uint8_t*>(sb);
+  a.wire.nd = static_cast<uint8_t*>(nd);
+  a.wire.df = static_cast<uint8_t*>(df);
+  a.wire.mc = static_cast<uint8_t*>(mc);
+  a.bad = static_cast<int*>(bad);
+  a.part = static_cast<int*>(part);
+  a.K = K; a.J = J; a.L = L; a.N = N; a.sk = J; a.sj = 1; a.ol = ol;
+  a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
+  return launch<Bins6, Out::kEpilogue>(a, split, stream);
+}
+
+// The vote alone, as gc_vote_epilogue without row0, job_len and qtable;
+// outputs cand_seq, cand_qual, changed, minc_pos i32 [J, L].
 extern "C" int gc_vote(const void* seq, const void* qual, const void* score,
                        const void* rows, const void* valid,
                        const void* refbase, void* cand_seq, void* cand_qual,
@@ -437,7 +532,7 @@ extern "C" int gc_vote(const void* seq, const void* qual, const void* score,
   a.part = static_cast<int*>(part);
   a.K = K; a.J = J; a.L = L; a.N = N; a.sk = J; a.sj = 1;
   a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
-  return launch<Bins6>(a, split, stream);
+  return launch<Bins6, Out::kVote>(a, split, stream);
 }
 
 // The K9 vote (full_bins=True): rows, shifts i32 and valid u8 [J, K],
@@ -467,5 +562,5 @@ extern "C" int gc_vote_full(const void* seq, const void* qual,
   a.part = static_cast<int*>(part);
   a.K = K; a.J = J; a.L = L; a.N = N; a.sk = 1; a.sj = K;
   a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
-  return launch<Bins16>(a, split, stream);
+  return launch<Bins16, Out::kK9>(a, split, stream);
 }

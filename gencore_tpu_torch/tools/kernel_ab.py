@@ -4,14 +4,16 @@
 
 Each DIR is a copy of gencore_tpu_torch/csrc with one change. The script
 builds a kernel library from each (nvcc, as core/vote.py builds it, into
-build/kernel_ab/<dir name>/), then for every shape runs vote.vote_core
-with each library in turns (A, B, ..., ..., B, A), checks that all
-outputs are equal, and prints one JSON line per shape with each
-variant's device ms per call (CUDA events around each call, the stream
-kept busy ahead of them, median of 7). With --profile it also prints
-each kernel's median duration by name from a torch.profiler trace.
-Shapes: the deep piles of chip_smoke.py phase 2c at J in {8, 32, 128}
-and the k-classes 16, 64 and 256 of phase 2a at J = 4096. Needs a card.
+build/kernel_ab/<dir name>/), then for every shape runs the gathered
+entry vote.vote_gathered (the vote with its epilogue, sparse with a qual
+table, as the engine runs it) with each library in turns (A, B, ..., ...,
+B, A), checks that all outputs are equal, and prints one JSON line per
+shape with each variant's device ms per call (CUDA events around each
+call, the stream kept busy ahead of them, median of 7). With --profile it
+also prints each kernel's median duration by name from a torch.profiler
+trace. Shapes: the deep piles of chip_smoke.py phase 2c at J in {8, 32,
+128} and the k-classes 16, 64 and 256 of phase 2a at J = 4096. Needs a
+card.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
     ap.add_argument("--profile", action="store_true")
-    args = ap.parse_args(argv)
+    opts = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import numpy as np
     import torch
@@ -72,7 +74,7 @@ def main(argv=None) -> int:
     os.makedirs(cs.WORK, exist_ok=True)
     dev = torch.device("cuda", 0)
     libs = {}
-    for d in args.dirs:
+    for d in opts.dirs:
         vote.CSRC_DIR = os.path.abspath(d)
         vote.BUILD_DIR = os.path.join(REPO, "build", "kernel_ab",
                                       os.path.basename(os.path.normpath(d)))
@@ -81,21 +83,22 @@ def main(argv=None) -> int:
     for kind, J, K in SHAPES:
         arrs = (cs._pile_inputs(np, K, J, 160, J + K) if kind == "pile"
                 else cs._vote_inputs(np, K, J, 160, 40960, K))
-        gpu = [torch.from_numpy(a).to(dev) for a in arrs]
+        args, kw = cs._gathered_args(np, arrs, J + K, "sparse_qtable")
+        gpu = [None if a is None else torch.from_numpy(a).to(dev)
+               for a in args]
 
         def call():
-            return vote.vote_core(*gpu, **cs.KW)
+            return vote.vote_gathered(*gpu, **kw)
 
         outs, ms, kernels = {}, {}, {}
         for d in list(libs) + list(libs)[::-1]:
             vote._lib = libs[d]
             outs[d] = call()
             ms.setdefault(d, []).append(cs._kernel_ms(torch, call, 7))
-            if args.profile and d not in kernels:
+            if opts.profile and d not in kernels:
                 kernels[d] = _kernel_medians(torch, cs, call)
-        ref = outs[args.dirs[0]]
-        equal = all(all(torch.equal(a, b) for a, b in zip(o, ref))
-                    for o in outs.values())
+        ref = outs[opts.dirs[0]]
+        equal = all(cs._compare(o, ref)[0] == 0 for o in outs.values())
         print(json.dumps({"shape": kind, "J": J, "K": K, "split":
                           vote.split_size(K, J), "outputs_equal": equal,
                           "ms": ms, "kernel_ms": kernels or None}),

@@ -6,9 +6,11 @@ elsewhere. Run them on the card with
 (--noconftest: tests/conftest.py imports JAX, which a CUDA-only install lacks.)
 
 Each kernel is held to its plain twin on the same inputs with 0
-mismatches (csrc/vote.cu's Bins6 instantiation to vote_core_plain, its
-Bins16 instantiation to kernels.fused_vote_plain, csrc/vote_window.cu to
-vote_window_plain, byte for byte), and the engine on CUDA to the oracle."""
+mismatches (csrc/vote.cu's gathered entry, Bins6 with the epilogue, to
+vote_gathered_plain; its vote alone to vote_core_plain; its Bins16
+instantiation to kernels.fused_vote_plain; csrc/vote_window.cu, refbase
+rows included, to vote_window_plain, byte for byte), and the engine on
+CUDA to the oracle."""
 
 import importlib.util
 import pathlib
@@ -66,13 +68,81 @@ def test_vote_kernel_matches_twin(cuda, K, J, L):
     valid[:, 1::17] = 0                 # jobs with every member absent
     cpu = [torch.from_numpy(a) for a in arrs]
     gpu = [t.to(cuda) for t in cpu]
-    n0 = vote.LAUNCHES
+    n0 = vote.VOTE_ONLY_LAUNCHES
     got = vote.vote_core(*gpu, **KW)
     torch.cuda.synchronize(cuda)
-    assert vote.LAUNCHES == n0 + 1
+    assert vote.VOTE_ONLY_LAUNCHES == n0 + 1
     want = vote.vote_core_plain(*gpu, **TH)
     for a, b in zip(got, want):
         assert int((a != b).sum()) == 0
+
+
+def _qtable():
+    """A qual table with escapes (41, 42+) and a value listed twice (the
+    last matching index wins)."""
+    qt = np.zeros(16, dtype=np.uint8)
+    qt[1:8] = [2, 7, 12, 18, 25, 30, 36]
+    qt[11] = 30
+    return qt
+
+
+def _gathered_case(rng, K, J, L, mode):
+    """Members as _members makes them plus the epilogue's inputs: template
+    rows row0 (some past the matrix: they clamp), job lengths 0..L and,
+    for `mode`, the output length and qual table."""
+    N = min(K * J, 20000) + 50
+    seq, qual, score, rows, valid, refbase = _members(rng, K, J, L, N)
+    valid[:, 1::17] = 0                 # jobs with every member absent
+    row0 = rows[0].copy()
+    row0[::9] = N + 3
+    job_len = rng.integers(0, L + 1, size=J).astype(np.int32)
+    job_len[::4] = L
+    sparse = mode != "dense"
+    out_len = L if not sparse else min(L, 256) - 8
+    qtable = _qtable() if mode == "sparse_qtable" else None
+    args = (seq, qual, score, rows, row0, valid, job_len, refbase, qtable)
+    return args, dict(out_len=out_len, sparse=sparse)
+
+
+def _equal_outputs(got, want):
+    """Every output and encoded field equal, dtype and shape included."""
+    flat_g = list(got[:4]) + list(got[4] if len(got) > 4 else ())
+    flat_w = list(want[:4]) + list(want[4] if len(want) > 4 else ())
+    assert len(flat_g) == len(flat_w)
+    for i, (a, b) in enumerate(zip(flat_g, flat_w)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.equal(a.cpu(), b.cpu()), i
+
+
+# (K, J, L, mode): every shape of SHAPES (one CTA per job up to K = 64,
+# splits of 2..16 above, tiles past 256 positions) and K = 4096, each
+# mode on small and split shapes
+GATHERED = ([(K, J, L, m) for (K, J, L), m in zip(
+    SHAPES + [(4096, 8, 160), (4096, 32, 160)],
+    ["dense", "sparse", "sparse_qtable"] * 5)]
+    + [(16, 300, 160, "dense"), (16, 300, 160, "sparse"),
+       (512, 128, 160, "sparse_qtable"), (2048, 8, 160, "dense"),
+       (4096, 32, 160, "sparse"),
+       (300, 5, 320, "sparse_qtable")])
+
+
+@pytest.mark.parametrize("K,J,L,mode", GATHERED)
+def test_vote_gathered_kernel_matches_twin(cuda, K, J, L, mode):
+    """csrc/vote.cu's gathered entry (vote and epilogue in one launch, one
+    or several CTAs per job) against vote_core_plain + _epilogue_core on
+    the card, every output byte."""
+    rng = np.random.default_rng(11 * K + J + L + len(mode))
+    args, kw = _gathered_case(rng, K, J, L, mode)
+    gpu = [None if a is None else torch.from_numpy(a).to(cuda) for a in args]
+    gpu[5] = gpu[5].to(torch.uint8)
+    n0 = vote.LAUNCHES
+    got = vote.vote_gathered(*gpu, **KW, **kw)
+    torch.cuda.synchronize(cuda)
+    assert vote.LAUNCHES == n0 + 1
+    want = vote.vote_gathered_plain(*gpu, **KW, **kw)
+    _equal_outputs(got, want)
+    if mode == "sparse_qtable":   # escapes happened, and were counted
+        assert int(want[4][8]) > 0
 
 
 def _full_members(rng, K, J, L, N):
@@ -127,29 +197,77 @@ def test_vote_kernel_rejects_bad_inputs(cuda):
 
 
 def test_epilogue_cuda_matches_cpu(cuda):
-    """The sparse encoding (argmax-first edit and run positions included)
-    is the same on the card as on the CPU."""
+    """The epilogue fused in csrc/vote.cu (rollback, nibble packing, the
+    sparse encoding with argmax-first edit and run positions and the qual
+    table) equals the plain epilogue on the CPU: the gathered entry on the
+    card against vote_gathered_plain on CPU copies, with piles whose
+    members mostly agree (few edits, long qual runs) and rollbacks."""
     rng = np.random.default_rng(5)
-    J, L = 200, 160
-    cseq = torch.from_numpy(rng.choice(np.array([1, 2, 4, 8], np.int32),
-                                       size=(J, L)))
-    seq0 = cseq.clone().to(torch.uint8)
-    flip = torch.from_numpy(rng.random((J, L)) < 0.02)
-    cseq[flip] = 15
-    cqual = torch.from_numpy(rng.choice(np.array([12, 30, 37], np.int32),
-                                        size=(J, L)))
-    chg = flip.to(torch.int32)
-    minc = torch.from_numpy(rng.integers(-1, 2, size=(J, L)).astype(np.int32))
-    qual0 = cqual.to(torch.uint8)
-    jl = torch.from_numpy(rng.integers(1, L + 1, size=J).astype(np.int32))
-    qtable = torch.zeros(16, dtype=torch.uint8)
-    qtable[1:4] = torch.tensor([12, 30, 37], dtype=torch.uint8)
-    args = (cseq, cqual, chg, minc, seq0, qual0, jl)
-    want = vote._epilogue_core(*args, out_len=152, sparse=True, qtable=qtable)
-    got = vote._epilogue_core(*[a.to(cuda) for a in args], out_len=152,
-                              sparse=True, qtable=qtable.to(cuda))
-    for a, b in zip(got[:4] + tuple(got[4]), want[:4] + tuple(want[4])):
-        assert torch.equal(a.cpu(), b)
+    K, J, L = 6, 200, 160
+    N = K * J
+    codes = np.array([1, 2, 4, 8], np.uint8)
+    base = codes[rng.integers(0, 4, size=(J, L))]
+    seq = np.repeat(base, K, axis=0)
+    seq[rng.random((N, L)) < 0.03] = 15
+    qual = rng.choice(np.array([12, 30, 37, 41], np.uint8), size=(N, 1))
+    qual = np.repeat(qual, L, axis=1)
+    qual[rng.random((N, L)) < 0.02] = 18
+    score = rng.integers(-2, 13, size=(N, L)).astype(np.int8)
+    rows = (np.arange(J)[None, :] * K + np.arange(K)[:, None]).astype(np.int32)
+    row0 = rows[0].copy()
+    valid = (rng.random((K, J)) < 0.9).astype(np.uint8)
+    job_len = rng.integers(1, L + 1, size=J).astype(np.int32)
+    refbase = np.where(rng.random((J, L)) < 0.5, base,
+                       codes[rng.integers(0, 4, size=(J, L))]).astype(np.uint8)
+    refbase[::7] = 0
+    # every fifth job: the template equals the reference and the other
+    # members agree on 20 other bases, so the vote changes 20 positions
+    # that matched the reference (minc = 20 > 5) and the row rolls back
+    for j in range(0, J, 5):
+        at = rng.choice(L, size=20, replace=False)
+        seq[rows[0, j]] = refbase[j] = base[j]
+        valid[:, j] = 1
+        for k in range(1, K):
+            seq[rows[k, j], at] = codes[(np.searchsorted(codes, base[j, at])
+                                         + 1) % 4]
+            qual[rows[k, j]] = 37
+        job_len[j] = L
+    cpu = [torch.from_numpy(a) for a in (seq, qual, score, rows, row0, valid,
+                                         job_len, refbase, _qtable())]
+    res = []
+    for kw in (dict(out_len=152, sparse=True), dict(out_len=L)):
+        want = vote.vote_gathered_plain(*cpu, **KW, **kw)
+        got = vote.vote_gathered(*[t.to(cuda) for t in cpu], **KW, **kw)
+        _equal_outputs(got, want)
+        res.append(want)
+    assert (res[0][3][::5] > 5).all()       # the planted rows rolled back
+    nd = res[0][4][5]
+    assert (nd > 0).any() and (nd > 4).any()    # edits, some past the slots
+
+
+def test_kernel_launch_rejects_bad_arguments(cuda):
+    """The C entries refuse what they cannot take (cudaErrorInvalidValue)
+    and the wrappers raise on a failed launch."""
+    rng = np.random.default_rng(1)
+    args, kw = _gathered_case(rng, 8, 16, 160, "sparse")
+    gpu = [None if a is None else torch.from_numpy(a).to(cuda) for a in args]
+    gpu[5] = gpu[5].to(torch.uint8)
+    lib = vote.build_library()
+    outs = [torch.empty(n, dtype=torch.uint8, device=cuda)
+            for n in (16 * 80, 16 * 160, 64, 64)]
+    ptrs = [None if t is None else t.data_ptr() for t in gpu + outs]
+    for ol in (3, 0, 320):   # odd, too short, longer than L
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            vote._launch("gc_vote_epilogue", lib.gc_vote_epilogue,
+                         ptrs + [None] * 9,
+                         [8, 16, 160, len(args[0]), ol, 30, 20, 15, 6, 4, 5],
+                         8, 16, 160, 27, cuda)
+    n0 = vote.LAUNCHES
+    with pytest.raises(ValueError, match="must be even"):
+        vote.vote_gathered(*gpu, **KW, out_len=151, sparse=True)
+    with pytest.raises(ValueError, match="on cpu, expected cuda"):
+        vote.vote_gathered(*gpu[:4], gpu[4].cpu(), *gpu[5:], **KW, **kw)
+    assert vote.LAUNCHES == n0
 
 
 def _window_args(rng, classes, L, N, Jw):
@@ -171,12 +289,30 @@ def _window_args(rng, classes, L, N, Jw):
     return args
 
 
+def _refbase_sources(rng, Jw, L, G=20000, nh=40):
+    """A window's refbase sources: the padded genome, genome starts (some
+    negative or past the end: dynamic_slice's wrap and clamp), host rows
+    (indices past the last clamp) and job lengths 0..L."""
+    genome = np.pad(np.array([1, 2, 4, 8], np.uint8)[
+        rng.integers(0, 4, size=G)], (0, 4096))
+    gp = rng.integers(0, G, size=Jw).astype(np.int32)
+    gp[:5] = [-3, -G - 4096 - 7, len(genome) - L + 9, 2**31 - 1, 0]
+    hr = np.array([0, 1, 2, 4, 8], np.uint8)[rng.integers(0, 5, size=(nh, L))]
+    hr[0] = 0
+    hm = np.where(rng.random(Jw) < 0.6, -1,
+                  rng.integers(0, nh + 4, size=Jw)).astype(np.int16)
+    jp = rng.integers(0, L + 1, size=Jw).astype(np.uint16)
+    jp[::3] = L
+    return genome, gp, hr, hm, jp
+
+
 @pytest.mark.parametrize("with_qtable", [False, True])
 @pytest.mark.parametrize("out_len", [160, 136])
 def test_vote_window_kernel_matches_twin(cuda, with_qtable, out_len):
-    """gc_vote_window's flat wire buffer and dense fallback equal the
-    plain composition's (vote_window_plain on CPU copies) byte for byte,
-    every class of a window in one launch."""
+    """gc_vote_window's flat wire buffer, refbase rows and dense fallback
+    equal the plain composition's (vote_window_plain on CPU copies) byte
+    for byte, every class of a window in one launch, the refbase rows
+    built in the kernel from the genome and the host rows."""
     rng = np.random.default_rng(3 + with_qtable + out_len)
     L, N, Jw = 160, 3000, 900
     classes = ((4, 300), (16, 200), (64, 120), (256, 40))
@@ -186,43 +322,55 @@ def test_vote_window_kernel_matches_twin(cuda, with_qtable, out_len):
     qual = rng.choice(np.array([2, 12, 18, 25, 30, 36, 41], np.uint8),
                       size=(N, L))
     score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
-    refbase = np.array([0, 1, 2, 4, 8], np.uint8)[
-        rng.integers(0, 5, size=(Jw, L))]
-    refbase[::4] = 0
+    genome, gp, hr, hm, jp = _refbase_sources(rng, Jw, L)
     class_args = _window_args(rng, classes, L, N, Jw)
-    qtable = None
-    if with_qtable:
-        qtable = np.zeros(16, dtype=np.uint8)
-        qtable[1:7] = [2, 12, 18, 25, 30, 36]   # 41 escapes
-        qtable[9] = 30                           # the last match wins
+    qtable = _qtable() if with_qtable else None
     kw = dict(classes=classes, L=L, out_len=out_len, **KW)
-    cpu = [torch.from_numpy(a) for a in (seq, qual, score, refbase)]
-    qt = None if qtable is None else torch.from_numpy(qtable)
-    want_flat, want_dense = vote.vote_window_plain(*cpu, qt, class_args, **kw)
+    cpu = [torch.from_numpy(a) for a in (seq, qual, score)]
+    want = vote.vote_window_plain(*cpu, torch.from_numpy(genome), gp, hr, hm,
+                                  jp, qtable, class_args, **kw)
     n0 = vote.WINDOW_LAUNCHES
-    got_flat, got_dense = vote.vote_window(
-        *[t.to(cuda) for t in cpu], None if qt is None else qt.to(cuda),
-        class_args, **kw)
+    got = vote.vote_window(*[t.to(cuda) for t in cpu],
+                           torch.from_numpy(genome).to(cuda), gp, hr, hm, jp,
+                           qtable, class_args, **kw)
     torch.cuda.synchronize(cuda)
     assert vote.WINDOW_LAUNCHES == n0 + 1
-    assert got_flat.cpu().numpy().tobytes() == want_flat.numpy().tobytes()
-    for (gp, gq), (wp, wq) in zip(got_dense, want_dense):
-        assert torch.equal(gp.cpu(), wp)
+    assert got[0].cpu().numpy().tobytes() == want[0].numpy().tobytes()
+    assert torch.equal(got[1].cpu(), want[1])
+    for (gp_, gq), (wp, wq) in zip(got[2], want[2]):
+        assert torch.equal(gp_.cpu(), wp)
         assert torch.equal(gq.cpu(), wq)
     if with_qtable:   # the escape counts are not all zero
-        assert want_flat[-4 * len(classes):].any()
+        assert want[0][-4 * len(classes):].any()
+    # host rows and a qual table that already lie on the card
+    got2 = vote.vote_window(*[t.to(cuda) for t in cpu],
+                            torch.from_numpy(genome).to(cuda), gp,
+                            torch.from_numpy(hr).to(cuda), hm, jp,
+                            None if qtable is None else
+                            torch.from_numpy(qtable).to(cuda), class_args,
+                            **kw)
+    assert torch.equal(got2[0], got[0]) and torch.equal(got2[1], got[1])
 
 
 def test_vote_window_rejects_bad_inputs(cuda):
     L, N = 40, 10     # L not a multiple of 16
     seq = torch.zeros((N, L), dtype=torch.uint8, device=cuda)
-    ref = torch.zeros((2, L), dtype=torch.uint8, device=cuda)
+    genome = torch.zeros(5000, dtype=torch.uint8, device=cuda)
+    hr = np.zeros((1, L), np.uint8)
     args = [np.zeros(3, np.int32)] * 4
+    src = [np.zeros(3, np.int32)] * 1
     kw = dict(classes=((4, 3),), L=L, out_len=L, **KW)
     with pytest.raises(ValueError, match="multiple of 16"):
-        vote.vote_window(seq, seq, seq.to(torch.int8), ref, None, args, **kw)
+        vote.vote_window(seq, seq, seq.to(torch.int8), genome, *src, hr,
+                         *src, *src, None, args, **kw)
+    seq = torch.zeros((N, 32), dtype=torch.uint8, device=cuda)
+    kw.update(L=32, out_len=32)
     with pytest.raises(TypeError):
-        vote.vote_window(seq, seq, seq, ref, None, args, **kw)
+        vote.vote_window(seq, seq, seq, genome, *src, hr[:, :32], *src,
+                         *src, None, args, **kw)
+    with pytest.raises(ValueError, match="on cpu, expected cuda"):
+        vote.vote_window(seq, seq, seq.to(torch.int8), genome.cpu(), *src,
+                         hr[:, :32], *src, *src, None, args, **kw)
 
 
 def test_engine_on_cuda_matches_oracle(cuda, tmp_path):

@@ -153,13 +153,13 @@ def test_port_engine_deep_pile(tmp_path, monkeypatch):
     K = 512). The JAX engine takes its XLA route here: Pallas interpret
     mode needs minutes for a bucket that deep."""
     calls = []
-    orig = vote.vote_core
+    orig = vote.vote_gathered_plain
 
     def counted(*a, **k):
         calls.append(tuple(a[3].shape))
         return orig(*a, **k)
 
-    monkeypatch.setattr(vote, "vote_core", counted)
+    monkeypatch.setattr(vote, "vote_gathered_plain", counted)
     run_three(workloads.ultradeep_bam(n_loci=2, pairs=260,
                                       contig_len=250_000),
               tmp_path, monkeypatch, opt_kwargs={"umi_prefix": ""},

@@ -1,7 +1,9 @@
 """The port's vote (gencore_tpu_torch.core.vote) against the JAX package's
 Pallas vote, run in interpret mode on the CPU as tests/test_pallas_vote.py
-runs it. On CPU tensors the port runs the kernel's plain twin; every
-comparison is exact (all vote math is int32)."""
+runs it. On CPU tensors the port runs the kernels' plain twins; every
+comparison is exact (all vote math is int32, tolerance 0). Also the host
+side of the kernel wrappers: the window kernel's one upload and the
+argument checks each wrapper makes before it launches."""
 
 import numpy as np
 import pytest
@@ -20,15 +22,20 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+TH = dict(hi=KW["hi"], mod=KW["mod"], lo=KW["lo"], bsr=KW["base_score_req"],
+          rnum=KW["ratio_num"], rden=KW["ratio_den"])
+
+
 def _port_core(seq, qual, score, valid, refbase):
-    """vote_core over pre-gathered [K, J, L] members via the [K*J, L] view
-    with rows k*J + j."""
+    """vote_core_plain over pre-gathered [K, J, L] members via the [K*J, L]
+    view with rows k*J + j."""
     K, J, L = seq.shape
     rows = (np.arange(K, dtype=np.int32)[:, None] * J
             + np.arange(J, dtype=np.int32)[None, :])
-    return vote.vote_core(_t(seq.reshape(K * J, L)), _t(qual.reshape(K * J, L)),
-                          _t(score.reshape(K * J, L)), _t(rows),
-                          _t(valid.astype(np.uint8)), _t(refbase), **KW)
+    return vote.vote_core_plain(
+        _t(seq.reshape(K * J, L)), _t(qual.reshape(K * J, L)),
+        _t(score.reshape(K * J, L)), _t(rows), _t(valid.astype(np.uint8)),
+        _t(refbase), **TH)
 
 
 @pytest.mark.parametrize("K", [1, 3, 16])
@@ -50,9 +57,13 @@ def test_vote_core_plain_matches_pallas_core(K, variant):
         assert (a.numpy() == np.asarray(b)).all(), (K, variant, name)
 
 
-def _window_inputs(rng, L, out_len, classes):
+def _window_inputs(rng, L, out_len, classes, refs="mixed"):
     """Device matrices, genome and per-class args shaped as the engine
-    ships them to _pallas_window_all."""
+    ships them to _pallas_window_all. `refs` picks the refbase sources:
+    "mixed" genome slices (starts past the end clamp) and host rows;
+    "host_rows" host rows only, some indices past the last row (they
+    clamp); "genome_rows" genome slices only, starts clamped at both ends
+    and lengths below L; "one_host_row" a single all-zero host row."""
     n_pad = 300
     codes = np.array([0, 1, 2, 4, 8, 15], dtype=np.uint8)
     seq_dev = codes[rng.integers(0, 6, size=(n_pad, L))]
@@ -64,10 +75,21 @@ def _window_inputs(rng, L, out_len, classes):
     nj = sum(j2 for _, j2 in classes)
     gp = rng.integers(0, 5000, size=nj).astype(np.int32)
     gp[:3] = len(genome) - L + 7   # starts past the end clamp
-    hr = codes[:5][rng.integers(0, 5, size=(6, L))]
+    nh = 1 if refs == "one_host_row" else 6
+    hr = codes[:5][rng.integers(0, 5, size=(nh, L))]
     hr[0] = 0
-    hm = rng.integers(-1, 6, size=nj).astype(np.int16)
+    hm = rng.integers(-1, nh, size=nj).astype(np.int16)
     jp = rng.integers(0, out_len + 1, size=nj).astype(np.uint16)
+    if refs == "host_rows":
+        hm = rng.integers(0, nh + 3, size=nj).astype(np.int16)
+    elif refs == "genome_rows":
+        hm[:] = -1
+        # negative starts count once from the end (dynamic_slice), then clamp
+        gp[3:7] = [-7, -1, 0, -len(genome) - 9]
+        jp = rng.integers(0, L // 2, size=nj).astype(np.uint16)
+        jp[::4] = L
+    elif refs == "one_host_row":
+        hm = rng.integers(-1, 3, size=nj).astype(np.int16)
     class_args = []
     for K, J2 in classes:
         J = J2 - 3                 # real jobs; the tail is padding
@@ -84,14 +106,16 @@ def _window_inputs(rng, L, out_len, classes):
             class_args)
 
 
-@pytest.mark.parametrize("with_qtable", [False, True])
-def test_window_program_matches_jax(with_qtable):
-    rng = np.random.default_rng(7 + with_qtable)
+def _window_vs_jax(seed, with_qtable, refs="mixed"):
+    """pallas_vote_window on CPU tensors against _pallas_window_all in
+    interpret mode: the wire buffer, refbase_dev and the dense fallbacks,
+    byte for byte."""
+    rng = np.random.default_rng(seed)
     L, out_len = 128, 104
     classes = ((4, 16), (16, 8))
     tjs = tuple(min(max(8, min(32, 1024 // K)), j2) for K, j2 in classes)
     (seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
-     class_args) = _window_inputs(rng, L, out_len, classes)
+     class_args) = _window_inputs(rng, L, out_len, classes, refs)
     qtable = None
     if with_qtable:
         qtable = np.zeros(16, dtype=np.uint8)
@@ -104,11 +128,33 @@ def test_window_program_matches_jax(with_qtable):
         _t(seq_dev), _t(qual_dev), _t(score_dev), _t(genome), gp, hr, hm, jp,
         qtable, class_args, **kw)
     assert flat_t.dtype == torch.uint8
+    assert ref_t.dtype == torch.uint8 and ref_t.shape == (len(gp), L)
     assert (ref_t.numpy() == np.asarray(ref_j)).all()
     assert flat_t.numpy().tobytes() == np.asarray(flat_j).tobytes()
     for (ps_t, q_t), (ps_j, q_j) in zip(dense_t, dense_j):
         assert (ps_t.numpy() == np.asarray(ps_j)).all()
         assert (q_t.numpy() == np.asarray(q_j)).all()
+    return ref_t.numpy(), hm, jp
+
+
+@pytest.mark.parametrize("with_qtable", [False, True])
+def test_window_program_matches_jax(with_qtable):
+    _window_vs_jax(7 + with_qtable, with_qtable)
+
+
+@pytest.mark.parametrize("refs", ["host_rows", "genome_rows",
+                                  "one_host_row"])
+def test_window_refbase_matches_jax(refs):
+    """The refbase assembly the window kernel does in its own blocks, held
+    by its twin to the JAX program: host rows only (indices clamp),
+    genome slices only (starts clamp at both ends, zero beyond the job
+    length) and a single host row."""
+    ref, hm, jp = _window_vs_jax(50 + len(refs), True, refs)
+    if refs == "genome_rows":
+        short = np.nonzero(jp < 128)[0]
+        assert len(short) and not ref[short[0], jp[short[0]]:].any()
+    if refs == "one_host_row":
+        assert not ref[hm >= 0].any()
 
 
 def _gathered_inputs(rng, K, J, L):
@@ -125,12 +171,21 @@ def _gathered_inputs(rng, K, J, L):
     return seq_dev, qual_dev, score_dev, rows_t, row0, valid, job_len, refbase
 
 
-@pytest.mark.parametrize("mode", ["dense", "sparse", "sparse_qtable"])
-def test_gathered_matches_jax(mode):
-    rng = np.random.default_rng(21)
-    K, J, L, out_len = 8, 16, 128, 120
+def _gathered_vs_jax(seed, mode, variant="base"):
+    """pallas_vote_gathered on CPU tensors against the JAX function in
+    interpret mode, every output and encoded field exact. `variant`:
+    "base"; "invalid0" absent members 0 (the vote's template is then the
+    sentinel, the epilogue's the raw row) and stored sentinel bases;
+    "short" an output length of half of L."""
+    rng = np.random.default_rng(seed)
+    K, J, L = 8, 16, 128
+    out_len = 64 if variant == "short" else 120
     (seq_dev, qual_dev, score_dev, rows_t, row0, valid, job_len,
      refbase) = _gathered_inputs(rng, K, J, L)
+    if variant == "invalid0":
+        valid[0, ::3] = False
+        seq_dev[rng.random(seq_dev.shape) < 0.02] = vote.SENTINEL
+    assert (rows_t >= len(seq_dev)).any()       # rows past the matrix
     qtable = None
     if mode == "sparse_qtable":
         qtable = np.zeros(16, dtype=np.uint8)
@@ -143,24 +198,72 @@ def test_gathered_matches_jax(mode):
     got = vote.pallas_vote_gathered(_t(seq_dev), _t(qual_dev), _t(score_dev),
                                     rows_t, row0, valid, job_len, refbase,
                                     qtable, **kw)
+    assert len(got) == len(want)
     for a, b in zip(got[:4], want[:4]):
+        assert a.numpy().dtype == np.asarray(b).dtype
         assert (a.numpy() == np.asarray(b)).all()
     if sparse:
         for k, (a, b) in enumerate(zip(got[4], want[4])):
             assert a.numpy().dtype == np.asarray(b).dtype, k
+            assert a.shape == np.asarray(b).shape, k
             assert (a.numpy() == np.asarray(b)).all(), k
 
 
-@pytest.mark.parametrize("trial", range(2))
+@pytest.mark.parametrize("mode", ["dense", "sparse", "sparse_qtable"])
+def test_gathered_matches_jax(mode):
+    _gathered_vs_jax(21, mode)
+
+
+@pytest.mark.parametrize("mode,variant", [
+    ("dense", "invalid0"), ("sparse_qtable", "invalid0"),
+    ("sparse", "short"), ("sparse_qtable", "short")])
+def test_gathered_variants_match_jax(mode, variant):
+    _gathered_vs_jax(60 + len(mode) + len(variant), mode, variant)
+
+
+def _shifted_block(rng, K, S, L):
+    """Host-gathered [K, S, L] members as engine._vote_pallas builds them
+    for lenDiff-shifted jobs: absent members all sentinel with zero qual
+    and score, present ones shifted left by d with zeros at the tail."""
+    codes = np.array([1, 2, 4, 8], dtype=np.uint8)
+    seq = np.full((K, S, L), vote.SENTINEL, dtype=np.uint8)
+    qual = np.zeros((K, S, L), dtype=np.uint8)
+    score = np.zeros((K, S, L), dtype=np.int8)
+    valid = rng.random((K, S)) < 0.75
+    valid[0, ::3] = False
+    base = codes[rng.integers(0, 4, size=(S, L))]
+    for k in range(K):
+        for j in range(S):
+            if not valid[k, j]:
+                continue
+            d = int(rng.integers(0, 9))
+            row = np.where(rng.random(L) < 0.05, codes[rng.integers(0, 4)],
+                           base[j])
+            seq[k, j, :L - d] = row[d:]
+            seq[k, j, L - d:] = 0
+            qual[k, j, :L - d] = rng.integers(2, 42, size=L - d)
+            score[k, j, :L - d] = rng.integers(-3, 13, size=L - d)
+    job_len = rng.integers(L // 2, L + 1, size=S).astype(np.int32)
+    refbase = np.where(rng.random((S, L)) < 0.2, 0,
+                       codes[rng.integers(0, 4, size=(S, L))]).astype(np.uint8)
+    return seq, qual, score, valid, job_len, refbase
+
+
+@pytest.mark.parametrize("trial", range(3))
 def test_pregathered_matches_jax(trial):
     rng = np.random.default_rng(40 + trial)
     K, S, L = 5, 8, 128
-    seq, qual, score, valid, job_len, refbase = _batch(
-        rng, S, K, L, with_ref=trial == 0, neg=True)
+    if trial < 2:
+        seq, qual, score, valid, job_len, refbase = _batch(
+            rng, S, K, L, with_ref=trial == 0, neg=True)
+    else:   # the lenDiff-shifted jobs the engine re-gathers on the host
+        seq, qual, score, valid, job_len, refbase = _shifted_block(
+            rng, K, S, L)
     kw = dict(out_len=96, **KW)
     want = jpv.pallas_vote(seq, qual, score, valid, job_len, refbase, tj=8,
                            interpret=True, **kw)
     got = vote.pallas_vote(seq, qual, score, valid, job_len, refbase, **kw)
+    assert len(got) == len(want) == 4
     for a, b in zip(got, want):
         assert (a.numpy() == np.asarray(b)).all()
 
@@ -219,6 +322,117 @@ def test_window_kernel_host_side(with_qtable):
     assert (tab[3, 16:24] == class_args[7]).all()
     with pytest.raises(ValueError, match="class 1 needs 9 jobs"):
         vote.window_job_table(class_args, ((4, 16), (16, 9), (256, 5)))
+
+    # the kernel's one upload: job table, gp, hm, jp as int32, then the
+    # qual table and the host rows
+    Jw = len(gp)
+    buf = vote.window_upload(class_args, classes, gp, hm, jp, qtable, hr)
+    lay = vote.window_upload_layout(29, Jw, 0 if qtable is None else 16,
+                                    hr.nbytes)
+    assert buf.dtype == np.uint8 and buf.size == lay["size"]
+    assert [lay[k] for k in ("jobs", "gp", "hm", "jp")] == [
+        0, 24 * 29, 24 * 29 + 4 * Jw, 24 * 29 + 8 * Jw]
+    ints = buf[:lay["qtable"]].view(np.int32)
+    assert (ints[:6 * 29].reshape(6, 29) == tab).all()
+    for k, a in (("gp", gp), ("hm", hm), ("jp", jp)):
+        got = ints[lay[k] // 4:lay[k] // 4 + Jw]
+        assert (got == a.astype(np.int64)).all(), k
+    assert (hm < 0).any() and (ints[lay["hm"] // 4:][:Jw] < 0).any()
+    if qtable is not None:
+        assert buf[lay["qtable"]:lay["hr"]].tobytes() == qtable.tobytes()
+    assert buf[lay["hr"]:].tobytes() == hr.tobytes()
+    # host rows that lie on the device stay out of the upload
+    small = vote.window_upload(class_args, classes, gp, hm, jp, qtable)
+    assert small.size == lay["hr"]
+    assert small.tobytes() == buf[:lay["hr"]].tobytes()
+    with pytest.raises(ValueError, match="one entry per job"):
+        vote.window_upload(class_args, classes, gp, hm[:-1], jp)
+    with pytest.raises(ValueError, match="gp does not fit int32"):
+        vote.window_upload(class_args, classes, gp.astype(np.int64) + 2**31,
+                           hm, jp)
+
+
+def _gathered_args(K=4, J=6, L=32, N=40):
+    g = torch.Generator().manual_seed(0)
+    seq = torch.randint(0, 16, (N, L), generator=g, dtype=torch.uint8)
+    return dict(seq_src=seq, qual_src=seq.clone(),
+                score_src=seq.to(torch.int8),
+                rows=torch.zeros((K, J), dtype=torch.int32),
+                row0=torch.zeros(J, dtype=torch.int32),
+                valid=torch.ones((K, J), dtype=torch.uint8),
+                job_len=torch.full((J,), L, dtype=torch.int32),
+                refbase=torch.zeros((J, L), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("change,err,match", [
+    (dict(score_src=torch.zeros((40, 32), dtype=torch.int32)), TypeError,
+     "score_src is torch.int32"),
+    (dict(rows=torch.zeros((6, 4), dtype=torch.int32).t()), ValueError,
+     "rows is not contiguous"),
+    (dict(valid=torch.ones((4, 5), dtype=torch.uint8)), ValueError,
+     "valid has shape"),
+    (dict(row0=torch.zeros(5, dtype=torch.int32)), ValueError,
+     "row0 has shape"),
+    (dict(job_len=torch.zeros(6, dtype=torch.int64)), TypeError,
+     "job_len is torch.int64"),
+    (dict(qtable=torch.zeros(15, dtype=torch.uint8)), ValueError,
+     "qtable has shape"),
+    (dict(out_len=31), ValueError, "must be even"),
+    (dict(), ValueError, "needs CUDA tensors")])
+def test_gathered_kernel_checks_arguments(change, err, match):
+    """What vote_gathered checks before it launches csrc/vote.cu; valid
+    arguments on the CPU reach the device check (the kernel runs on CUDA
+    tensors only)."""
+    args = _gathered_args()
+    kw = dict(KW)
+    for k, v in change.items():
+        (kw if k == "out_len" else args)[k] = v
+    with pytest.raises(err, match=match):
+        vote.vote_gathered(**args, **kw)
+    # the plain twin takes the same valid arguments
+    if not change:
+        out = vote.vote_gathered_plain(**_gathered_args(), sparse=True, **KW)
+        assert [tuple(t.shape) for t in out[4]] == [
+            (6, 10), (6, 10), (6,), (6, 4), (6, 2), (6,), (6,), (6,), ()]
+    with pytest.raises(ValueError, match="<= 256"):
+        a = _gathered_args(L=320)
+        vote.vote_gathered(**a, sparse=True, **KW)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        a = _gathered_args()
+        vote.vote_core(a["seq_src"], a["qual_src"], a["score_src"],
+                       a["rows"], a["valid"], a["refbase"], **KW)
+
+
+def test_window_kernel_checks_arguments():
+    """What vote_window checks before it uploads and launches; valid
+    arguments on the CPU reach the device check."""
+    rng = np.random.default_rng(9)
+    L, out_len = 128, 104
+    classes = ((4, 16),)
+    (seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
+     class_args) = _window_inputs(rng, L, out_len, classes)
+    mats = [_t(seq_dev), _t(qual_dev), _t(score_dev)]
+    kw = dict(classes=classes, L=L, out_len=out_len, **KW)
+
+    def call(mats=mats, genome=_t(genome), gp=gp, hr=hr, hm=hm, **over):
+        return vote.vote_window(*mats, genome, gp, hr, hm, jp, None,
+                                class_args, **{**kw, **over})
+
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        call()
+    with pytest.raises(TypeError, match="score_dev is torch.uint8"):
+        call(mats=[mats[0], mats[1], mats[0]])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        call(mats=[m[:, :120].contiguous() for m in mats], L=120,
+             out_len=120)
+    with pytest.raises(ValueError, match="shorter than"):
+        call(genome=_t(genome[:100]))
+    with pytest.raises(ValueError, match="hr has shape"):
+        call(hr=hr[:, :64])
+    with pytest.raises(ValueError, match="one entry per job"):
+        call(hm=hm[:-1])
+    with pytest.raises(ValueError, match="must be even"):
+        call(out_len=103)
 
 
 @pytest.mark.parametrize("K,J,want", [(4, 8, 1), (64, 8, 1), (128, 8, 4),
