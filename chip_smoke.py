@@ -65,7 +65,8 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     one payload); both equal to the golden digests, window votes launched;
   5 the deep panel's largest window launch, replayed: the fused kernel
     against its twin (exact) and timed against the plain composition on
-    the card, with its bound;
+    the card, with its bound, its (job, position) pairs and the
+    persistent grid it launched (blocks, and blocks per SM);
   6 device busy time, kernel and memcpy counts of one deep-panel run and
     one ultra-deep run (torch.profiler) before, with the composition this
     slice replaced put back for those runs only (the plain refbase
@@ -1495,8 +1496,13 @@ def phase_replay(torch, np, largest):
         np, class_args, kw["classes"], N, L, (None, *srcs),
         kw["out_len"] or L, qtable)
     b_ms, b_by = bound(n_bytes, n_ops)
+    Jt = sum(J for _K, J in kw["classes"])
+    grid = vote.window_grid(L, Jt, mats[0].device)
     res = {"classes_K_J_sumcounts": largest["classes"], "N": N, "L": L,
            "Jw": len(srcs[0]), "host_rows": len(srcs[1]),
+           "job_positions": Jt * L, "grid_blocks": grid,
+           "blocks_per_sm": grid / torch.cuda.get_device_properties(
+               mats[0].device).multi_processor_count,
            "out_len": kw["out_len"], "qtable": qtable is not None,
            "mismatches": mism, "max_abs_err": err, **t, "bytes": n_bytes,
            "int_ops": n_ops, "bound_ms": b_ms, "bound_by": b_by,

@@ -6,7 +6,7 @@ tensors it runs the kernel's plain twin.
 * `pallas_vote_window` — EVERY fast vote bucket of one window, the main
   path: refbase assembly, vote, rollback, nibble packing and the sparse
   wire encoding. On CUDA tensors it launches `csrc/vote_window.cu` once
-  per window (`vote_window`, one block per job); on CPU tensors it runs
+  per window (`vote_window`, persistent blocks); on CPU tensors it runs
   the kernel's plain twin `vote_window_plain`, the composition of
   `refbase_combine`, `vote_core_plain`, `_epilogue_core` and
   `concat_sparse` (a port of _pallas_window_all).
@@ -173,8 +173,12 @@ def build_library() -> ctypes.CDLL:
         lib.gc_vote.restype = ctypes.c_int
         lib.gc_vote_full.argtypes = [P] * 12 + [I] * 11 + [P, P]
         lib.gc_vote_full.restype = ctypes.c_int
-        lib.gc_vote_window.argtypes = [P] * 15 + [I] * 14 + [P]
+        lib.gc_vote_window.argtypes = [P] * 16 + [I] * 15 + [P]
         lib.gc_vote_window.restype = ctypes.c_int
+        lib.gc_vote_window_grid.argtypes = [I, I]
+        lib.gc_vote_window_grid.restype = ctypes.c_int
+        lib.gc_vote_window_stage.argtypes = []
+        lib.gc_vote_window_stage.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -770,26 +774,43 @@ def window_job_table(class_args, classes, out=None):
     return tab
 
 
-def window_upload_layout(Jt, Jw, qtable_bytes, hr_bytes):
+def window_upload_layout(Jt, Jw, nu, qtable_bytes, hr_bytes):
     """Byte offsets of the parts of the window kernel's one upload, and its
     size: the job table int32 [6, Jt], the refbase sources gp, hm, jp
-    int32 [Jw], then the qual table (16 bytes, or none) and the host rows
-    u8 [nh, L] (none when the kernel reads them from the device)."""
+    int32 [Jw], the qual table (16 bytes, or none), at the next multiple
+    of 16 bytes (the kernel copies them 16 bytes at a time) the host rows
+    u8 [nh, L] (none when the kernel reads them from the device), then the
+    nu refbase rows that no job references int32 [nu]."""
     lay = {"jobs": 0, "gp": 24 * Jt}
     lay["hm"] = lay["gp"] + 4 * Jw
     lay["jp"] = lay["hm"] + 4 * Jw
     lay["qtable"] = lay["jp"] + 4 * Jw
-    lay["hr"] = lay["qtable"] + qtable_bytes
-    lay["size"] = lay["hr"] + hr_bytes
+    lay["hr"] = -(-(lay["qtable"] + qtable_bytes) // 16) * 16
+    lay["unref"] = lay["hr"] + hr_bytes
+    lay["size"] = lay["unref"] + 4 * nu
     return lay
 
 
+def unreferenced_rows(ridx, Jw):
+    """The window's refbase rows [0, Jw) that no job's refbase row
+    (clamped to the rows, as the kernel clamps it) names, ascending, int32:
+    the kernel builds these apart from the jobs'."""
+    r = np.asarray(ridx)
+    if r.dtype != np.int32:
+        r = r.astype(np.int64)
+    hits = np.bincount(np.clip(r, 0, Jw - 1), minlength=Jw)
+    return np.flatnonzero(hits == 0).astype(np.int32)
+
+
 def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
-                  out=None):
+                  alloc=None):
     """The window kernel's one upload, u8, in window_upload_layout's
     order: window_job_table, the refbase sources gp, hm, jp of every job
-    of the window as int32, then the qual table and the host rows when
-    given. Filled into `out` when given."""
+    of the window as int32, the qual table and the host rows when given,
+    then the refbase rows no job references (unreferenced_rows of the
+    table's refbase row). Returns (buffer, layout): the buffer is the
+    first layout["size"] bytes of one of room for every row unreferenced,
+    which comes from alloc(room) when given."""
     gp, hm, jp = _host(gp), _host(hm), _host(jp)
     Jw = len(gp)
     if len(hm) != Jw or len(jp) != Jw:
@@ -802,19 +823,27 @@ def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
     if qt is not None and qt.shape != (16,):
         raise ValueError(f"vote_window: qtable has {qt.size} entries, not 16")
     hrb = None if hr is None else np.ascontiguousarray(hr, dtype=np.uint8)
-    lay = window_upload_layout(Jt, Jw, 0 if qt is None else 16,
-                               0 if hrb is None else hrb.nbytes)
-    buf = np.empty(lay["size"], dtype=np.uint8) if out is None else out
-    ints = buf[:lay["qtable"]].view(np.int32)
-    window_job_table(class_args, classes, out=ints[:6 * Jt].reshape(6, Jt))
+    room = window_upload_layout(Jt, Jw, Jw, 0 if qt is None else 16,
+                                0 if hrb is None else hrb.nbytes)
+    buf = (np.empty(room["size"], dtype=np.uint8) if alloc is None
+           else alloc(room["size"]))
+    ints = buf[:room["qtable"]].view(np.int32)
+    tab = window_job_table(class_args, classes,
+                           out=ints[:6 * Jt].reshape(6, Jt))
     ints[6 * Jt:6 * Jt + Jw] = gp
     ints[6 * Jt + Jw:6 * Jt + 2 * Jw] = hm
     ints[6 * Jt + 2 * Jw:] = jp
+    qt_end = room["qtable"] + (0 if qt is None else 16)
     if qt is not None:
-        buf[lay["qtable"]:lay["hr"]] = qt
+        buf[room["qtable"]:qt_end] = qt
+    buf[qt_end:room["hr"]] = 0  # the padding before the host rows
     if hrb is not None:
-        buf[lay["hr"]:] = hrb.reshape(-1)
-    return buf
+        buf[room["hr"]:room["unref"]] = hrb.reshape(-1)
+    unref = unreferenced_rows(tab[3], Jw)
+    lay = window_upload_layout(Jt, Jw, len(unref), 0 if qt is None else 16,
+                               0 if hrb is None else hrb.nbytes)
+    buf[lay["unref"]:lay["size"]].view(np.int32)[:] = unref
+    return buf[:lay["size"]], lay
 
 
 def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
@@ -832,7 +861,8 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
         raise ValueError(f"vote_window: matrices are {Lm} wide, L={L}")
     if L % 16 or not 0 < L <= 256:
         raise ValueError(f"vote_window: L={L} must be a multiple of 16 in "
-                         "(0, 256] (one block per job, 16-byte row copies)")
+                         "(0, 256] (a thread per position, 16-byte row "
+                         "copies)")
     qt_dev = qtable if isinstance(qtable, torch.Tensor) else None
     hr_dev = hr if isinstance(hr, torch.Tensor) else None
     hr_host = None if hr_dev is not None else np.asarray(hr)
@@ -851,8 +881,8 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
         raise ValueError(f"vote_window: hr has shape {hr_host.shape}, "
                          f"expected ({nh}, {L})")
     for name, t in (("seq_dev", seq_dev), ("qual_dev", qual_dev),
-                    ("score_dev", score_dev)):
-        if t.data_ptr() % 16:
+                    ("score_dev", score_dev), ("hr", hr_dev)):
+        if t is not None and t.data_ptr() % 16:
             raise ValueError(f"vote_window: {name} is not 16-byte aligned")
     ol = _out_len("vote_window", out_len, L, True)
     Jw = len(_host(gp))
@@ -873,13 +903,16 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
         raise ValueError(f"vote_window: needs CUDA tensors, got {dev}")
     nb = len(classes)
     qt_host = None if qtable is None or qt_dev is not None else qtable
-    lay = window_upload_layout(Jt, Jw, 0 if qt_host is None else 16,
-                               0 if hr_host is None else hr_host.nbytes)
+    staged = []
+
+    def pinned(size):
+        staged.append(torch.empty(size, dtype=torch.uint8, pin_memory=True))
+        return staged[0].numpy()
+
     # one pinned upload, without a host sync
-    staged = torch.empty(lay["size"], dtype=torch.uint8, pin_memory=True)
-    window_upload(class_args, classes, gp, hm, jp, qt_host, hr_host,
-                  out=staged.numpy())
-    up = staged.to(dev, non_blocking=True)
+    _buf, lay = window_upload(class_args, classes, gp, hm, jp, qt_host,
+                              hr_host, alloc=pinned)
+    up = staged[0][:lay["size"]].to(dev, non_blocking=True)
     at = {k: up.data_ptr() + v for k, v in lay.items()}
     qt_ptr = (qt_dev.data_ptr() if qt_dev is not None
               else None if qt_host is None else at["qtable"])
@@ -889,18 +922,19 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
     refbase_dev = torch.empty((Jw, L), dtype=torch.uint8, device=dev)
     pseq = torch.empty((Jt, ol // 2), dtype=torch.uint8, device=dev)
     qual = torch.empty((Jt, ol), dtype=torch.uint8, device=dev)
-    scratch = torch.empty(nb + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(nb + 2, dtype=torch.int32, device=dev)
     lib = build_library()
     th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
+    nu = (lay["size"] - lay["unref"]) // 4
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gc_vote_window(
             seq_dev.data_ptr(), qual_dev.data_ptr(), score_dev.data_ptr(),
             genome.data_ptr(), at["gp"], at["hm"], at["jp"], hr_ptr,
-            refbase_dev.data_ptr(), at["jobs"], qt_ptr, flat.data_ptr(),
-            pseq.data_ptr(), qual.data_ptr(), scratch.data_ptr(), N, L, G,
-            nh, Jw, Jt, nb, ol, th["hi"], th["mod"], th["lo"], th["bsr"],
-            th["rnum"], th["rden"], stream)
+            at["unref"], refbase_dev.data_ptr(), at["jobs"], qt_ptr,
+            flat.data_ptr(), pseq.data_ptr(), qual.data_ptr(),
+            scratch.data_ptr(), N, L, G, nh, Jw, nu, Jt, nb, ol, th["hi"],
+            th["mod"], th["lo"], th["bsr"], th["rnum"], th["rden"], stream)
     if err != 0:
         raise RuntimeError(f"gc_vote_window launch failed: cudaError_t {err}")
     global WINDOW_LAUNCHES
@@ -911,6 +945,24 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
         dense.append((pseq[off:off + J], qual[off:off + J]))
         off += J
     return flat, refbase_dev, dense
+
+
+def window_stage():
+    """Members of a job that csrc/vote_window.cu stages with the job (its
+    kStage); a job of more votes the rest in chunks of as many."""
+    return build_library().gc_vote_window_stage()
+
+
+def window_grid(L, Jt, device):
+    """The persistent grid csrc/vote_window.cu launches for Jt jobs at
+    width L on `device` (a CUDA device): the blocks resident at once on
+    the card, at most Jt."""
+    lib = build_library()
+    with torch.cuda.device(device):
+        n = lib.gc_vote_window_grid(int(L), int(Jt))
+    if n <= 0:
+        raise RuntimeError(f"gc_vote_window_grid({L}, {Jt}) failed")
+    return n
 
 
 def refbase_combine(genome, gpos, host_rows, host_map, jl, L):

@@ -1,28 +1,60 @@
-"""On-card A/B of kernel source variants of csrc/vote.cu.
+"""On-card A/B of kernel source variants of csrc/vote.cu and
+csrc/vote_window.cu.
 
-    python3 -m gencore_tpu_torch.tools.kernel_ab DIR_A DIR_B [...] [--profile]
+    python3 -m gencore_tpu_torch.tools.kernel_ab DIR_A DIR_B [...]
+        [--window] [--profile] [--reps N]
 
-Each DIR is a copy of gencore_tpu_torch/csrc with one change. The script
-builds a kernel library from each (nvcc, as core/vote.py builds it, into
-build/kernel_ab/<dir name>/), then for every shape runs the gathered
-entry vote.vote_gathered (the vote with its epilogue, sparse with a qual
-table, as the engine runs it) with each library in turns (A, B, ..., ...,
-B, A), checks that all outputs are equal, and prints one JSON line per
-shape with each variant's device ms per call (CUDA events around each
-call, the stream kept busy ahead of them, median of 7). With --profile it
-also prints each kernel's median duration by name from a torch.profiler
-trace. Shapes: the deep piles of chip_smoke.py phase 2c at J in {8, 32,
-128} and the k-classes 16, 64 and 256 of phase 2a at J = 4096. Needs a
-card.
+Each DIR is a copy of gencore_tpu_torch/csrc with one change, or the csrc
+directory of another checkout of the package (a `git archive` of another
+commit unpacked under build/). A variant runs through the wrapper module
+beside it, DIR/../core/vote.py, when there is one, so that a checkout of
+another commit runs with its own wrapper and upload layout; else through
+this checkout's core/vote.py. The script builds a kernel library from each
+DIR (nvcc, as core/vote.py builds it, into build/kernel_ab/<name>/), then
+for every shape calls the entry with each library in turns (A, B, ...,
+..., B, A), checks that all outputs are equal byte for byte, and prints
+one JSON line per shape with each variant's device ms per call (CUDA
+events around each call, the stream kept busy ahead of them, median of
+--reps) and, for the window entry, the kernel's own median duration from
+a torch.profiler trace (`kernel_ms`), the time per call of --reps calls
+back to back, host work included (`call_ms`), and the host's own time per
+call, from the call to its return, each call made on an idle stream
+(`host_ms`, median of --reps). First it prints a line per variant
+with each kernel's registers and spills (ptxas), its SASS instructions
+(`cuobjdump -sass` of the library) and, where the library has
+gc_vote_window_grid, the window kernel's resident blocks per SM at
+L = 160.
+
+Shapes without --window: the gathered entry vote.vote_gathered (the vote
+with its epilogue, sparse with a qual table, as the engine runs it) at
+the deep piles of chip_smoke.py phase 2c (J in {8, 32, 128}) and the
+k-classes 16, 64 and 256 of phase 2a at J = 4096; with --profile also
+each kernel's median duration by name.
+
+Shapes with --window: the window entry vote.vote_window (csrc/vote_window.cu)
+at (1) the deep panel's largest window launch, as chip_smoke.py phase 5
+replays it: the deep panel (workloads.deep_panel, 240k reads) is run once
+through the port's CLI on the card with this checkout's library and its
+largest window launch recorded (L = 160, k-classes 4 and 16, qual table,
+out_len = L); (2) phase 2b's classes K = 4 and 16 at J = 4096, L = 160,
+with a qual table, out_len = L; (3) phase 2b's K = 32, 64, 128 and 256
+at the same sizes. A shape's line also gives its (job, position) pairs.
+
+Needs a card. Device printf output of a variant (a scratch copy
+instrumented with clock64(), say) goes to standard output.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import re
+import statistics
+import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -30,6 +62,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 SHAPES = ([("pile", J, K) for J, K in ((8, 512), (32, 2048), (32, 4096),
                                        (128, 4096))]
           + [("2a", 4096, K) for K in (16, 64, 256)])
+WINDOW_K = (4, 16, 32, 64, 128, 256)
 
 
 def _kernel_medians(torch, cs, fn, reps=10):
@@ -57,10 +90,179 @@ def _kernel_medians(torch, cs, fn, reps=10):
     return {k: median(v) for k, v in by.items()}
 
 
+def _wrapper(d, default):
+    """A fresh instance of the vote module that drives the library built
+    from csrc dir d: the checkout's own core/vote.py beside d, else this
+    checkout's (`default`), which stays untouched."""
+    path = os.path.join(os.path.dirname(os.path.abspath(d)), "core",
+                        "vote.py")
+    if not os.path.exists(path):
+        path = default.__file__
+    name = "kernel_ab_vote_" + re.sub(r"\W", "_", os.path.abspath(d))
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _build(dirs, default):
+    """{dir: wrapper module with its library loaded}."""
+    mods = {}
+    for d in dirs:
+        mod = _wrapper(d, default)
+        mod.CSRC_DIR = os.path.abspath(d)
+        mod.BUILD_DIR = os.path.join(
+            REPO, "build", "kernel_ab",
+            re.sub(r"\W", "_", os.path.relpath(os.path.abspath(d), REPO)))
+        mod.build_library()
+        mods[d] = mod
+    return mods
+
+
+def _build_report(torch, d, mod):
+    """Registers and spills per kernel, SASS instructions per kernel, and
+    the window kernel's blocks per SM at L = 160 (new libraries only)."""
+    regs = {}
+    for m in re.finditer(r"Compiling entry function '(\S+)'(.*?)Used (\d+) "
+                         r"registers", mod.BUILD_LOG, re.S):
+        spill = re.search(r"(\d+) bytes spill stores", m.group(2))
+        regs[m.group(1)] = [int(m.group(3)),
+                            int(spill.group(1)) if spill else None]
+    sass = {}
+    cuobjdump = os.path.join(os.path.dirname(mod._find_nvcc()), "cuobjdump")
+    r = subprocess.run([cuobjdump, "-sass", mod.library_path()],
+                       capture_output=True, text=True)
+    for fn in re.split(r"\n\s*Function : ", r.stdout)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        sass[name] = len(re.findall(r"/\*[0-9a-f]{4}\*/\s+[^;]*;", fn))
+    per_sm = None
+    if hasattr(mod.build_library(), "gc_vote_window_grid"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per_sm = mod.window_grid(160, 1 << 30, torch.device("cuda", 0)) / sms
+    return {"variant": d, "registers_spills": regs, "sass_instructions": sass,
+            "window_blocks_per_sm_L160": per_sm}
+
+
+def _gathered(torch, np, cs, mods, dirs, opts, dev):
+    for kind, J, K in SHAPES:
+        arrs = (cs._pile_inputs(np, K, J, 160, J + K) if kind == "pile"
+                else cs._vote_inputs(np, K, J, 160, 40960, K))
+        args, kw = cs._gathered_args(np, arrs, J + K, "sparse_qtable")
+        gpu = [None if a is None else torch.from_numpy(a).to(dev)
+               for a in args]
+        outs, ms, kernels = {}, {}, {}
+        for d in dirs + dirs[::-1]:
+            def call(m=mods[d]):
+                return m.vote_gathered(*gpu, **kw)
+            outs[d] = call()
+            ms.setdefault(d, []).append(cs._kernel_ms(torch, call,
+                                                      opts.reps))
+            if opts.profile and d not in kernels:
+                kernels[d] = _kernel_medians(torch, cs, call)
+        ref = outs[dirs[0]]
+        equal = all(cs._compare(o, ref)[0] == 0 for o in outs.values())
+        print(json.dumps({"shape": kind, "J": J, "K": K, "split":
+                          mods[dirs[0]].split_size(K, J),
+                          "outputs_equal": equal, "ms": ms,
+                          "kernel_ms": kernels or None}), flush=True)
+        if not equal:
+            return 1
+    return 0
+
+
+def _deep_panel_window(torch, np, cs):
+    """The deep panel's largest window launch, recorded from one CLI run
+    on the card (chip_smoke.py phases 4 and 5): (matrices and genome on
+    the card, gp, hr, hm, jp, qtable, class_args, kw, classes)."""
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.tools import workloads
+    bam, fa = workloads.deep_panel(os.path.join(cs.WORK, "workloads"))
+    largest = {"sum_counts": -1}
+    d = os.path.join(cs.WORK, "kernel_ab_run")
+    os.makedirs(d, exist_ok=True)
+    with cs._patched(vote, "pallas_vote_window",
+                     cs._window_recorder(np, vote, largest)):
+        rc, err = cs._cli(["-i", bam, "-o", os.path.join(d, "out.bam"),
+                           "-r", fa, "--device", "cuda"])
+    if rc:
+        raise RuntimeError(f"deep panel run failed: {err[-2000:]}")
+    (seq, qual, score, genome, gp, hr, hm, jp, qtable,
+     class_args) = largest["args"]
+    return ((seq, qual, score, genome), (gp, hr, hm, jp), qtable,
+            class_args, largest["kw"], largest["classes"])
+
+
+def _phase2b_window(torch, np, cs, K, dev):
+    """Phase 2b's class K at J = 4096, L = 160, with a qual table."""
+    J, L, N = cs.J_PHASE2, cs.L_PHASE2, cs.N_PHASE2
+    Jw = J + J // 4
+    rng = np.random.default_rng(1000 + K)
+    seq, qual, score = cs._matrices(np, rng, L, N)
+    srcs = cs._refbase_sources(np, rng, Jw, L)
+    class_args = cs._window_class_args(np, rng, K, J, N, Jw, L)
+    mats = tuple(torch.from_numpy(a).to(dev) for a in (seq, qual, score,
+                                                       srcs[0]))
+    kw = dict(classes=((K, J),), L=L, out_len=L, **cs.KW)
+    sums = [[K, J, int(np.asarray(class_args[1]).astype(np.int64).sum())]]
+    return mats, srcs[1:], cs._qtable(np), class_args, kw, sums
+
+
+def _window(torch, np, cs, mods, dirs, opts, dev):
+    shapes = [("deep_panel_largest", None)] + [("2b", K) for K in WINDOW_K]
+    for kind, K in shapes:
+        if kind == "2b":
+            mats, srcs, qtable, class_args, kw, sums = _phase2b_window(
+                torch, np, cs, K, dev)
+        else:
+            mats, srcs, qtable, class_args, kw, sums = _deep_panel_window(
+                torch, np, cs)
+        L = kw["L"]
+        outs, ms, kms, calls, hosts = {}, {}, {}, {}, {}
+        for d in dirs + dirs[::-1]:
+            def call(m=mods[d]):
+                return m.vote_window(*mats, *srcs, qtable, class_args, **kw)
+            try:
+                outs[d] = call()
+                torch.cuda.synchronize()
+            except Exception:
+                print(f"kernel_ab: {d} failed at shape {kind}",
+                      file=sys.stderr, flush=True)
+                raise
+            ms.setdefault(d, []).append(cs._kernel_ms(torch, call,
+                                                      opts.reps))
+            kms.setdefault(d, []).append(cs._device_ms(
+                torch, call, opts.reps, "vote_window_kernel")[0])
+            calls.setdefault(d, []).append(cs._time_ms(torch, call,
+                                                       opts.reps))
+            host = []
+            for _ in range(opts.reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                host.append((time.perf_counter() - t0) * 1e3)
+            hosts.setdefault(d, []).append(statistics.median(host))
+            torch.cuda.synchronize()
+        ref = outs[dirs[0]]
+        mism = {d: cs._compare_window(o, ref)[0] for d, o in outs.items()}
+        jobs = sum(J for _K, J in kw["classes"])
+        print(json.dumps({"shape": kind, "classes_K_J_sumcounts": sums,
+                          "L": L, "Jw": len(srcs[0]),
+                          "job_positions": jobs * L,
+                          "mismatching_bytes": mism, "ms": ms,
+                          "kernel_ms": kms, "call_ms": calls,
+                          "host_ms": hosts}), flush=True)
+        if any(mism.values()):
+            return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
+    ap.add_argument("--window", action="store_true",
+                    help="time the window entry (csrc/vote_window.cu)")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--reps", type=int, default=7)
     opts = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import numpy as np
@@ -73,40 +275,13 @@ def main(argv=None) -> int:
         return 2
     os.makedirs(cs.WORK, exist_ok=True)
     dev = torch.device("cuda", 0)
-    libs = {}
+    mods = _build(opts.dirs, vote)
     for d in opts.dirs:
-        vote.CSRC_DIR = os.path.abspath(d)
-        vote.BUILD_DIR = os.path.join(REPO, "build", "kernel_ab",
-                                      os.path.basename(os.path.normpath(d)))
-        vote._lib = None
-        libs[d] = vote.build_library()
-    for kind, J, K in SHAPES:
-        arrs = (cs._pile_inputs(np, K, J, 160, J + K) if kind == "pile"
-                else cs._vote_inputs(np, K, J, 160, 40960, K))
-        args, kw = cs._gathered_args(np, arrs, J + K, "sparse_qtable")
-        gpu = [None if a is None else torch.from_numpy(a).to(dev)
-               for a in args]
-
-        def call():
-            return vote.vote_gathered(*gpu, **kw)
-
-        outs, ms, kernels = {}, {}, {}
-        for d in list(libs) + list(libs)[::-1]:
-            vote._lib = libs[d]
-            outs[d] = call()
-            ms.setdefault(d, []).append(cs._kernel_ms(torch, call, 7))
-            if opts.profile and d not in kernels:
-                kernels[d] = _kernel_medians(torch, cs, call)
-        ref = outs[opts.dirs[0]]
-        equal = all(cs._compare(o, ref)[0] == 0 for o in outs.values())
-        print(json.dumps({"shape": kind, "J": J, "K": K, "split":
-                          vote.split_size(K, J), "outputs_equal": equal,
-                          "ms": ms, "kernel_ms": kernels or None}),
-              flush=True)
-        if not equal:
-            return 1
+        print(json.dumps(_build_report(torch, d, mods[d])), flush=True)
+    run = _window if opts.window else _gathered
+    rc = run(torch, np, cs, mods, list(opts.dirs), opts, dev)
     print(cs.nvidia_smi_line())
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

@@ -270,11 +270,15 @@ def test_kernel_launch_rejects_bad_arguments(cuda):
     assert vote.LAUNCHES == n0
 
 
-def _window_args(rng, classes, L, N, Jw):
+def _window_args(rng, classes, L, N, Jw, ridx_of=None):
     """Per-class (base_row, counts, job_len, refbase row) as the engine
-    stages them, with empty jobs, full classes, member rows running past
-    the matrix (they clamp) and job lengths up to L."""
+    stages them, with empty jobs, jobs of one member, of exactly one
+    shared-memory stage of the window kernel and of one more, full
+    classes, member rows running past the matrix (they clamp), job
+    lengths up to L, and refbase rows drawn with repeats (or from
+    ridx_of(J))."""
     args = []
+    stage = vote.window_stage()
     for K, J in classes:
         base = rng.integers(0, N, size=J).astype(np.uint16)
         base[:4] = N - 2
@@ -282,9 +286,14 @@ def _window_args(rng, classes, L, N, Jw):
         counts = rng.integers(0, kmax + 1, size=J).astype(np.uint8)
         counts[::11] = 0
         counts[1::13] = kmax
+        counts[2::17] = 1
+        if kmax > stage:
+            counts[3::7] = stage
+            counts[4::7] = stage + 1
         jl = rng.integers(0, L + 1, size=J).astype(np.uint16)
         jl[::7] = L
-        ridx = rng.integers(0, Jw, size=J).astype(np.uint16)
+        ridx = (rng.integers(0, Jw, size=J) if ridx_of is None
+                else ridx_of(J)).astype(np.uint16)
         args.extend((base, counts, jl, ridx))
     return args
 
@@ -306,16 +315,57 @@ def _refbase_sources(rng, Jw, L, G=20000, nh=40):
     return genome, gp, hr, hm, jp
 
 
-@pytest.mark.parametrize("with_qtable", [False, True])
-@pytest.mark.parametrize("out_len", [160, 136])
-def test_vote_window_kernel_matches_twin(cuda, with_qtable, out_len):
+# (L, out_len, qual table, layout): "mixed" is a window of four classes
+# (K = 4, 16, 64, 256) with refbase rows drawn with repeats; "grid_*" put
+# the job count below, at and at many times the kernel's persistent grid;
+# "unref_none" references every refbase row once, "unref_all" every job
+# the same row, so that the list of rows no job references is empty, or
+# holds all rows but one
+WINDOW_CASES = [
+    (160, 160, False, "mixed"), (160, 160, True, "mixed"),
+    (160, 136, False, "mixed"), (160, 136, True, "mixed"),
+    (16, 16, True, "mixed"), (16, 8, False, "mixed"),
+    (128, 104, True, "mixed"), (256, 256, True, "mixed"),
+    (256, 200, False, "mixed"),
+    (160, 160, True, "grid_below"), (160, 160, True, "grid_equal"),
+    (160, 160, True, "grid_many"),
+    (128, 128, True, "unref_none"), (128, 128, False, "unref_all"),
+]
+
+
+def _window_case(rng, cuda, L, layout):
+    """(classes, Jw, ridx_of) of one WINDOW_CASES layout."""
+    if layout == "mixed":
+        return ((4, 300), (16, 200), (64, 120), (256, 40)), 900, None
+    if layout.startswith("grid_"):
+        cap = vote.window_grid(L, 1 << 30, cuda)
+        Jt = {"grid_below": max(1, cap // 3), "grid_equal": cap,
+              "grid_many": 5 * cap + 7}[layout]
+        assert vote.window_grid(L, Jt, cuda) == min(Jt, cap)
+        J4 = (3 * Jt) // 4
+        classes = ((4, J4), (16, Jt - J4)) if Jt - J4 else ((4, J4),)
+        return classes, Jt + Jt // 4, None
+    classes = ((4, 500), (32, 100))
+    if layout == "unref_none":
+        perm = rng.permutation(600)
+        parts = iter((perm[:500], perm[500:]))
+        return classes, 600, lambda J: next(parts)
+    return classes, 1800, lambda J: np.zeros(J, dtype=np.int64)
+
+
+@pytest.mark.parametrize("L,out_len,with_qtable,layout", WINDOW_CASES)
+def test_vote_window_kernel_matches_twin(cuda, L, out_len, with_qtable,
+                                         layout):
     """gc_vote_window's flat wire buffer, refbase rows and dense fallback
     equal the plain composition's (vote_window_plain on CPU copies) byte
     for byte, every class of a window in one launch, the refbase rows
-    built in the kernel from the genome and the host rows."""
-    rng = np.random.default_rng(3 + with_qtable + out_len)
-    L, N, Jw = 160, 3000, 900
-    classes = ((4, 300), (16, 200), (64, 120), (256, 40))
+    built in the kernel from the genome and the host rows; at the widths
+    and layouts of WINDOW_CASES, with member counts 0, 1, one stage and
+    one more, clamped member rows, a qual table listing a value twice (the
+    last matching index wins)."""
+    rng = np.random.default_rng(3 + with_qtable + out_len + L)
+    N = 3000
+    classes, Jw, ridx_of = _window_case(rng, cuda, L, layout)
     codes = np.array([0, 1, 2, 4, 8, 15, vote.SENTINEL], dtype=np.uint8)
     seq = codes[rng.choice(7, size=(N, L), p=[.04, .23, .23, .23, .23, .03,
                                               .01])]
@@ -323,7 +373,15 @@ def test_vote_window_kernel_matches_twin(cuda, with_qtable, out_len):
                       size=(N, L))
     score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
     genome, gp, hr, hm, jp = _refbase_sources(rng, Jw, L)
-    class_args = _window_args(rng, classes, L, N, Jw)
+    class_args = _window_args(rng, classes, L, N, Jw, ridx_of)
+    ridx = np.concatenate([a.astype(np.int64) for a in class_args[3::4]])
+    n_unref = len(vote.unreferenced_rows(ridx, Jw))
+    if layout == "unref_none":
+        assert n_unref == 0
+    elif layout == "unref_all":
+        assert n_unref == Jw - 1
+    else:
+        assert len(np.unique(ridx)) < len(ridx)   # rows shared by jobs
     qtable = _qtable() if with_qtable else None
     kw = dict(classes=classes, L=L, out_len=out_len, **KW)
     cpu = [torch.from_numpy(a) for a in (seq, qual, score)]
@@ -340,7 +398,7 @@ def test_vote_window_kernel_matches_twin(cuda, with_qtable, out_len):
     for (gp_, gq), (wp, wq) in zip(got[2], want[2]):
         assert torch.equal(gp_.cpu(), wp)
         assert torch.equal(gq.cpu(), wq)
-    if with_qtable:   # the escape counts are not all zero
+    if with_qtable and layout == "mixed":   # the escape counts are not all 0
         assert want[0][-4 * len(classes):].any()
     # host rows and a qual table that already lie on the card
     got2 = vote.vote_window(*[t.to(cuda) for t in cpu],
@@ -350,6 +408,51 @@ def test_vote_window_kernel_matches_twin(cuda, with_qtable, out_len):
                             torch.from_numpy(qtable).to(cuda), class_args,
                             **kw)
     assert torch.equal(got2[0], got[0]) and torch.equal(got2[1], got[1])
+
+
+def test_vote_window_escape_counts_exact_every_launch(cuda):
+    """The per-class escape counts (the wire buffer's last 4 * nb bytes)
+    are exact in every one of many launches when the escapes lie only in
+    each block's last job: at Jt = 3 grid every block votes jobs b,
+    b + grid and b + 2 grid, and only the rows of the last third hold a
+    qual value outside the table, so each count is added just before its
+    block takes the last-block ticket."""
+    L = 160
+    grid = vote.window_grid(L, 1 << 30, cuda)
+    Jt = 3 * grid
+    J0 = 2 * grid + grid // 2
+    classes = ((4, J0), (16, Jt - J0))
+    rng = np.random.default_rng(41)
+    N = 4 * Jt
+    seq = np.array([1, 2, 4, 8], np.uint8)[rng.integers(0, 4, size=(N, L))]
+    score = rng.integers(-4, 13, size=(N, L)).astype(np.int8)
+    qual = np.full((N, L), 30, np.uint8)
+    esc = qual.copy()
+    esc[4 * 2 * grid:, ::7] = 41
+    base = (4 * np.arange(Jt)).astype(np.uint32)
+    counts = rng.integers(1, 5, size=Jt).astype(np.uint8)
+    jl = np.full(Jt, L, np.uint16)
+    ridx = np.arange(Jt, dtype=np.uint32)
+    class_args = []
+    for lo, hi in ((0, J0), (J0, Jt)):
+        class_args += [base[lo:hi], counts[lo:hi], jl[lo:hi], ridx[lo:hi]]
+    genome, gp, hr, hm, jp = _refbase_sources(rng, Jt, L)
+    qtable = _qtable()
+    kw = dict(classes=classes, L=L, out_len=L, **KW)
+
+    def plain(q):
+        cpu = [torch.from_numpy(a) for a in (seq, q, score, genome)]
+        return vote.vote_window_plain(*cpu, gp, hr, hm, jp, qtable,
+                                      class_args, **kw)[0].numpy()
+
+    assert not plain(qual)[-8:].any()
+    want = plain(esc)
+    assert (np.frombuffer(want[-8:].tobytes(), "<i4") > 0).all()
+    dev = [torch.from_numpy(a).to(cuda) for a in (seq, esc, score, genome)]
+    for _ in range(64):
+        got = vote.vote_window(*dev, gp, hr, hm, jp, qtable, class_args,
+                               **kw)[0]
+        assert got.cpu().numpy().tobytes() == want.tobytes()
 
 
 def test_vote_window_rejects_bad_inputs(cuda):

@@ -323,28 +323,57 @@ def test_window_kernel_host_side(with_qtable):
     with pytest.raises(ValueError, match="class 1 needs 9 jobs"):
         vote.window_job_table(class_args, ((4, 16), (16, 9), (256, 5)))
 
-    # the kernel's one upload: job table, gp, hm, jp as int32, then the
-    # qual table and the host rows
+    # the kernel's one upload: job table, gp, hm, jp as int32, the qual
+    # table, 16-byte aligned the host rows, then the rows that no job
+    # references
     Jw = len(gp)
-    buf = vote.window_upload(class_args, classes, gp, hm, jp, qtable, hr)
-    lay = vote.window_upload_layout(29, Jw, 0 if qtable is None else 16,
-                                    hr.nbytes)
+    ridx = tab[3].astype(np.int64)
+    unref = vote.unreferenced_rows(ridx, Jw)
+    want_unref = np.setdiff1d(np.arange(Jw), np.clip(ridx, 0, Jw - 1))
+    assert unref.dtype == np.int32 and (unref == want_unref).all()
+    assert 0 < len(unref) < Jw
+    buf, lay = vote.window_upload(class_args, classes, gp, hm, jp, qtable,
+                                  hr)
+    assert lay == vote.window_upload_layout(
+        29, Jw, len(unref), 0 if qtable is None else 16, hr.nbytes)
     assert buf.dtype == np.uint8 and buf.size == lay["size"]
-    assert [lay[k] for k in ("jobs", "gp", "hm", "jp")] == [
-        0, 24 * 29, 24 * 29 + 4 * Jw, 24 * 29 + 8 * Jw]
+    assert [lay[k] for k in ("jobs", "gp", "hm", "jp", "qtable")] == [
+        0, 24 * 29, 24 * 29 + 4 * Jw, 24 * 29 + 8 * Jw, 24 * 29 + 12 * Jw]
+    assert lay["hr"] % 16 == 0
+    assert lay["qtable"] + (16 if qtable is not None else 0) <= lay["hr"]
+    assert lay["hr"] < lay["qtable"] + (16 if qtable is not None else 0) + 16
+    assert lay["unref"] == lay["hr"] + hr.nbytes
+    assert lay["size"] == lay["unref"] + 4 * len(unref)
     ints = buf[:lay["qtable"]].view(np.int32)
     assert (ints[:6 * 29].reshape(6, 29) == tab).all()
     for k, a in (("gp", gp), ("hm", hm), ("jp", jp)):
-        got = ints[lay[k] // 4:lay[k] // 4 + Jw]
+        got = ints[lay[k] // 4:lay[k] // 4 + len(a)]
         assert (got == a.astype(np.int64)).all(), k
     assert (hm < 0).any() and (ints[lay["hm"] // 4:][:Jw] < 0).any()
+    assert (buf[lay["unref"]:].view(np.int32) == unref).all()
     if qtable is not None:
-        assert buf[lay["qtable"]:lay["hr"]].tobytes() == qtable.tobytes()
-    assert buf[lay["hr"]:].tobytes() == hr.tobytes()
+        assert buf[lay["qtable"]:lay["qtable"] + 16].tobytes() == \
+            qtable.tobytes()
+    assert buf[lay["hr"]:lay["unref"]].tobytes() == hr.tobytes()
     # host rows that lie on the device stay out of the upload
-    small = vote.window_upload(class_args, classes, gp, hm, jp, qtable)
-    assert small.size == lay["hr"]
-    assert small.tobytes() == buf[:lay["hr"]].tobytes()
+    small, slay = vote.window_upload(class_args, classes, gp, hm, jp, qtable)
+    assert slay["unref"] == lay["hr"] and small.size == slay["size"]
+    assert small.tobytes() == (buf.tobytes()[:lay["hr"]]
+                               + buf.tobytes()[lay["unref"]:])
+    # the buffer is the head of alloc's, which has room for every row
+    got = []
+    pinned, _ = vote.window_upload(
+        class_args, classes, gp, hm, jp, qtable, hr,
+        alloc=lambda n: got.append(np.zeros(n, np.uint8)) or got[0])
+    assert pinned.base is got[0] and pinned.tobytes() == buf.tobytes()
+    assert got[0].size == lay["unref"] + 4 * Jw
+    # every row referenced: an empty list; one row for all: all the others
+    assert len(vote.unreferenced_rows(np.arange(Jw)[::-1], Jw)) == 0
+    assert (vote.unreferenced_rows(np.full(7, Jw + 5), Jw)
+            == np.arange(Jw - 1)).all()
+    # uint16 rows (the engine's staging) in a window of more rows
+    big = vote.unreferenced_rows(np.array([0, 65535], np.uint16), 70000)
+    assert len(big) == 69998 and big[0] == 1 and big[-1] == 69999
     with pytest.raises(ValueError, match="one entry per job"):
         vote.window_upload(class_args, classes, gp, hm[:-1], jp)
     with pytest.raises(ValueError, match="gp does not fit int32"):
