@@ -29,6 +29,15 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
       2d gc_vote_full (csrc/vote.cu, Bins16: kernels.fused_vote_kernel on
          CUDA tensors) against kernels.fused_vote_plain on the card, all 16
          nt16 codes, lenDiff shifts, job lengths <= L;
+      2e gc_upload_score (csrc/upload_score.cu: the window's upload
+         rebuild and overlap scoring, K4-K6, one copy up and one launch)
+         against its plain twin engine._upload_score_plain on the card at
+         the deep panel's window shape (n = 48,000 rows, w = 150, L = 160)
+         for all 128 combinations of its seven static flags, on staging
+         with the program's edges (workloads.upload_staging), then timed
+         with the deep panel's flags; gc_refbase (csrc/refbase.cu, K11)
+         against refbase_combine, starts negative, past the end and in
+         range, host-row indices clamped;
     with each kernel's device time (vote_window: torch.profiler; vote.cu:
     CUDA events around each call with the stream kept busy ahead of them)
     and its wrapper's time per call, its plain version's time per call on
@@ -50,10 +59,13 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     (gencore_tpu_torch/testdata): wall seconds, reads/s, the codec, the
     stage sums, each window launch's (K, J, sum of member counts) per class
     and whether it had a qual nibble table;
-  phases 4, 4b, 4c, 7 and 9 run with the plain _epilogue_core and
-    refbase_combine made to raise on CUDA tensors inside vote.py's Pallas
-    counterparts (pallas_vote_window, pallas_vote_gathered, pallas_vote):
-    on the card those run hand kernels only;
+  phases 4, 4b, 4c, 7 and 9 run with the plain versions made to raise on
+    CUDA tensors where a hand kernel stands for them (_no_plain_on_card):
+    the plain _epilogue_core inside vote.py's Pallas counterparts
+    (pallas_vote_window, pallas_vote_gathered, pallas_vote), the plain
+    upload rebuild and score map inside the deferred upload-and-score
+    program, and refbase_combine anywhere; each phase also needs the
+    counterparts and the deferred program to have run;
   4b the same input with `--shards 4 --checkpoint_dir D`, then again after
     one shard's files were deleted from D (resume): both equal to the
     golden digests, the second run recomputing exactly that shard;
@@ -66,18 +78,22 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   5 the deep panel's largest window launch, replayed: the fused kernel
     against its twin (exact) and timed against the plain composition on
     the card, with its bound, its (job, position) pairs and the
-    persistent grid it launched (blocks, and blocks per SM);
+    persistent grid it launched (blocks, and blocks per SM); and the
+    deep panel's largest deferred upload (recorded in phase 4) through
+    gc_upload_score against its twin (exact), timed the same way, with
+    the host's time per call;
   6 device busy time, kernel and memcpy counts of one deep-panel run and
-    one ultra-deep run (torch.profiler) before, with the composition this
-    slice replaced put back for those runs only (the plain refbase
-    assembly ahead of the window kernel; csrc/vote.cu's vote alone plus
-    the plain epilogue on the gathered paths), and after; all must take
-    the streaming path;
+    one ultra-deep run (torch.profiler) before, with the compositions this
+    slice replaced put back for those runs only (the plain upload-and-
+    score program after 16 copies up; the plain refbase assembly after
+    four), and after; all must take the streaming path;
   7 the ultra-deep pile (workloads.ultradeep: 40 loci x 1,500 pairs, UMI
     grouping off) through the CLI on cuda, which must take the streaming
-    path, against its golden digests: wall
-    seconds and reads/s, then a recorded run with each gathered vote
-    launch's (K, J), split, device time and share of its bound;
+    path, against its golden digests, its leftover buckets' refbase rows
+    built by gc_refbase: wall seconds and reads/s, then a recorded run
+    with each gathered vote launch's (K, J), split, device time and share
+    of its bound, and its largest refbase assembly replayed against
+    refbase_combine and timed;
   8 parallel/mesh.py with one rank on the card (a torch.distributed NCCL
     group of one process, and a one-device mesh): sharded_consensus_step
     (the Bins16 kernel through kernels.consensus_kernel) against the plain
@@ -118,7 +134,8 @@ and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: the bytes each input is read once and each output written once
-over 3.35 TB/s, and ~10 int32 operations per (valid member, position) over
+over 3.35 TB/s, and ~10 int32 operations per (valid member, position) of
+a vote (16 per (row, position) of the upload-and-score program) over
 16.7 T op/s (132 SMs x 64 INT32 lanes x 1.98 GHz); the larger one binds.
 
 JAX and the JAX package are blocked for the whole run: nothing here may
@@ -150,6 +167,16 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_MEMBER_POS = 10
 DEEP_SHAPES = tuple((J, K) for J in (8, 32, 128) for K in (512, 2048, 4096))
 DEEP_TIMED = (32, 2048)   # the ultradeep run's gathered buckets: K=2048
+# kernels timed by their profiler records: their wrappers also copy the
+# kernel's inputs up, which CUDA events around a call would count
+PROFILED = ("vote_window_kernel", "upload_score_kernel", "refbase_kernel")
+# the deep panel's windows: ~48k read rows of 150 bases padded to L = 160
+N_UPLOAD, W_UPLOAD, L_UPLOAD = 48_000, 150, 160
+SCORE_KW = dict(hi=30, mod=20, lo=15, s_hi=12, s_mod=8, s_lo=6, s_bad=4)
+# integer operations csrc/upload_score.cu does per (row, position): the
+# decode, the qual's source, the mask, the overlap test, the mate compare,
+# the tier chain and the selects (a scored row's mate rebuilt again)
+OPS_PER_UPLOAD_POS = 16
 
 
 def emit(obj):
@@ -217,6 +244,8 @@ def phase_build():
         fn = m.group(1)
         out = re.search(r"OutE(\d)E", fn)   # vote.cu's Out: 0 the vote alone
         name = ("vote_window" if "vote_window" in fn else
+                "upload_score" if "upload_score" in fn else
+                "refbase" if "refbase_kernel" in fn else
                 "vote (16 bins)" if "Bins16" in fn else
                 "vote alone" if out and out.group(1) == "0" else "vote")
         if "decide_kernel" in fn:   # vote.cu's second pass (split > 1)
@@ -310,7 +339,7 @@ def _timings(torch, plain, kern, name, plain_reps, kern_reps,
     and kernel count per call unless profile_plain is False (a plain
     version of tens of thousands of launches per call overflows the
     profiler's buffers)."""
-    if name == "vote_window_kernel":   # the kernel alone, as in PR 2
+    if name in PROFILED:   # the kernel alone, without its wrapper's copy
         ms = _device_ms(torch, kern, kern_reps, name)[0]
     else:
         ms = _kernel_ms(torch, kern, kern_reps)
@@ -808,6 +837,214 @@ def phase_window_kernel(torch, np):
     return worst
 
 
+def _host_ms(torch, fn, reps):
+    """The host's own time per call of fn, from the call to its return,
+    each call made on an idle stream: the median over reps (ms)."""
+    from statistics import median
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return median(times)
+
+
+def _upload_static(w, L, flags):
+    from gencore_tpu_torch.core.kernels import UPLOAD_FLAGS
+    f = dict(zip(UPLOAD_FLAGS, flags))
+    return (w, L, f["mode2"], f["has_sedit"], f["has_qdense"], f["has_qedit"],
+            f["const_lens"], *SCORE_KW.values(), f["has_genome"],
+            f["no_overlap"])
+
+
+def _upload_calls(torch, static, staging, dev):
+    """(kernel, plain) callables of one upload-and-score program on the
+    card: the kernel through engine._upload_score_fn with the host
+    staging (one copy up), the plain twin with each array copied up
+    alone, as the port ran it before (the genome already on the card)."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.core.vote import to_device
+    fn = engine._upload_score_fn(*static)
+    args = list(staging)
+    if not isinstance(args[14], torch.Tensor):
+        args[14] = torch.as_tensor(args[14]).to(dev)
+
+    def kern():
+        return fn(*args, device=dev)
+
+    def plain():
+        return engine._upload_score_plain(*static)(
+            *[a if isinstance(a, torch.Tensor) else to_device(a, dev)
+              for a in args])
+    return kern, plain
+
+
+def _upload_bound(np, static, staging):
+    """(bytes, int ops) of one upload-and-score program on these inputs:
+    the staging's upload read once (kernels.upload_score_layout's bytes),
+    each genome slot's w bases read once, seq, qual and score [n, L]
+    written once; OPS_PER_UPLOAD_POS per (row, position)."""
+    from gencore_tpu_torch.core import kernels
+    w, L = static[0], static[1]
+    host = [*staging[:14], staging[15]]
+    n = len(staging[1])
+    genome_bytes = len(staging[15]) * w if static[14] else 0
+    n_bytes = (kernels.upload_score_layout(host)["size"] + genome_bytes
+               + 3 * n * L)
+    return n_bytes, OPS_PER_UPLOAD_POS * n * L
+
+
+def _upload_compare(got, want):
+    """(mismatching bytes, max abs difference) of two (seq, qual, score)."""
+    mism = err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return -1, -1
+        g, w = g.cpu(), w.cpu()
+        mism += int((g != w).sum())
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return mism, err
+
+
+def _upload_timed(torch, np, static, staging, dev, phase):
+    """The kernel against its twin on the card (exact), then its device
+    ms (profiler), host ms per call, wall ms per call in turns with the
+    plain version, bound and share."""
+    kern, plain = _upload_calls(torch, static, staging, dev)
+    mism, err = _upload_compare(kern(), plain())
+    torch.cuda.synchronize()
+    if mism:
+        fail(phase, f"upload_score kernel != twin at {static}: {mism} "
+                    "mismatching bytes")
+    t = _timings(torch, plain, kern, "upload_score_kernel", 5, 20)
+    t["host_ms"] = _host_ms(torch, kern, 50)
+    n_bytes, n_ops = _upload_bound(np, static, staging)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return {"n": len(staging[1]), "w": static[0], "L": static[1],
+            "mismatches": mism, "max_abs_err": err, **t, "bytes": n_bytes,
+            "int_ops": n_ops, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / t["ms"]}
+
+
+def _refbase_inputs(np, rng, J, L, G0=1 << 20, nh=64):
+    """Refbase sources as engine._refbase_host_args makes them, with
+    starts that count from the genome's end or run past it and host-row
+    indices past the rows (they clamp)."""
+    genome, gp, hr, hm, jp = _refbase_sources(np, rng, J, L, G0, nh)
+    G = len(genome)
+    gp[4::7] = -rng.integers(1, G, size=len(gp[4::7]))
+    gp[5::11] = -3 * G
+    hm[6::13] = nh + 2
+    return genome, gp, hr, hm, jp
+
+
+def _refbase_bound(np, gp, hr, hm, jp, L):
+    """Bytes of one refbase assembly: 12 bytes of sources per row, each
+    genome row's bases up to its length, each host row used, the rows
+    written once."""
+    hm = np.asarray(hm).astype(np.int64)
+    jp = np.asarray(jp).astype(np.int64)
+    J = len(hm)
+    used = len(np.unique(np.clip(hm[hm >= 0], 0, len(hr) - 1)))
+    return 12 * J + int(np.minimum(jp[hm < 0], L).sum()) + used * L + J * L
+
+
+def _refbase_timed(torch, np, dev, genome, gp, hr, hm, jp, L, phase):
+    """gc_refbase against refbase_combine on the card (exact), its device
+    ms (profiler), host ms per call, and the plain version's (its four
+    copies up included) in turns; bound and share."""
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.core.vote import to_device
+    g_dev = genome if isinstance(genome, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(genome)).to(dev)
+    I32 = torch.int32
+
+    def kern():
+        return vote.refbase(g_dev, gp, hr, hm, jp, L)
+
+    def plain():
+        return vote.refbase_combine(
+            g_dev, to_device(gp, dev, I32), to_device(hr, dev),
+            to_device(hm, dev, I32), to_device(jp, dev, I32), L)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(phase, f"refbase kernel gave {tuple(got.shape)}, refbase_combine "
+                    f"{tuple(want.shape)}")
+    mism = int((got != want).sum())
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if mism:
+        fail(phase, f"refbase kernel != refbase_combine at J={len(gp)}, "
+                    f"L={L}: {mism} mismatching bytes")
+    t = _timings(torch, plain, kern, "refbase_kernel", 5, 20)
+    t["host_ms"] = _host_ms(torch, kern, 50)
+    n_bytes = _refbase_bound(np, gp, hr, hm, jp, L)
+    b_ms, b_by = bound(n_bytes, 0)
+    return {"J": len(gp), "L": L, "host_rows": len(hr), "mismatches": mism,
+            "max_abs_err": err, **t, "bytes": n_bytes, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / t["ms"]}
+
+
+def phase_upload_score(torch, np):
+    """2e: csrc/upload_score.cu against its plain twin (on the card) at
+    the deep panel's window shape, for every combination of the seven
+    static flags, on staging with the program's edges
+    (workloads.upload_staging); timed with the flags the deep panel
+    takes; then csrc/refbase.cu against refbase_combine."""
+    from gencore_tpu_torch.core import kernels
+    from gencore_tpu_torch.tools import workloads
+    dev = torch.device("cuda", 0)
+    n, w, L = N_UPLOAD, W_UPLOAD, L_UPLOAD
+    per_flags = []
+    worst = 0
+    t_check = time.perf_counter()
+    for bits in range(128):
+        flags = tuple(bool(bits >> i & 1) for i in range(7))
+        rng = np.random.default_rng(2000 + bits)
+        staging = workloads.upload_staging(
+            rng, n, w, L, **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+        static = _upload_static(w, L, flags)
+        kern, plain = _upload_calls(torch, static, staging, dev)
+        mism, err = _upload_compare(kern(), plain())
+        worst = max(worst, err)
+        if mism:
+            fail("2e", f"upload_score kernel != twin with flags "
+                       f"{dict(zip(kernels.UPLOAD_FLAGS, flags))}: {mism} "
+                       "mismatching bytes")
+        per_flags.append(mism)
+    t_check = time.perf_counter() - t_check
+    # timed as the deep panel runs it: 2-bit rows, seq and qual edits,
+    # genome rows, mates that overlap
+    flags = (True, True, False, True, True, True, False)
+    staging = workloads.upload_staging(
+        np.random.default_rng(7), n, w, L,
+        **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+    timed = _upload_timed(torch, np, _upload_static(w, L, flags), staging,
+                          dev, "2e")
+    timed["flags"] = dict(zip(kernels.UPLOAD_FLAGS, flags))
+    ref = []
+    for J, L_r, nh in ((1, 32, 1), (16064, 160, 64), (96, 160, 8)):
+        genome, gp, hr, hm, jp = _refbase_inputs(
+            np, np.random.default_rng(J + L_r), J, L_r, nh=nh)
+        ref.append(_refbase_timed(torch, np, dev, genome, gp, hr, hm, jp,
+                                  L_r, "2e"))
+    emit({"phase": "2e", "name": "gc_upload_score vs engine._upload_score_plain"
+                                 ", gc_refbase vs refbase_combine",
+          "ok": True, "tolerance": "exact (0 mismatching bytes)",
+          "upload_score": {"n": n, "w": w, "L": L,
+                           "flag_combinations": len(per_flags),
+                           "mismatches": sum(per_flags),
+                           "max_abs_err": worst, "check_s": t_check,
+                           "timed": timed},
+          "refbase": ref})
+    return {"upload_score": timed, "max_abs_err": worst, "refbase": ref}
+
+
 def _cli(args):
     """The port's CLI in-process; returns (rc, captured stderr)."""
     from gencore_tpu_torch import cli
@@ -819,63 +1056,98 @@ def _cli(args):
 
 @contextlib.contextmanager
 def _no_plain_on_card(torch):
-    """For the run inside: vote.py's plain _epilogue_core and
-    refbase_combine raise on CUDA tensors when called from within one of
-    its Pallas counterparts (pallas_vote_window, pallas_vote_gathered,
-    pallas_vote), whose whole body on the card must be hand kernels. The
-    engine's own refbase assembly for the routes that do not fuse the
-    window (engine._refbase_combine_fn, K11) stays allowed. Yields counts:
-    entries into the counterparts and plain calls made inside them."""
+    """For the run inside, no plain version runs on CUDA tensors where a
+    hand kernel stands for it: vote.py's plain _epilogue_core inside one
+    of its Pallas counterparts (pallas_vote_window, pallas_vote_gathered,
+    pallas_vote), whose whole body on the card must be hand kernels; the
+    plain upload rebuild and score map (engine._upload_score_plain,
+    engine._upload_sparse_trace, kernels.score_map_kernel_packed,
+    score_map_kernel and _qual2score) inside the deferred upload-and-score
+    program (the function engine._upload_score_fn returns), whose body on
+    the card is csrc/upload_score.cu; and vote.refbase_combine anywhere
+    (the refbase assembly of every route is csrc/vote_window.cu or
+    csrc/refbase.cu on the card). Each raises there. The standalone,
+    non-deferred upload and score routes stay plain on purpose and stay
+    allowed. Yields counts: entries into the counterparts, deferred
+    upload-and-score programs run, and plain calls caught."""
     import threading
 
-    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.core import kernels, vote
     depth = threading.local()
     lock = threading.Lock()
-    seen = {"counterpart_calls": 0, "plain_calls_inside": 0}
+    seen = {"counterpart_calls": 0, "upload_score_calls": 0,
+            "plain_calls_inside": 0}
 
     def count(key):
         with lock:
             seen[key] += 1
 
-    def entry(orig):
+    def entered(kind, key, fn):
         def f(*a, **k):
-            count("counterpart_calls")
-            depth.n = getattr(depth, "n", 0) + 1
+            count(key)
+            setattr(depth, kind, getattr(depth, kind, 0) + 1)
             try:
-                return orig(*a, **k)
+                return fn(*a, **k)
             finally:
-                depth.n -= 1
+                setattr(depth, kind, getattr(depth, kind) - 1)
         return f
 
-    def plain(name, orig):
+    def plain(kind, name, fn):
         def f(*a, **k):
-            if getattr(depth, "n", 0):
-                count("plain_calls_inside")
-                if any(isinstance(x, torch.Tensor) and x.is_cuda
-                       for x in (*a, *k.values())):
+            on_card = any(isinstance(x, torch.Tensor) and x.is_cuda
+                          for x in (*a, *k.values()))
+            if kind is None or getattr(depth, kind, 0):
+                if kind is not None or on_card:
+                    count("plain_calls_inside")
+                if on_card:
                     raise AssertionError(
-                        f"plain vote.{name} ran on CUDA tensors inside a "
-                        "Pallas counterpart")
-            return orig(*a, **k)
+                        f"plain {name} ran on CUDA tensors"
+                        + ("" if kind is None else
+                           f" inside a {kind} program"))
+            return fn(*a, **k)
         return f
+
+    def factory(orig, wrap):
+        def g(*a, **k):
+            return wrap(orig(*a, **k))
+        return g
 
     with contextlib.ExitStack() as stack:
         for name in ("pallas_vote_window", "pallas_vote_gathered",
                      "pallas_vote"):
-            stack.enter_context(_patched(vote, name,
-                                         entry(getattr(vote, name))))
-        for name in ("_epilogue_core", "refbase_combine"):
-            stack.enter_context(_patched(vote, name,
-                                         plain(name, getattr(vote, name))))
+            stack.enter_context(_patched(vote, name, entered(
+                "vote", "counterpart_calls", getattr(vote, name))))
+        stack.enter_context(_patched(vote, "_epilogue_core", plain(
+            "vote", "vote._epilogue_core", vote._epilogue_core)))
+        stack.enter_context(_patched(vote, "refbase_combine", plain(
+            None, "vote.refbase_combine", vote.refbase_combine)))
+        stack.enter_context(_patched(
+            engine, "_upload_score_fn", factory(
+                engine._upload_score_fn,
+                lambda fn: entered("upload", "upload_score_calls", fn))))
+        for name in ("_upload_score_plain", "_upload_sparse_trace"):
+            stack.enter_context(_patched(engine, name, factory(
+                getattr(engine, name),
+                lambda fn, name=name: plain("upload", f"engine.{name}",
+                                            fn))))
+        for name in ("score_map_kernel_packed", "score_map_kernel",
+                     "_qual2score"):
+            stack.enter_context(_patched(kernels, name, plain(
+                "upload", f"kernels.{name}", getattr(kernels, name))))
         yield seen
 
 
 def _guard_ok(phase, seen):
-    """Fails the phase unless the counterparts ran and no plain epilogue
-    or refbase assembly ran inside them."""
-    if not seen["counterpart_calls"] or seen["plain_calls_inside"]:
-        fail(phase, f"the plain-version guard saw {seen}: a counterpart ran "
-                    "a plain version on the card, or none ran")
+    """Fails the phase unless the counterparts and the deferred upload-
+    and-score program ran and no plain version ran where a kernel stands
+    for it."""
+    if (not seen["counterpart_calls"] or not seen["upload_score_calls"]
+            or seen["plain_calls_inside"]):
+        fail(phase, f"the plain-version guard saw {seen}: a plain version "
+                    "ran on the card where a hand kernel stands for it, or "
+                    "a counterpart or the upload-and-score program did not "
+                    "run")
 
 
 @contextlib.contextmanager
@@ -991,15 +1263,21 @@ def _streaming_line():
 
 
 def _counters(vote):
+    from gencore_tpu_torch.core import kernels
     return {"vote": vote.LAUNCHES, "vote_full": vote.FULL_LAUNCHES,
-            "vote_window": vote.WINDOW_LAUNCHES}
+            "vote_window": vote.WINDOW_LAUNCHES,
+            "upload_score": kernels.UPLOAD_SCORE_LAUNCHES,
+            "refbase": vote.REFBASE_LAUNCHES}
 
 
 def _zero_counters(vote):
+    from gencore_tpu_torch.core import kernels
     vote.LAUNCHES = 0
     vote.FULL_LAUNCHES = 0
     vote.WINDOW_LAUNCHES = 0
     vote.VOTE_ONLY_LAUNCHES = 0
+    vote.REFBASE_LAUNCHES = 0
+    kernels.UPLOAD_SCORE_LAUNCHES = 0
 
 
 def phase_full_bins(torch):
@@ -1055,9 +1333,12 @@ def phase_ultradeep(torch, np):
         rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "ultradeep"), golden)
         launches = _counters(vote)
-    if rc or not (out_ok and rep_ok) or launches["vote"] == 0:
+    if (rc or not (out_ok and rep_ok) or launches["vote"] == 0
+            or launches["refbase"] == 0):
         fail(7, f"ultradeep run failed, differs from the golden digests, or "
-                f"launched no gathered vote: rc={rc} {launches} {err[-1500:]}")
+                f"launched no gathered vote or refbase assembly (its "
+                f"leftover buckets take K11): rc={rc} {launches} "
+                f"{err[-1500:]}")
     _guard_ok(7, guard)
     io_lines = _io_lines(err)
     if io_lines != [_streaming_line()]:
@@ -1066,9 +1347,12 @@ def phase_ultradeep(torch, np):
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"\[stage\] (\S+): ([0-9.]+)s", err)}
 
-    # a second run records each gathered launch's inputs, replayed after
+    # a second run records each gathered launch's inputs, replayed after,
+    # and the refbase assembly's of the most jobs
     calls = []
     orig = vote.vote_gathered
+    orig_ref = vote.refbase
+    ref_call = {}
 
     def recorded(*args, **kw):
         out = orig(*args, **kw)
@@ -1076,7 +1360,14 @@ def phase_ultradeep(torch, np):
                       dict(kw)))
         return out
 
-    with _patched(vote, "vote_gathered", recorded):
+    def recorded_ref(genome, gpos, host_rows, host_map, jl, L):
+        if len(gpos) > len(ref_call.get("args", ((), ()))[1]):
+            ref_call["args"] = (genome, *[np.array(a) for a in (
+                gpos, host_rows, host_map, jl)], L)
+        return orig_ref(genome, gpos, host_rows, host_map, jl, L)
+
+    with _patched(vote, "vote_gathered", recorded), \
+            _patched(vote, "refbase", recorded_ref):
         rc, err, t_rec, _n, out_ok2, rep_ok2 = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "ultradeep_rec"), golden)
     if rc or not (out_ok2 and rep_ok2) or _io_lines(err) != io_lines:
@@ -1096,6 +1387,10 @@ def phase_ultradeep(torch, np):
                            "bound_ms": b_ms,
                            "bound_by": b_by, "share_of_bound": b_ms / ms})
     del calls
+    if not ref_call:
+        fail(7, "the recorded ultradeep run made no refbase assembly")
+    refbase_timed = _refbase_timed(torch, np, torch.device("cuda", 0),
+                                   *ref_call["args"], 7)
     res = {"phase": 7, "name": "ultra-deep pile vs golden", "ok": True,
            "workload": golden["workload"], "io_line": io_lines[0],
            "cli_args": golden.get("cli_args", []), "reads_in": n_in,
@@ -1104,6 +1399,7 @@ def phase_ultradeep(torch, np):
            "kernel_launches": launches, "plain_guard": guard,
            "gathered_launches": per_launch,
            "gathered_vote_ms": sum(p["ms"] for p in per_launch),
+           "refbase_largest": refbase_timed,
            "output_digest_equal": out_ok, "report_stats_equal": rep_ok,
            "stage_seconds": stages}
     emit(res)
@@ -1139,7 +1435,29 @@ def _window_recorder(np, vote, largest, per_launch=None, qtables=None):
     return recorded
 
 
+def _upload_recorder(upload):
+    """A stand-in for engine._upload_score_fn whose functions keep, in
+    `upload`, the static arguments and staging of the deferred upload of
+    the most rows (replayed in phase 5)."""
+    from gencore_tpu_torch import engine
+    orig = engine._upload_score_fn
+
+    def factory(*static):
+        fn = orig(*static)
+
+        def f(*staging, **kw):
+            n = len(staging[1])
+            if n > upload.get("n", -1):
+                upload.update(n=n, static=static, staging=[
+                    a if hasattr(a, "is_cuda") else a.copy()
+                    for a in staging])
+            return fn(*staging, **kw)
+        return f
+    return factory
+
+
 def phase_full(torch, np):
+    from gencore_tpu_torch import engine
     from gencore_tpu_torch.core import vote
     from gencore_tpu_torch.io import native
     from gencore_tpu_torch.parallel import streaming
@@ -1169,10 +1487,12 @@ def phase_full(torch, np):
         return orig_stream(*a, **k)
 
     recorded = _window_recorder(np, vote, largest, per_launch, qtables)
+    upload = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # the guard goes on last, so that it wraps the recorder
+    # the guard goes on last, so that it wraps the recorders
     with _patched(vote, "pallas_vote_window", recorded), \
+            _patched(engine, "_upload_score_fn", _upload_recorder(upload)), \
             _patched(streaming, "run_streaming", counted_stream), \
             _no_plain_on_card(torch) as guard:
         _zero_counters(vote)
@@ -1190,7 +1510,8 @@ def phase_full(torch, np):
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"\[stage\] (\S+): ([0-9.]+)s", err)}
     ok = (output_ok and report_ok and launches["vote_window"] > 0
-          and launches["vote_window"] == len(per_launch))
+          and launches["vote_window"] == len(per_launch)
+          and launches["upload_score"] == guard["upload_score_calls"] > 0)
     emit({"phase": 4, "name": "full-size deep panel vs golden, streaming "
                               "path", "ok": ok,
           "path": "parallel/streaming.run_streaming", "io_line": io_lines[0],
@@ -1206,7 +1527,9 @@ def phase_full(torch, np):
           "report_stats_equal": report_ok, "stage_seconds": stages})
     if not ok:
         fail(4, "output differs from the golden digests, or the fused "
-                "window kernel's launches do not match the window calls")
+                "window kernel's (upload-and-score kernel's) launches do "
+                "not match the window calls (deferred uploads)")
+    largest["upload"] = upload
     return bam, fa, golden, launches, largest
 
 
@@ -1481,8 +1804,10 @@ def _replay_window(torch, largest, phase):
 def phase_replay(torch, np, largest):
     """The deep panel's largest window launch, replayed: the kernel
     against the plain composition on the card (refbase_combine,
-    vote_core_plain, _epilogue_core, concat_sparse)."""
-    from gencore_tpu_torch.core import vote
+    vote_core_plain, _epilogue_core, concat_sparse); and the largest
+    deferred upload through the upload-and-score kernel against its
+    twin."""
+    from gencore_tpu_torch.core import kernels, vote
     mats, srcs, qtable, class_args, kw, mism, err = _replay_window(
         torch, largest, 5)
     t = _timings(
@@ -1498,6 +1823,9 @@ def phase_replay(torch, np, largest):
     b_ms, b_by = bound(n_bytes, n_ops)
     Jt = sum(J for _K, J in kw["classes"])
     grid = vote.window_grid(L, Jt, mats[0].device)
+    up = largest["upload"]
+    up_res = _upload_timed(torch, np, up["static"], up["staging"],
+                           mats[0].device, 5)
     res = {"classes_K_J_sumcounts": largest["classes"], "N": N, "L": L,
            "Jw": len(srcs[0]), "host_rows": len(srcs[1]),
            "job_positions": Jt * L, "grid_blocks": grid,
@@ -1506,9 +1834,12 @@ def phase_replay(torch, np, largest):
            "out_len": kw["out_len"], "qtable": qtable is not None,
            "mismatches": mism, "max_abs_err": err, **t, "bytes": n_bytes,
            "int_ops": n_ops, "bound_ms": b_ms, "bound_by": b_by,
-           "share_of_bound": b_ms / t["ms"]}
-    emit({"phase": 5, "name": "largest deep-panel window launch, replayed",
-          "ok": True, **res})
+           "share_of_bound": b_ms / t["ms"],
+           "upload_score": {**up_res, "flags": dict(zip(
+               kernels.UPLOAD_FLAGS, (*up["static"][2:7],
+                                      *up["static"][14:16])))}}
+    emit({"phase": 5, "name": "largest deep-panel window launch and "
+                              "deferred upload, replayed", "ok": True, **res})
     return res
 
 
@@ -1544,37 +1875,51 @@ def _device_activity(trace_path):
             "device_span_ms": span / 1e3, "vote_kernels_ms": vote_us / 1e3}
 
 
-def _window_before(torch, np, vote):
-    """vote.vote_window as the window path ran before the refbase assembly
-    moved into the kernel: the plain refbase_combine on the card (four
-    copies up, ~12 launches) and the qual table's own copy, then the
-    kernel reading those rows as host rows already on the card."""
-    kernel = vote.vote_window
+def _upload_before(torch):
+    """kernels.upload_score as the port ran the program before
+    csrc/upload_score.cu: each staging array copied up alone (u16/u32
+    widened to int32), then the plain program (~240 launches)."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.core.vote import to_device
 
-    def f(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
-          class_args, **kw):
-        dev = seq_dev.device
+    def f(arrays, genome, *, device, w, L, mode2, has_sedit, has_qdense,
+          has_qedit, const_lens, has_genome, no_overlap, hi, mod, lo, s_hi,
+          s_mod, s_lo, s_bad):
+        g = genome if isinstance(genome, torch.Tensor) else \
+            torch.zeros(1, dtype=torch.uint8, device=device)
+        static = (w, L, mode2, has_sedit, has_qdense, has_qedit, const_lens,
+                  hi, mod, lo, s_hi, s_mod, s_lo, s_bad, has_genome,
+                  no_overlap)
+        return engine._upload_score_plain(*static)(
+            *[to_device(a, device) for a in arrays[:14]], g,
+            to_device(arrays[14], device))
+    return f
+
+
+def _refbase_before(torch):
+    """vote.refbase as the port ran K11 before csrc/refbase.cu: four
+    copies up and the plain refbase_combine (~18 launches)."""
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.core.vote import to_device
+
+    def f(genome, gpos, host_rows, host_map, jl, L):
+        dev = genome.device
         I32 = torch.int32
-        refbase = vote.refbase_combine(
-            genome, vote.to_device(gp, dev, I32), vote.to_device(hr, dev),
-            vote.to_device(hm, dev, I32), vote.to_device(jp, dev, I32),
-            kw["L"])
-        qt = None if qtable is None else vote.to_device(qtable, dev)
-        Jw = refbase.shape[0]
-        zeros = np.zeros(Jw, dtype=np.int32)
-        return kernel(seq_dev, qual_dev, score_dev, genome, zeros, refbase,
-                      np.arange(Jw, dtype=np.int32), zeros, qt, class_args,
-                      **kw)
+        return vote.refbase_combine(
+            genome, to_device(gpos, dev, I32), to_device(host_rows, dev),
+            to_device(host_map, dev, I32), to_device(jl, dev, I32), L)
     return f
 
 
 def phase_busy(torch, np, runs):
     """6: one profiled run of each workload in `runs` ((tag, bam, fasta,
-    golden), on its streaming path) before, with the composition this
-    slice replaced put back for that run only, and after."""
+    golden), on its streaming path) before, with the compositions this
+    slice replaced put back for that run only (the plain upload-and-score
+    program after 16 copies, the plain refbase assembly after four), and
+    after."""
     from torch.profiler import ProfilerActivity, profile
 
-    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.core import kernels, vote
     res = {}
     for wl, bam, fa, golden in runs:
         res[wl] = {}
@@ -1584,10 +1929,9 @@ def phase_busy(torch, np, runs):
             with contextlib.ExitStack() as stack:
                 if tag == "before":
                     stack.enter_context(_patched(
-                        vote, "vote_window", _window_before(torch, np, vote)))
+                        kernels, "upload_score", _upload_before(torch)))
                     stack.enter_context(_patched(
-                        vote, "vote_gathered",
-                        lambda *a, **k: _composition(vote, a, k)))
+                        vote, "refbase", _refbase_before(torch)))
                 _zero_counters(vote)
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1612,13 +1956,14 @@ def phase_busy(torch, np, runs):
                                                     "memsets")}
     emit({"phase": 6, "name": "device busy, kernels and memcpys per run, "
                               "before/after", "ok": True,
-          "before": "the plain refbase assembly ahead of the window kernel "
-                    "(refbase_combine; its rows read as host rows) and, on "
-                    "the gathered paths, csrc/vote.cu's vote alone + the "
-                    "plain _epilogue_core, substituted for that run only",
-          "after": "pallas_vote_window (csrc/vote_window.cu, refbase in the "
-                   "kernel); pallas_vote_gathered / pallas_vote (csrc/"
-                   "vote.cu's gathered entry, the epilogue fused)", **res})
+          "before": "the plain upload-and-score program "
+                    "(engine._upload_score_plain after 16 copies up) and "
+                    "the plain refbase assembly of the unfused routes "
+                    "(refbase_combine after four copies up), substituted "
+                    "for that run only",
+          "after": "csrc/upload_score.cu (one copy up, one launch per "
+                   "window) and csrc/refbase.cu (one copy, one launch)",
+          **res})
     return res
 
 
@@ -1639,10 +1984,12 @@ def phase_cases(torch, np):
         gc.prepare(case, wd)
     t_gen = time.perf_counter() - t0
     runs = []
-    totals = {"vote": 0, "vote_full": 0, "vote_window": 0}
+    totals = {"vote": 0, "vote_full": 0, "vote_window": 0,
+              "upload_score": 0, "refbase": 0}
     largest = {"sum_counts": -1}
     t0 = time.perf_counter()
-    guards = {"counterpart_calls": 0, "plain_calls_inside": 0}
+    guards = {"counterpart_calls": 0, "upload_score_calls": 0,
+              "plain_calls_inside": 0}
     for name, case in gc.CASES.items():
         golden = gc.load_golden(name)
         for route in case.routes:
@@ -1975,6 +2322,7 @@ def main() -> int:
     phase_build()
     vk = phase_vote_kernel(torch, np)
     win_err = phase_window_kernel(torch, np)
+    ups = phase_upload_score(torch, np)
     piles = phase_deep_piles(torch, np)
     full = phase_full_kernel(torch, np)
     phase_small(torch)
@@ -2066,7 +2414,55 @@ def main() -> int:
          "plain_ms": sum(p["plain_ms"] for p in full),
          "bound_ms": full_bound, "bound_by": full_by, "library_ms": None,
          "shape": f"phase 2d, sum over (J, K) in {list(FULL_SHAPES)}, "
-                  f"L={L_PHASE2}"}],
+                  f"L={L_PHASE2}"},
+        {"name": "upload_score", "route": "cuda",
+         "source": "gencore_tpu_torch/csrc/upload_score.cu",
+         "replaces": "gencore_tpu/engine.py:3034 (_upload_score_fn, the XLA "
+                     "program K4-K6: _upload_sparse_trace :2938, "
+                     "kernels.py:373 score_map_kernel_packed; no Pallas "
+                     "kernel)",
+         "launches": launches["upload_score"],
+         "launches_in": "phase 4, the deep panel on the streaming path",
+         "launches_sharded": [r["kernel_launches"]["upload_score"]
+                              for r in shard_runs],
+         "launches_in_memory": [r["kernel_launches"]["upload_score"]
+                                for r in mem_runs.values()],
+         "launches_ultradeep": ud["kernel_launches"]["upload_score"],
+         "launches_cases": cases["kernel_launches"]["upload_score"],
+         "launches_cases_in": cases_in,
+         "max_abs_err": max(ups["max_abs_err"],
+                            rep["upload_score"]["max_abs_err"]),
+         "ms": rep["upload_score"]["ms"],
+         "host_ms": rep["upload_score"]["host_ms"],
+         "call_ms": rep["upload_score"]["call_ms"],
+         "plain_ms": rep["upload_score"]["plain_ms"],
+         "bound_ms": rep["upload_score"]["bound_ms"],
+         "bound_by": rep["upload_score"]["bound_by"], "library_ms": None,
+         "shape": f"phase 5, the deep panel's largest deferred upload: "
+                  f"n={rep['upload_score']['n']}, "
+                  f"w={rep['upload_score']['w']}, "
+                  f"L={rep['upload_score']['L']}"},
+        {"name": "refbase", "route": "cuda",
+         "source": "gencore_tpu_torch/csrc/refbase.cu (refbase_at of "
+                   "csrc/refbase.cuh, shared with vote_window.cu)",
+         "replaces": "gencore_tpu/engine.py:3097 (_refbase_combine_fn, the "
+                     "XLA program K11; no Pallas kernel)",
+         "launches": ud["kernel_launches"]["refbase"],
+         "launches_in": "phase 7, the ultra-deep pile (its leftover "
+                        "buckets)",
+         "launches_cases": cases["kernel_launches"]["refbase"],
+         "launches_cases_in": cases_in,
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            ups["refbase"] + [ud["refbase_largest"]]),
+         "ms": ud["refbase_largest"]["ms"],
+         "host_ms": ud["refbase_largest"]["host_ms"],
+         "call_ms": ud["refbase_largest"]["call_ms"],
+         "plain_ms": ud["refbase_largest"]["plain_ms"],
+         "bound_ms": ud["refbase_largest"]["bound_ms"],
+         "bound_by": ud["refbase_largest"]["bound_by"], "library_ms": None,
+         "shape": f"phase 7, the ultra-deep run's refbase assembly of the "
+                  f"most jobs: J={ud['refbase_largest']['J']}, "
+                  f"L={ud['refbase_largest']['L']}"}],
         "seconds": time.perf_counter() - t_start,
         "seconds_phases_9_to_11": t_new})
     print(card, flush=True)

@@ -15,17 +15,30 @@ gencore_tpu/core/kernels.py).
   of the JAX functions; on CUDA tensors `full_bins=True` launches the
   hand-written kernel (`vote.vote_full`, csrc/vote.cu with the Bins16
   rules), whose twin is this plain version.
+* `upload_score` — the window's upload rebuild and overlap scoring (the
+  JAX package's one jitted program engine._upload_score_fn: K4, then K5
+  `score_map_kernel_packed` or K6, the qual tier of a scored-row mask)
+  through `csrc/upload_score.cu`: the staging's 15 host arrays go up in
+  one pinned copy (`upload_score_pack`, in their own dtypes) and one
+  launch rebuilds and scores every row. CUDA only; its twin is the plain
+  program engine._upload_score_plain, which `engine._upload_score_fn`
+  runs on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from fractions import Fraction
 
+import numpy as np
 import torch
 
 from gencore_tpu_torch.core import vote
 
 I32 = torch.int32
+
+# launches of csrc/upload_score.cu (`upload_score`), CUDA tensors only
+UPLOAD_SCORE_LAUNCHES = 0
 
 
 def ratio_fraction(score_percent_req: float) -> tuple[int, int]:
@@ -332,3 +345,161 @@ def consensus_plain(seq, qual, score, valid, pos_valid, refbase, *, hi, mod,
     return _vote_core(seq, qual, score, valid.bool(), pos_valid.bool(),
                       refbase.to(torch.uint8), hi, mod, lo, base_score_req,
                       ratio_num, ratio_den, full_bins)
+
+
+# the staging's host arrays in the order of the upload (the genome stays
+# resident on the device), with the dtypes the kernel reads; lens16 is
+# int32 [2] under const_lens and meta u8 (a bit per row) under no_overlap
+UPLOAD_PARTS = (("sd", np.uint8), ("src", np.uint16), ("scnt", np.uint8),
+                ("epos", np.uint8), ("ecode", np.uint8), ("base", np.uint8),
+                ("q_src", np.uint16), ("qd", np.uint8), ("qcnt", np.uint8),
+                ("qpos", np.uint8), ("qval", np.uint8), ("lens16", None),
+                ("mate16", np.uint16), ("meta", None), ("gsl", np.int32))
+# the program's static flags, in the order of the kernel's flag bits
+UPLOAD_FLAGS = ("mode2", "has_sedit", "has_qdense", "has_qedit",
+                "const_lens", "has_genome", "no_overlap")
+_UPLOAD_DIMS = 36     # csrc/upload_score.cu's kDims
+_UPLOAD_MAX_GRID = 2048
+
+
+def upload_score_layout(arrays):
+    """Where each of the 15 staging arrays (UPLOAD_PARTS' order) lies in
+    the kernel's one upload: {"parts": {name: (byte offset, dtype,
+    shape)}, "bar": the offset of the 16 zero bytes the kernel's grid
+    barrier counts in, "size": bytes}. Each part starts at a multiple of
+    16 bytes, in its own dtype."""
+    parts = {}
+    off = 0
+    for (name, _dt), a in zip(UPLOAD_PARTS, arrays, strict=True):
+        a = np.asarray(a)
+        parts[name] = (off, a.dtype, a.shape)
+        off += -(-a.nbytes // 16) * 16
+    return {"parts": parts, "bar": off, "size": off + 16}
+
+
+def upload_score_pack(arrays, alloc=None):
+    """The kernel's one upload, u8: the 15 staging arrays in their own
+    dtypes at upload_score_layout's offsets, the gaps and the barrier
+    bytes zeroed. Returns (buffer, layout); the buffer comes from
+    alloc(size) when given."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    lay = upload_score_layout(arrays)
+    buf = (np.empty(lay["size"], dtype=np.uint8) if alloc is None
+           else alloc(lay["size"]))
+    end = 0
+    for (name, _dt), a in zip(UPLOAD_PARTS, arrays):
+        off = lay["parts"][name][0]
+        buf[end:off] = 0
+        buf[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        end = off + a.nbytes
+    buf[end:] = 0
+    return buf, lay
+
+
+def _upload_checks(arrays, flags, w, L):
+    """The staging's dtypes and shapes as the kernel reads them; returns
+    (n, nd, bw, ns, E, Eq, nq, qw)."""
+    a = dict(zip((name for name, _dt in UPLOAD_PARTS), arrays))
+    for name, dt in UPLOAD_PARTS:
+        want = dt
+        if name == "lens16":
+            want = np.int32 if flags["const_lens"] else np.uint16
+        elif name == "meta":
+            want = np.uint8 if flags["no_overlap"] else np.uint32
+        if a[name].dtype != want:
+            raise TypeError(f"upload_score: {name} is {a[name].dtype}, "
+                            f"expected {np.dtype(want)}")
+    sd, qd = a["sd"], a["qd"]
+    if sd.ndim != 2 or qd.ndim != 2:
+        raise ValueError("upload_score: sd and qd must be 2-D")
+    n = len(a["src"])
+    nd, bw = sd.shape
+    if not 0 < w <= L <= 256:
+        raise ValueError(f"upload_score: needs 0 < w={w} <= L={L} <= 256")
+    if nd == 0 or (4 if flags["mode2"] else 2) * bw < w:
+        raise ValueError(f"upload_score: sd {sd.shape} cannot hold rows of "
+                         f"{w} codes")
+    need = {"base": n, "mate16": n if not flags["no_overlap"] else None,
+            "meta": -(-n // 8) if flags["no_overlap"] else n,
+            "lens16": 2 if flags["const_lens"] else n}
+    if flags["has_sedit"]:
+        need["scnt"] = n
+    if flags["has_qdense"]:
+        need["q_src"] = n
+    if flags["has_qedit"]:
+        need["qcnt"] = n
+    for name, m in need.items():
+        if m is not None and len(a[name]) < m:
+            raise ValueError(f"upload_score: {name} has {len(a[name])} "
+                             f"entries, needs {m}")
+    E, Eq = len(a["epos"]), len(a["qpos"])
+    if len(a["ecode"]) != E or len(a["qval"]) != Eq:
+        raise ValueError("upload_score: edit positions and values differ "
+                         "in length")
+    if (flags["has_sedit"] and E == 0) or (flags["has_qedit"] and Eq == 0):
+        raise ValueError("upload_score: an edit stream is flagged but empty")
+    nq, qw = qd.shape
+    if flags["has_qdense"] and (nq == 0 or qw != w):
+        raise ValueError(f"upload_score: dense qual rows {qd.shape} are not "
+                         f"{w} wide")
+    ns = len(a["gsl"])
+    if flags["has_genome"] and ns == 0:
+        raise ValueError("upload_score: genome rows flagged without slots")
+    if max(n, nd * bw, E, Eq, nq * max(qw, 1)) >= 2**31:
+        raise ValueError("upload_score: a dimension does not fit the "
+                         "kernel's int")
+    return n, nd, bw, ns, E, Eq, nq, qw
+
+
+def upload_score(arrays, genome, *, device, w, L, mode2, has_sedit,
+                 has_qdense, has_qedit, const_lens, has_genome, no_overlap,
+                 hi, mod, lo, s_hi, s_mod, s_lo, s_bad):
+    """csrc/upload_score.cu: the staging's 15 host arrays (UPLOAD_PARTS'
+    order, numpy) go to `device` (a CUDA device) in one pinned
+    non-blocking copy, and one launch rebuilds the resident matrices and
+    scores every row. genome: the device NT16 genome (has_genome), else
+    unused. Returns (seq u8 [n, L], qual u8 [n, L] (scored), score i8
+    [n, L]), equal byte for byte to engine._upload_score_plain's."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"upload_score: needs a CUDA device, got {dev}")
+    flags = dict(zip(UPLOAD_FLAGS, (mode2, has_sedit, has_qdense, has_qedit,
+                                     const_lens, has_genome, no_overlap)))
+    arrays = [np.asarray(x) for x in arrays]
+    n, nd, bw, ns, E, Eq, nq, qw = _upload_checks(arrays, flags, w, L)
+    G = 0
+    if has_genome:
+        if not (isinstance(genome, torch.Tensor) and genome.device == dev
+                and genome.dtype == torch.uint8 and genome.dim() == 1):
+            raise ValueError("upload_score: genome rows need the u8 genome "
+                             f"on {dev}")
+        G = genome.shape[0]
+        if not w <= G < 2**31:
+            raise ValueError(f"upload_score: genome of {G} bases for rows "
+                             f"of {w}")
+    up, lay = vote.pinned_upload(
+        lambda alloc: upload_score_pack(arrays, alloc=alloc), dev)
+    seq = torch.empty((n, L), dtype=torch.uint8, device=dev)
+    qual = torch.empty((n, L), dtype=torch.uint8, device=dev)
+    score = torch.empty((n, L), dtype=torch.int8, device=dev)
+    scratch = torch.empty(2 * n + 2 * _UPLOAD_MAX_GRID, dtype=torch.int32,
+                          device=dev)
+    bits = sum(1 << i for i, f in enumerate(UPLOAD_FLAGS) if flags[f])
+    dims = [_UPLOAD_DIMS, n, w, L, bits, nd, bw, ns, G, E, Eq, nq, qw, hi,
+            mod, lo, s_hi, s_mod, s_lo, s_bad]
+    dims += [lay["parts"][name][0] for name, _dt in UPLOAD_PARTS]
+    dims.append(lay["bar"])
+    c_dims = (ctypes.c_int * _UPLOAD_DIMS)(*(int(x) for x in dims))
+    lib = vote.build_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gc_upload_score(
+            up.data_ptr(), genome.data_ptr() if has_genome else None,
+            seq.data_ptr(), qual.data_ptr(), score.data_ptr(),
+            scratch.data_ptr(), c_dims, stream)
+    if err != 0:
+        raise RuntimeError(f"gc_upload_score launch failed: cudaError_t "
+                           f"{err}")
+    global UPLOAD_SCORE_LAUNCHES
+    UPLOAD_SCORE_LAUNCHES += 1
+    return seq, qual, score

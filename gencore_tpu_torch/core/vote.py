@@ -31,9 +31,11 @@ tensors it runs the kernel's plain twin.
 * `_epilogue_core` — per-read rollback (group.cpp:538-566), nibble packing
   and the sparse wire encoding, in plain PyTorch (XLA in the JAX package):
   the plain twins' half of what the kernels fuse.
-* `refbase_combine` — the refbase rows of a window in plain PyTorch: the
-  window kernel's twin builds them with it, and the engine's routes that
-  do not fuse the window (engine._refbase_combine_fn, K11) call it.
+* `refbase` — the refbase rows of a window's jobs for the engine's routes
+  that do not fuse the window (engine._refbase_combine_fn, K11): the
+  sources go up in one pinned copy and `csrc/refbase.cu` builds the rows;
+  CUDA only. `refbase_combine` is its plain twin, which the window
+  kernel's twin uses too.
 
 Only the device of the tensors selects between a kernel and its twin.
 The kernel library builds at first use from `gencore_tpu_torch/csrc/*.cu`
@@ -68,12 +70,13 @@ SPARSE_RUNS = 10
 
 # kernel launches, CUDA tensors only: `vote_gathered` (csrc/vote.cu, Bins6
 # with the epilogue), `vote_full` (csrc/vote.cu, Bins16), `vote_window`
-# (csrc/vote_window.cu) and `vote_core` (csrc/vote.cu, the vote alone); a
-# vote.cu launch with a split counts once
+# (csrc/vote_window.cu), `vote_core` (csrc/vote.cu, the vote alone) and
+# `refbase` (csrc/refbase.cu); a vote.cu launch with a split counts once
 LAUNCHES = 0
 FULL_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 VOTE_ONLY_LAUNCHES = 0
+REFBASE_LAUNCHES = 0
 
 SMS = 132           # H100 SXM streaming multiprocessors
 MAX_SPLIT = 16      # CTAs per job
@@ -179,6 +182,10 @@ def build_library() -> ctypes.CDLL:
         lib.gc_vote_window_grid.restype = ctypes.c_int
         lib.gc_vote_window_stage.argtypes = []
         lib.gc_vote_window_stage.restype = ctypes.c_int
+        lib.gc_upload_score.argtypes = [P] * 6 + [ctypes.POINTER(I), P]
+        lib.gc_upload_score.restype = ctypes.c_int
+        lib.gc_refbase.argtypes = [P] * 6 + [I] * 4 + [P]
+        lib.gc_refbase.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -673,13 +680,17 @@ def wire_size(n_jobs, n_classes, qtable):
 
 def pallas_vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
                        qtable, class_args, *, classes, L, hi, mod, lo,
-                       base_score_req, ratio_num, ratio_den, out_len):
+                       base_score_req, ratio_num, ratio_den, out_len,
+                       unref=None):
     """EVERY fast vote bucket of one window (port of _pallas_window_all):
     refbase assembly (genome slice-gather + host rows), then per k-class
     (K, J) the vote of each job over its rows base..base+count-1, the
     rollback/sparse-encode epilogue, and the cross-class wire concat.
-    class_args holds (base_row, counts, job_len, refbase row) per class.
-    Returns (flat u8 wire buffer, refbase_dev, [per-class (pseq, qual)
+    class_args holds (base_row, counts, job_len, refbase row) per class;
+    unref, when given, lists the refbase rows that no job references
+    (unreferenced_rows of the refbase-row arguments, which the engine
+    knows without counting). Returns (flat u8 wire buffer, refbase_dev,
+    [per-class (pseq, qual)
     dense fallbacks]). CUDA tensors launch the fused kernel
     (csrc/vote_window.cu, `vote_window`) once; CPU tensors run its plain
     twin `vote_window_plain`."""
@@ -693,18 +704,20 @@ def pallas_vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
     return fn(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
               class_args, classes=classes, L=L, hi=hi, mod=mod, lo=lo,
               base_score_req=base_score_req, ratio_num=ratio_num,
-              ratio_den=ratio_den, out_len=out_len)
+              ratio_den=ratio_den, out_len=out_len, unref=unref)
 
 
 def vote_window_plain(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
                       qtable, class_args, *, classes, L, hi, mod, lo,
-                      base_score_req, ratio_num, ratio_den, out_len):
+                      base_score_req, ratio_num, ratio_den, out_len,
+                      unref=None):
     """The fused window kernel's plain twin, on any device: the refbase
     rows (`refbase_combine`), then per k-class `vote_core_plain` over rows
     base..base+K-1 masked by the member count and `_epilogue_core` with
     the sparse encoding, then `concat_sparse` (the composition the JAX
     package's _pallas_window_all makes). Arguments and result as
-    pallas_vote_window's."""
+    pallas_vote_window's (it builds every refbase row, so `unref` goes
+    unread)."""
     dev = seq_dev.device
     I32 = torch.int32
     refbase_dev = refbase_combine(
@@ -739,7 +752,8 @@ def _host(a):
 
 
 def _fits_i32(fn, name, a):
-    if (a.size and np.iinfo(a.dtype).max >= 2**31
+    if (a.size and a.dtype.itemsize >= 4 and a.dtype != np.int32
+            and np.iinfo(a.dtype).max >= 2**31
             and (int(a.min()) < -2**31 or int(a.max()) >= 2**31)):
         raise ValueError(f"{fn}: {name} does not fit int32")
 
@@ -803,14 +817,16 @@ def unreferenced_rows(ridx, Jw):
 
 
 def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
-                  alloc=None):
+                  alloc=None, unref=None):
     """The window kernel's one upload, u8, in window_upload_layout's
     order: window_job_table, the refbase sources gp, hm, jp of every job
     of the window as int32, the qual table and the host rows when given,
-    then the refbase rows no job references (unreferenced_rows of the
-    table's refbase row). Returns (buffer, layout): the buffer is the
-    first layout["size"] bytes of one of room for every row unreferenced,
-    which comes from alloc(room) when given."""
+    then the refbase rows no job references: `unref` where the caller
+    knows them (the engine does), else unreferenced_rows of the table's
+    refbase row. Returns (buffer, layout): the buffer is the first
+    layout["size"] bytes of one of room for every row unreferenced (of
+    exactly the size with `unref`), which comes from alloc(room) when
+    given."""
     gp, hm, jp = _host(gp), _host(hm), _host(jp)
     Jw = len(gp)
     if len(hm) != Jw or len(jp) != Jw:
@@ -823,7 +839,10 @@ def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
     if qt is not None and qt.shape != (16,):
         raise ValueError(f"vote_window: qtable has {qt.size} entries, not 16")
     hrb = None if hr is None else np.ascontiguousarray(hr, dtype=np.uint8)
-    room = window_upload_layout(Jt, Jw, Jw, 0 if qt is None else 16,
+    if unref is not None:
+        unref = np.asarray(unref, dtype=np.int32)
+    room = window_upload_layout(Jt, Jw, Jw if unref is None else len(unref),
+                                0 if qt is None else 16,
                                 0 if hrb is None else hrb.nbytes)
     buf = (np.empty(room["size"], dtype=np.uint8) if alloc is None
            else alloc(room["size"]))
@@ -839,7 +858,8 @@ def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
     buf[qt_end:room["hr"]] = 0  # the padding before the host rows
     if hrb is not None:
         buf[room["hr"]:room["unref"]] = hrb.reshape(-1)
-    unref = unreferenced_rows(tab[3], Jw)
+    if unref is None:
+        unref = unreferenced_rows(tab[3], Jw)
     lay = window_upload_layout(Jt, Jw, len(unref), 0 if qt is None else 16,
                                0 if hrb is None else hrb.nbytes)
     buf[lay["unref"]:lay["size"]].view(np.int32)[:] = unref
@@ -848,7 +868,7 @@ def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
 
 def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
                 class_args, *, classes, L, hi, mod, lo, base_score_req,
-                ratio_num, ratio_den, out_len):
+                ratio_num, ratio_den, out_len, unref=None):
     """Launch csrc/vote_window.cu over every class of one window, the
     refbase rows built in the kernel: arguments and result as
     pallas_vote_window's, equal byte for byte to vote_window_plain's. The
@@ -903,16 +923,9 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
         raise ValueError(f"vote_window: needs CUDA tensors, got {dev}")
     nb = len(classes)
     qt_host = None if qtable is None or qt_dev is not None else qtable
-    staged = []
-
-    def pinned(size):
-        staged.append(torch.empty(size, dtype=torch.uint8, pin_memory=True))
-        return staged[0].numpy()
-
-    # one pinned upload, without a host sync
-    _buf, lay = window_upload(class_args, classes, gp, hm, jp, qt_host,
-                              hr_host, alloc=pinned)
-    up = staged[0][:lay["size"]].to(dev, non_blocking=True)
+    up, lay = pinned_upload(lambda alloc: window_upload(
+        class_args, classes, gp, hm, jp, qt_host, hr_host, alloc=alloc,
+        unref=unref), dev)
     at = {k: up.data_ptr() + v for k, v in lay.items()}
     qt_ptr = (qt_dev.data_ptr() if qt_dev is not None
               else None if qt_host is None else at["qtable"])
@@ -945,6 +958,21 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
         dense.append((pseq[off:off + J], qual[off:off + J]))
         off += J
     return flat, refbase_dev, dense
+
+
+def pinned_upload(fill, dev):
+    """One upload without a host sync: fill(alloc) writes a pinned host
+    buffer that alloc(size) hands it and returns (buffer, layout); its
+    first layout["size"] bytes go to `dev` in one non-blocking copy.
+    Returns (device buffer, layout)."""
+    staged = []
+
+    def alloc(size):
+        staged.append(torch.empty(size, dtype=torch.uint8, pin_memory=True))
+        return staged[0].numpy()
+
+    _buf, lay = fill(alloc)
+    return staged[0][:lay["size"]].to(dev, non_blocking=True), lay
 
 
 def window_stage():
@@ -982,6 +1010,71 @@ def refbase_combine(genome, gpos, host_rows, host_map, jl, L):
     g = torch.where(keep, g, torch.zeros((), dtype=g.dtype, device=dev))
     h = host_rows[_clamp_rows(hm, host_rows.shape[0])]
     return torch.where((hm < 0)[:, None], g, h)
+
+
+def refbase_upload(gp, hr, hm, jp, alloc=None):
+    """The refbase kernel's one upload, u8: gp, hm, jp of every job as
+    int32, then at the next multiple of 16 bytes the host rows u8 [nh, L]
+    (window_upload_layout with no job table, qual table or unreferenced
+    rows). Returns (buffer, layout); the buffer comes from alloc(size)
+    when given."""
+    gp, hm, jp = _host(gp), _host(hm), _host(jp)
+    J = len(gp)
+    if len(hm) != J or len(jp) != J:
+        raise ValueError(f"refbase: gp, hm and jp need one entry per job, "
+                         f"got {J}, {len(hm)}, {len(jp)}")
+    for name, a in (("gp", gp), ("hm", hm), ("jp", jp)):
+        _fits_i32("refbase", name, a)
+    hrb = np.ascontiguousarray(hr, dtype=np.uint8)
+    lay = window_upload_layout(0, J, 0, 0, hrb.nbytes)
+    buf = (np.empty(lay["size"], dtype=np.uint8) if alloc is None
+           else alloc(lay["size"]))
+    ints = buf[:lay["qtable"]].view(np.int32)
+    ints[:J] = gp
+    ints[J:2 * J] = hm
+    ints[2 * J:] = jp
+    buf[lay["qtable"]:lay["hr"]] = 0
+    buf[lay["hr"]:lay["size"]] = hrb.reshape(-1)
+    return buf, lay
+
+
+def refbase(genome, gpos, host_rows, host_map, jl, L):
+    """csrc/refbase.cu: the refbase rows of refbase_combine, equal byte
+    for byte, for a genome on a CUDA device: the host arrays gpos,
+    host_rows [nh, L], host_map and jl go up in one pinned copy
+    (refbase_upload) and one launch builds the rows. Returns u8 [J, L] on
+    the genome's device."""
+    dev = genome.device
+    if dev.type != "cuda":
+        raise ValueError(f"refbase: needs the genome on a CUDA device, got "
+                         f"{dev}")
+    if genome.dtype != torch.uint8 or genome.dim() != 1:
+        raise TypeError("refbase: the genome must be u8 [G]")
+    hr = np.asarray(host_rows)
+    G = genome.shape[0]
+    if hr.ndim != 2 or hr.shape[1] != L or hr.shape[0] == 0:
+        raise ValueError(f"refbase: host rows {hr.shape}, expected (nh >= 1, "
+                         f"{L})")
+    if not 0 < L <= G < 2**31:
+        raise ValueError(f"refbase: needs 0 < L={L} <= G={G} < 2**31")
+    J = len(_host(gpos))
+    out = torch.empty((J, L), dtype=torch.uint8, device=dev)
+    if J == 0:
+        return out
+    up, lay = pinned_upload(lambda alloc: refbase_upload(
+        gpos, hr, host_map, jl, alloc=alloc), dev)
+    at = {k: up.data_ptr() + v for k, v in lay.items()}
+    lib = build_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gc_refbase(genome.data_ptr(), at["gp"], at["hm"], at["jp"],
+                             at["hr"], out.data_ptr(), G, hr.shape[0], J, L,
+                             stream)
+    if err != 0:
+        raise RuntimeError(f"gc_refbase launch failed: cudaError_t {err}")
+    global REFBASE_LAUNCHES
+    REFBASE_LAUNCHES += 1
+    return out
 
 
 def _gathered(dev):

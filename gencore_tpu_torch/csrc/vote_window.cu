@@ -84,6 +84,7 @@
 #include <atomic>
 
 #include "epilogue.cuh"
+#include "refbase.cuh"
 #include "staging.cuh"
 #include "vote_rules.cuh"
 
@@ -91,6 +92,9 @@ namespace {
 
 using gc_epilogue::kDiffs;
 using gc_epilogue::kRuns;
+using gc_refsrc::genome_start;
+using gc_refsrc::refbase_at;
+using gc_refsrc::RefSrc;
 using gc_staging::clampi;
 using gc_staging::cp_async16;
 using gc_staging::cp_async_commit;
@@ -103,33 +107,6 @@ using VoteAcc = gc_vote_rules::VoteAcc<Bins6>;
 constexpr int kStage = 16;     // members per shared-memory stage
 constexpr int kMaxWarps = 8;   // L <= 256
 constexpr unsigned kAll = 0xffffffffu;
-
-// Where the refbase rows come from: per job r of the window, the genome
-// start gp[r], host row hm[r] (< 0: the genome) and length jp[r]; host
-// rows hr [nh, L]; the device genome [G] (G >= L).
-struct RefSrc {
-  const uint8_t* genome;
-  const int32_t* gp;
-  const int32_t* hm;
-  const int32_t* jp;
-  const uint8_t* hr;
-  int G, nh;
-};
-
-// The genome start of a slice as jax.lax.dynamic_slice takes it: a
-// negative start counts once from the end, then it clamps to [0, G - L].
-__device__ __forceinline__ int genome_start(int g, int G, int L) {
-  return clampi(g < 0 ? g + G : g, 0, G - L);
-}
-
-// Refbase row r at position p (vote.refbase_combine), read where it lies.
-__device__ __forceinline__ int refbase_at(const RefSrc& s, int r, int p,
-                                          int L) {
-  const int h = s.hm[r];
-  if (h >= 0) return s.hr[static_cast<size_t>(clampi(h, 0, s.nh - 1)) * L + p];
-  if (p >= s.jp[r]) return 0;
-  return s.genome[static_cast<size_t>(genome_start(s.gp[r], s.G, L)) + p];
-}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));

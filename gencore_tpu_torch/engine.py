@@ -1311,9 +1311,11 @@ class VectorEngine:
             else:
                 mate16, meta = _pack_score_meta(N, lrow, rrow, ls, rs, cl)
             s = work._sup
-            self._acct_up(mate16, meta,
-                          *[v for v in s.values()
-                            if isinstance(v, np.ndarray)])
+            staging = (s["sd"], s["src"], s["scnt"], s["epos"], s["ecode"],
+                       s["base"], s["q_src"], s["qd"], s["qcnt"], s["qpos"],
+                       s["qval"], s["lens16"], mate16, meta, s["gslots"])
+            # the staging crosses as one buffer (kernels.upload_score_pack)
+            self.wire_h2d += kernels.upload_score_layout(staging)["size"]
             g = (self._genome_dev() if s["has_genome"]
                  else np.zeros(1, np.uint8))
             with _Ts("score.dispatch"):
@@ -1322,11 +1324,8 @@ class VectorEngine:
                     s["has_qdense"], s["has_qedit"], s["const_lens"],
                     opts["hi"], opts["mod"], opts["lo"], opts["s_hi"],
                     opts["s_mod"], opts["s_lo"], opts["s_bad"],
-                    s["has_genome"], no_ov)(*[self._dev(a) for a in (
-                        s["sd"], s["src"], s["scnt"], s["epos"], s["ecode"],
-                        s["base"], s["q_src"], s["qd"], s["qcnt"], s["qpos"],
-                        s["qval"], s["lens16"], mate16, meta, g,
-                        s["gslots"])])
+                    s["has_genome"], no_ov)(*staging[:14], g, staging[14],
+                                            device=self.device)
             # the staging is on the device now: drop our references so
             # inflight windows don't stack ~8MB of dead staging each
             work._sup = None
@@ -1573,8 +1572,8 @@ class VectorEngine:
         """Standalone dispatch of the refbase assembly; the fused window
         vote runs the same combine inside its own program instead."""
         gp, hr, hm, jp = self._refbase_host_args(jobs, batch, ct, work)
-        return _refbase_combine_fn(self.work.L)(
-            self._genome_dev(), *[self._dev(a) for a in (gp, hr, hm, jp)])
+        return _refbase_combine_fn(self.work.L)(self._genome_dev(), gp, hr,
+                                                hm, jp)
 
     def _vote_jobs(self, jobs: list, batch, work, flats, full_bins,
                    seq_dev, qual_dev, score_dev, ct):
@@ -1696,13 +1695,17 @@ class VectorEngine:
                 handled[jlist] = True
             if classes:
                 gp, hr, hm, jp = refbase_args
+                # the refbase rows (one per job of the window: ridx =
+                # jlist) that no class votes with, which the kernel builds
+                # apart
+                unref = np.flatnonzero(~handled).astype(np.int32)
                 flat_dev, refbase_dev, dense = vote.pallas_vote_window(
                     seq_dev, qual_dev, score_dev, self._genome_dev(),
                     gp, hr, hm, jp, self._sparse_qtable, class_args,
                     classes=tuple(classes), L=work.L, hi=o.high_quality,
                     mod=o.moderate_quality, lo=o.low_quality,
                     base_score_req=o.base_score_req, ratio_num=rnum,
-                    ratio_den=rden, out_len=self.out_len)
+                    ratio_den=rden, out_len=self.out_len, unref=unref)
                 entries = [(jl_, dense[i], r0)
                            for i, (jl_, _, r0) in enumerate(entries)]
                 if _SYNC_STAGES:
@@ -1719,9 +1722,8 @@ class VectorEngine:
             # leftover buckets still need refbase rows
             with self.timer.stage("vote.refbase"):
                 gp, hr, hm, jp = refbase_args
-                refbase_dev = _refbase_combine_fn(L)(
-                    self._genome_dev(),
-                    *[self._dev(a) for a in (gp, hr, hm, jp)])
+                refbase_dev = _refbase_combine_fn(L)(self._genome_dev(), gp,
+                                                     hr, hm, jp)
 
         for kb in np.unique(kb_col[~handled]) if nj else ():
             jlist = np.nonzero(~handled & (kb_col == kb))[0]
@@ -2947,8 +2949,43 @@ def _upload_score_fn(w: int, L: int, mode2: bool, has_sedit: bool,
                      no_overlap: bool = False):
     """Fused upload-reconstruction + overlap-scoring program: builds the
     resident seq/qual matrices from the sparse staging AND applies
-    Pair::computeScore across all rows (pair.cpp:88-172). Returns
-    (seq_dev, qual_scored, score_dev)."""
+    Pair::computeScore across all rows (pair.cpp:88-172). The returned
+    function takes the staging (sd .. meta, genome, gsl) and `device`;
+    returns (seq_dev, qual_scored, score_dev). On a CUDA device the host
+    arrays go up in one copy and csrc/upload_score.cu rebuilds and scores
+    in one launch (kernels.upload_score); on the CPU (`device` "cpu", or
+    CPU tensors given) the kernel's plain twin _upload_score_plain runs."""
+    static = (w, L, mode2, has_sedit, has_qdense, has_qedit, const_lens,
+              hi, mod, lo, s_hi, s_mod, s_lo, s_bad, has_genome, no_overlap)
+
+    def f(*staging, device=None):
+        dev = torch.device(device) if device is not None else next(
+            (a.device for a in staging if isinstance(a, torch.Tensor)),
+            torch.device("cpu"))
+        if dev.type == "cuda":
+            return kernels.upload_score(
+                (*staging[:14], staging[15]), staging[14],
+                device=dev, w=w, L=L, mode2=mode2, has_sedit=has_sedit,
+                has_qdense=has_qdense, has_qedit=has_qedit,
+                const_lens=const_lens, has_genome=has_genome,
+                no_overlap=no_overlap, hi=hi, mod=mod, lo=lo, s_hi=s_hi,
+                s_mod=s_mod, s_lo=s_lo, s_bad=s_bad)
+        if dev.type != "cpu":
+            raise ValueError(f"upload and score: unsupported device {dev}")
+        return _upload_score_plain(*static)(*[to_device(a, dev)
+                                              for a in staging])
+
+    return f
+
+
+def _upload_score_plain(w: int, L: int, mode2: bool, has_sedit: bool,
+                        has_qdense: bool, has_qedit: bool, const_lens: bool,
+                        hi: int, mod: int, lo: int, s_hi: int, s_mod: int,
+                        s_lo: int, s_bad: int, has_genome: bool = False,
+                        no_overlap: bool = False):
+    """The upload-and-score program in plain PyTorch, on tensors of any
+    device (int32 where the staging is u16/u32): the twin of
+    csrc/upload_score.cu and the CPU path of _upload_score_fn."""
     up = _upload_sparse_trace(w, L, mode2, has_sedit, has_qdense,
                               has_qedit, const_lens, has_genome)
 
@@ -3001,10 +3038,21 @@ _GENOME_PAD = 4096  # device-genome end slack; also caps device-refbase L
 @_functools.cache
 def _refbase_combine_fn(L: int):
     """Device refbase assembly: genome slice-gather for contiguous-M jobs
-    (host_map < 0), compact host-built rows for the rest."""
+    (host_map < 0), compact host-built rows for the rest. With the genome
+    on a CUDA device the host sources go up in one copy and
+    csrc/refbase.cu builds the rows (vote.refbase); on the CPU its plain
+    twin vote.refbase_combine runs."""
 
     def f(genome, gpos, host_rows, host_map, jl):
-        return vote.refbase_combine(genome, gpos, host_rows, host_map, jl, L)
+        dev = genome.device
+        if dev.type == "cuda":
+            return vote.refbase(genome, gpos, host_rows, host_map, jl, L)
+        if dev.type != "cpu":
+            raise ValueError(f"refbase assembly: unsupported device {dev}")
+        I32 = torch.int32
+        return vote.refbase_combine(
+            genome, to_device(gpos, dev, I32), to_device(host_rows, dev),
+            to_device(host_map, dev, I32), to_device(jl, dev, I32), L)
 
     return f
 

@@ -19,7 +19,15 @@ events around each call, the stream kept busy ahead of them, median of
 a torch.profiler trace (`kernel_ms`), the time per call of --reps calls
 back to back, host work included (`call_ms`), and the host's own time per
 call, from the call to its return, each call made on an idle stream
-(`host_ms`, median of --reps). First it prints a line per variant
+(`host_ms`, median of --reps), and two parts of that host time, each the
+median of --reps calls on the host alone: the variant's `window_upload`
+(the job table, the refbase sources and the list of unreferenced refbase
+rows packed into one buffer; `upload_ms`) and, at the deep panel's
+window, this checkout's `unreferenced_rows` over the job table
+(`unreferenced_rows_ms`), the count that the engine's own list replaces.
+A keyword argument of the recorded launch that a variant's vote_window
+does not take (the engine's `unref`, new in this checkout) is left out
+of that variant's calls. First it prints a line per variant
 with each kernel's registers and spills (ptxas), its SASS instructions
 (`cuobjdump -sass` of the library) and, where the library has
 gc_vote_window_grid, the window kernel's resident blocks per SM at
@@ -48,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -207,6 +216,21 @@ def _phase2b_window(torch, np, cs, K, dev):
     return mats, srcs[1:], cs._qtable(np), class_args, kw, sums
 
 
+def _host_median(fn, reps):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _taken(fn, kw):
+    """kw without the keywords fn does not take."""
+    params = inspect.signature(fn).parameters
+    return {k: v for k, v in kw.items() if k in params}
+
+
 def _window(torch, np, cs, mods, dirs, opts, dev):
     shapes = [("deep_panel_largest", None)] + [("2b", K) for K in WINDOW_K]
     for kind, K in shapes:
@@ -217,10 +241,17 @@ def _window(torch, np, cs, mods, dirs, opts, dev):
             mats, srcs, qtable, class_args, kw, sums = _deep_panel_window(
                 torch, np, cs)
         L = kw["L"]
-        outs, ms, kms, calls, hosts = {}, {}, {}, {}, {}
+        outs, ms, kms, calls, hosts, uploads = {}, {}, {}, {}, {}, {}
         for d in dirs + dirs[::-1]:
             def call(m=mods[d]):
-                return m.vote_window(*mats, *srcs, qtable, class_args, **kw)
+                return m.vote_window(*mats, *srcs, qtable, class_args,
+                                     **_taken(m.vote_window, kw))
+
+            def upload(m=mods[d]):
+                return m.window_upload(
+                    class_args, kw["classes"], srcs[0], srcs[2], srcs[3],
+                    qtable, srcs[1], **_taken(m.window_upload,
+                                              {"unref": kw.get("unref")}))
             try:
                 outs[d] = call()
                 torch.cuda.synchronize()
@@ -241,16 +272,23 @@ def _window(torch, np, cs, mods, dirs, opts, dev):
                 call()
                 host.append((time.perf_counter() - t0) * 1e3)
             hosts.setdefault(d, []).append(statistics.median(host))
+            uploads.setdefault(d, []).append(_host_median(upload, opts.reps))
             torch.cuda.synchronize()
         ref = outs[dirs[0]]
         mism = {d: cs._compare_window(o, ref)[0] for d, o in outs.items()}
         jobs = sum(J for _K, J in kw["classes"])
-        print(json.dumps({"shape": kind, "classes_K_J_sumcounts": sums,
-                          "L": L, "Jw": len(srcs[0]),
-                          "job_positions": jobs * L,
-                          "mismatching_bytes": mism, "ms": ms,
-                          "kernel_ms": kms, "call_ms": calls,
-                          "host_ms": hosts}), flush=True)
+        line = {"shape": kind, "classes_K_J_sumcounts": sums, "L": L,
+                "Jw": len(srcs[0]), "job_positions": jobs * L,
+                "mismatching_bytes": mism, "ms": ms, "kernel_ms": kms,
+                "call_ms": calls, "host_ms": hosts, "upload_ms": uploads}
+        if kind == "deep_panel_largest":
+            from gencore_tpu_torch.core import vote
+            ridx = vote.window_job_table(class_args, kw["classes"])[3]
+            line["unreferenced_rows_ms"] = _host_median(
+                lambda: vote.unreferenced_rows(ridx, len(srcs[0])),
+                opts.reps)
+            line["unref_given"] = kw.get("unref") is not None
+        print(json.dumps(line), flush=True)
         if any(mism.values()):
             return 1
     return 0

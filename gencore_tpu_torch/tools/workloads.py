@@ -19,6 +19,10 @@ build on it:
     lenDiff-shifted right reads, so the full-bins vote runs.
 
 Each writes `<out_dir>/{name}.bam` and `<out_dir>/{name}_ref.fa`.
+
+`upload_staging` makes random inputs of the upload-and-score program
+(engine._upload_score_fn) with its edges, for the tests and the on-card
+check of csrc/upload_score.cu.
 """
 
 from __future__ import annotations
@@ -327,3 +331,96 @@ def full_bins_panel(out_dir: str):
     sb.write_bam(bam_path)
     sb.write_fasta(fa_path)
     return bam_path, fa_path
+
+
+def upload_staging(rng: np.random.Generator, n: int, w: int, L: int,
+                   **flags):
+    """Random sparse upload staging of n rows of width w (L the padded
+    width) in the layout the engine ships, with the program's edges:
+    a non-zero reserved row 0 (2-bit mode must zero it), genome slots past
+    the genome's end (they clamp), rows without edits, a row of 14 edits
+    (more than the 12 applied), repeated edit positions in a row (the
+    later edit wins), edit positions >= w (they match nothing), rows of
+    length 0, mate pairs whose overlap wraps past L (mate_start + cmp_len
+    > L) and unscored rows. flags: kernels.UPLOAD_FLAGS, each False unless
+    given.
+    Returns the 16 arguments of _upload_score_fn's function in order (sd,
+    src, scnt, epos, ecode, base, q_src, qd, qcnt, qpos, qval, lens16,
+    mate16, meta, genome, gsl), the genome as a host array."""
+    from gencore_tpu_torch.core.kernels import UPLOAD_FLAGS
+    from gencore_tpu_torch.engine import _pack_score_meta
+    f = {k: bool(flags.pop(k, False)) for k in UPLOAD_FLAGS}
+    if flags:
+        raise TypeError(f"upload_staging: unknown flags {sorted(flags)}")
+    codes = np.array([1, 2, 4, 8], dtype=np.uint8)
+    nd = max(2, n // 3)
+    if f["mode2"]:
+        sd = rng.integers(0, 256, size=(nd, -(-w // 4))).astype(np.uint8)
+    else:
+        nib = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
+        bw = -(-w // 2)
+        sd = ((nib[rng.integers(0, 5, size=(nd, bw))] << 4)
+              | nib[rng.integers(0, 5, size=(nd, bw))]).astype(np.uint8)
+    genome = np.pad(codes[rng.integers(0, 4, size=3000)], (0, 4096))
+    if f["has_genome"]:
+        ns = max(2, n // 20)
+        gsl = rng.integers(0, 3000, size=ns).astype(np.int32)
+        gsl[0] = len(genome) - w // 2      # past the end: clamps
+        gsl[1] = 0
+    else:
+        ns = 0
+        gsl = np.zeros(1, dtype=np.int32)
+    src = rng.integers(0, nd + ns, size=n).astype(np.uint16)
+    src[::7] = 0
+    z1 = np.zeros(1, dtype=np.uint8)
+
+    def edits(vals):
+        cnt = rng.integers(0, 13, size=n).astype(np.uint8)
+        cnt[rng.random(n) < 0.3] = 0
+        cnt[n // 2] = 14
+        tot = int(cnt.sum())
+        pos = rng.integers(0, w, size=tot).astype(np.int64)
+        far = (rng.random(tot) < 0.1) & (w < 256)
+        pos[far] = rng.integers(min(w, 255), 256, size=int(far.sum()))
+        off = np.cumsum(cnt.astype(np.int64)) - cnt
+        twice = np.flatnonzero((cnt >= 2) & (rng.random(n) < 0.4))
+        pos[off[twice] + 1] = pos[off[twice]]
+        return cnt, pos.astype(np.uint8), vals[rng.integers(0, len(vals),
+                                                             size=tot)]
+
+    if f["has_sedit"]:
+        scnt, epos, ecode = edits(np.array([1, 2, 4, 8, 15], np.uint8))
+    else:
+        scnt = epos = ecode = z1
+    qvals = np.array([2, 12, 20, 25, 30, 37, 41], dtype=np.uint8)
+    base = qvals[rng.integers(0, len(qvals), size=n)]
+    if f["has_qdense"]:
+        nq = max(1, n // 10)
+        q_src = np.zeros(n, dtype=np.uint16)
+        q_src[rng.choice(n, size=nq, replace=False)] = np.arange(1, nq + 1)
+        qd = rng.integers(2, 42, size=(nq + 1, w)).astype(np.uint8)
+    else:
+        q_src = np.zeros(1, dtype=np.uint16)
+        qd = np.zeros((1, 1), dtype=np.uint8)
+    if f["has_qedit"]:
+        qcnt, qpos, qval = edits(np.arange(2, 42, dtype=np.uint8))
+    else:
+        qcnt = qpos = qval = z1
+    if f["const_lens"]:
+        lens16 = np.array([w - 3, n - 2], dtype=np.int32)
+    else:
+        lens16 = rng.integers(0, w + 1, size=n).astype(np.uint16)
+        lens16[::5] = w
+        lens16[3::11] = 0
+    if f["no_overlap"]:
+        mate16 = np.zeros(1, dtype=np.uint16)
+        meta = np.packbits(rng.random(n) < 0.6, bitorder="little")
+    else:
+        rows = rng.permutation(n)[:(n // 2) * 2 - 2].reshape(-1, 2)
+        ls = rng.integers(0, L, size=len(rows))
+        rs = rng.integers(0, L, size=len(rows))
+        cl = rng.integers(-3, L + 1, size=len(rows))
+        mate16, meta = _pack_score_meta(n, rows[:, 0], rows[:, 1], ls, rs,
+                                        cl)
+    return (sd, src, scnt, epos, ecode, base, q_src, qd, qcnt, qpos, qval,
+            lens16, mate16, meta, genome, gsl)

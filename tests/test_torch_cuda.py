@@ -10,7 +10,9 @@ mismatches (csrc/vote.cu's gathered entry, Bins6 with the epilogue, to
 vote_gathered_plain; its vote alone to vote_core_plain; its Bins16
 instantiation to kernels.fused_vote_plain; csrc/vote_window.cu, refbase
 rows included, to vote_window_plain, byte for byte), and the engine on
-CUDA to the oracle."""
+CUDA to the oracle. The upload-and-score kernel (csrc/upload_score.cu) is
+held to its twin engine._upload_score_plain on the CPU, and the refbase
+kernel (csrc/refbase.cu) to vote.refbase_combine, byte for byte."""
 
 import importlib.util
 import pathlib
@@ -510,11 +512,13 @@ def test_engine_on_cuda_matches_oracle(cuda, tmp_path):
     want = sorted(r.encode() for r in oeng.run(reader.read_all()))
     treader = tbam.BamReader(str(tmp_path / "in.bam"))
     n0 = vote.WINDOW_LAUNCHES
+    u0 = kernels.UPLOAD_SCORE_LAUNCHES
     eng = VectorEngine(TOptions(), treader.header,
                        fasta=TFastaRef.load(str(tmp_path / "ref.fa")),
                        device=cuda)
     got = sorted(eng.run(treader.read_all()).encoded_records())
     assert vote.WINDOW_LAUNCHES > n0
+    assert kernels.UPLOAD_SCORE_LAUNCHES > u0
     assert got == want
 
 
@@ -610,3 +614,127 @@ def test_mesh_on_one_cuda_device_matches_plain(cuda):
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="CUDA device"):
             pmesh.make_mesh(2, device=cuda)
+
+
+SCORE_KW = dict(hi=30, mod=20, lo=15, s_hi=12, s_mod=8, s_lo=6, s_bad=4)
+
+
+def _upload_both(cuda, staging, w, L, flags):
+    """csrc/upload_score.cu (through engine._upload_score_fn on the card,
+    host arrays) and its plain twin on the CPU, on the same staging."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.core.kernels import UPLOAD_FLAGS
+    f = dict(zip(UPLOAD_FLAGS, flags))
+    static = (w, L, f["mode2"], f["has_sedit"], f["has_qdense"],
+              f["has_qedit"], f["const_lens"], *SCORE_KW.values(),
+              f["has_genome"], f["no_overlap"])
+    fn = engine._upload_score_fn(*static)
+    args = list(staging)
+    if f["has_genome"]:
+        args[14] = torch.from_numpy(staging[14]).to(cuda)
+    n0 = kernels.UPLOAD_SCORE_LAUNCHES
+    got = fn(*args, device=cuda)
+    torch.cuda.synchronize(cuda)
+    assert kernels.UPLOAD_SCORE_LAUNCHES == n0 + 1
+    want = fn(*staging, device="cpu")
+    return got, want
+
+
+def _same_bytes(got, want):
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert int((a.cpu() != b).sum()) == 0
+
+
+@pytest.mark.parametrize("bits", range(128))
+def test_upload_score_kernel_matches_twin(cuda, bits):
+    """Every combination of the seven static flags (mode2, has_sedit,
+    has_qdense, has_qedit, const_lens, has_genome, no_overlap) on staging
+    with the program's edges (workloads.upload_staging: the reserved row,
+    genome slots past the end, repeated and out-of-range edit positions,
+    rows without edits and of length 0, overlaps wrapping past L): every
+    byte of seq, qual and score equal to the twin's."""
+    from gencore_tpu_torch.tools import workloads
+    flags = tuple(bool(bits >> i & 1) for i in range(7))
+    rng = np.random.default_rng(500 + bits)
+    n, w, L = 700, 151, 160
+    staging = workloads.upload_staging(
+        rng, n, w, L, **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+    _same_bytes(*_upload_both(cuda, staging, w, L, flags))
+
+
+@pytest.mark.parametrize("n,w,L", [(1, 8, 32), (33, 31, 32), (20000, 150, 160),
+                                   (3000, 256, 256)])
+def test_upload_score_kernel_shapes(cuda, n, w, L):
+    """One row, a row count that is not a multiple of the block's warps,
+    more rows than one chunk per block of the resident grid, the widest
+    rows; every flag on but no_overlap, then no_overlap."""
+    from gencore_tpu_torch.tools import workloads
+    for no_ov in (False, True):
+        flags = (True, True, True, True, False, True, no_ov)
+        if n < 4:
+            flags = (False, True, False, True, True, False, no_ov)
+        rng = np.random.default_rng(n + w + no_ov)
+        staging = workloads.upload_staging(
+            rng, n, w, L, **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+        _same_bytes(*_upload_both(cuda, staging, w, L, flags))
+
+
+def test_upload_score_kernel_rejects_bad_staging(cuda):
+    from gencore_tpu_torch.tools import workloads
+    rng = np.random.default_rng(1)
+    flags = dict(has_sedit=True, has_qedit=True)
+    staging = list(workloads.upload_staging(rng, 50, 40, 64, **flags))
+    arrays = staging[:14] + staging[15:]
+    kw = dict(device=cuda, w=40, L=64, mode2=False, has_sedit=True,
+              has_qdense=False, has_qedit=True, const_lens=False,
+              has_genome=False, no_overlap=False, **SCORE_KW)
+    bad = list(arrays)
+    bad[1] = bad[1].astype(np.int32)
+    with pytest.raises(TypeError, match="src is int32"):
+        kernels.upload_score(bad, None, **kw)
+    with pytest.raises(ValueError, match="scnt has 3 entries"):
+        kernels.upload_score(arrays[:2] + [arrays[2][:3]] + arrays[3:], None,
+                             **kw)
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        kernels.upload_score(arrays, None, **dict(kw, device="cpu"))
+    with pytest.raises(ValueError, match="genome"):
+        kernels.upload_score(arrays, None, **dict(kw, has_genome=True))
+
+
+@pytest.mark.parametrize("J,L,nh", [(1, 32, 1), (300, 160, 40),
+                                    (16384, 160, 200)])
+def test_refbase_kernel_matches_twin(cuda, J, L, nh):
+    """csrc/refbase.cu against vote.refbase_combine: genome slices with
+    negative, overlong and in-range starts, short job lengths, host rows
+    with their index clamped; every byte equal."""
+    rng = np.random.default_rng(J + L)
+    G0 = 20000
+    genome = np.pad(np.array([1, 2, 4, 8], np.uint8)[
+        rng.integers(0, 4, size=G0)], (0, 4096))
+    G = len(genome)
+    gp = rng.integers(0, G0, size=J).astype(np.int32)
+    gp[::7] = -rng.integers(1, G, size=len(gp[::7]))
+    gp[1::9] = G - L + rng.integers(1, 50, size=len(gp[1::9]))
+    gp[2::11] = -3 * G
+    hm = np.where(rng.random(J) < 0.3, rng.integers(0, nh + 3, size=J),
+                  -1).astype(np.int16)
+    jp = rng.integers(0, L + 1, size=J).astype(np.uint16)
+    jp[::3] = L
+    hr = np.array([0, 1, 2, 4, 8], np.uint8)[rng.integers(0, 5, size=(nh, L))]
+    g_dev = torch.from_numpy(genome).to(cuda)
+    n0 = vote.REFBASE_LAUNCHES
+    got = vote.refbase(g_dev, gp, hr, hm, jp, L)
+    torch.cuda.synchronize(cuda)
+    assert vote.REFBASE_LAUNCHES == n0 + 1
+    want = vote.refbase_combine(
+        torch.from_numpy(genome), torch.from_numpy(gp), torch.from_numpy(hr),
+        torch.from_numpy(hm.astype(np.int32)),
+        torch.from_numpy(jp.astype(np.int32)), L)
+    assert got.dtype == want.dtype and got.shape == want.shape == (J, L)
+    assert int((got.cpu() != want).sum()) == 0
+    # the engine's entry takes the kernel on the card
+    from gencore_tpu_torch import engine
+    again = engine._refbase_combine_fn(L)(g_dev, gp, hr, hm, jp)
+    assert vote.REFBASE_LAUNCHES == n0 + 2
+    assert torch.equal(again, got)

@@ -11,6 +11,7 @@ from gencore_tpu.core import kernels as jk
 from gencore_tpu_torch import engine as teng
 from gencore_tpu_torch.core import kernels as tk
 from gencore_tpu_torch.core.vote import to_device
+from gencore_tpu_torch.tools import workloads
 
 torch.set_num_threads(1)
 
@@ -140,28 +141,43 @@ def _staging(rng, *, w, L, n, mode2, has_sedit, has_qdense, has_qedit,
 
 
 UPLOAD_CASES = [
-    # mode2, has_genome, has_sedit, has_qdense, has_qedit, const_lens, no_ov
-    (True, True, True, True, True, True, False),
-    (False, False, False, True, False, False, True),
-    (True, False, True, False, True, False, True),
-    (False, True, False, False, True, True, False),
-]
+    # mode2, has_genome, has_sedit, has_qdense, has_qedit, const_lens, no_ov,
+    # edges: workloads.upload_staging's inputs (a non-zero reserved row,
+    # repeated edit positions in a row, positions >= w, rows without
+    # edits, a row of more edits than are applied, rows of length 0,
+    # overlaps that wrap past L, unscored rows), at an odd width
+    (True, True, True, True, True, True, False, False),
+    (False, False, False, True, False, False, True, False),
+    (True, False, True, False, True, False, True, False),
+    (False, True, False, False, True, True, False, False),
+] + [(m2, g, True, True, True, cl, no, True)
+     for m2 in (False, True) for g in (False, True) for no in (False, True)
+     for cl in ((False, True) if (m2, g, no) == (True, True, False)
+                else (m2 != g,))]
 
 
 @pytest.mark.parametrize("case", UPLOAD_CASES)
 def test_upload_score_fn_matches_jax(case):
-    mode2, has_genome, has_sedit, has_qdense, has_qedit, const_lens, no_ov = case
+    (mode2, has_genome, has_sedit, has_qdense, has_qedit, const_lens, no_ov,
+     edges) = case
     rng = np.random.default_rng(sum((1 << i) * v for i, v in enumerate(case)))
-    w, L, n = 40, 64, 30
-    staging, genome, gsl = _staging(
-        rng, w=w, L=L, n=n, mode2=mode2, has_sedit=has_sedit,
-        has_qdense=has_qdense, has_qedit=has_qedit, const_lens=const_lens,
-        has_genome=has_genome)
-    if no_ov:
-        mate16 = np.zeros(1, dtype=np.uint16)
-        meta = np.packbits(rng.random(n) < 0.6, bitorder="little")
+    w, L, n = (37, 64, 60) if edges else (40, 64, 30)
+    if edges:
+        *staging, mate16, meta, genome, gsl = workloads.upload_staging(
+            rng, n, w, L, mode2=mode2, has_sedit=has_sedit,
+            has_qdense=has_qdense, has_qedit=has_qedit,
+            const_lens=const_lens, has_genome=has_genome, no_overlap=no_ov)
+        staging = tuple(staging)
     else:
-        mate16, meta = _geometry(rng, n, w)
+        staging, genome, gsl = _staging(
+            rng, w=w, L=L, n=n, mode2=mode2, has_sedit=has_sedit,
+            has_qdense=has_qdense, has_qedit=has_qedit,
+            const_lens=const_lens, has_genome=has_genome)
+        if no_ov:
+            mate16 = np.zeros(1, dtype=np.uint16)
+            meta = np.packbits(rng.random(n) < 0.6, bitorder="little")
+        else:
+            mate16, meta = _geometry(rng, n, w)
     g = genome if has_genome else np.zeros(1, np.uint8)
     sk = SCORE_KW
     static = (w, L, mode2, has_sedit, has_qdense, has_qedit, const_lens,
@@ -211,6 +227,10 @@ def test_refbase_combine_matches_jax():
                     (0, 4096))
     gpos = rng.integers(0, 500, size=J).astype(np.int32)
     gpos[:2] = len(genome) - 5          # clamped slice start
+    # negative starts count once from the genome's end (as
+    # jax.lax.dynamic_slice takes them), then clamp: inside the genome,
+    # before its end by less than L, and still negative (clamps to 0)
+    gpos[2:5] = (-3000, -5, -2 * len(genome))
     hr = rng.choice(np.array([0, 1, 2, 4, 8], np.uint8), size=(5, L))
     hm = rng.integers(-1, 7, size=J).astype(np.int16)   # 5, 6 clamp
     jl = rng.integers(0, L + 1, size=J).astype(np.uint16)
