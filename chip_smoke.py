@@ -32,10 +32,13 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
       2e gc_upload_score (csrc/upload_score.cu: the window's upload
          rebuild and overlap scoring, K4-K6, one copy up and one launch)
          against its plain twin engine._upload_score_plain on the card at
-         the deep panel's window shape (n = 48,000 rows, w = 150, L = 160)
-         for all 128 combinations of its seven static flags, on staging
-         with the program's edges (workloads.upload_staging), then timed
-         with the deep panel's flags; gc_refbase (csrc/refbase.cu, K11)
+         the deep panel's window shape (n = 48,000 rows, w = 150, L = 160,
+         u16 mate rows) and at 72,000 rows (u32 mate rows) for all 128
+         combinations of its other seven static flags, on staging with the
+         program's edges (workloads.upload_staging), then mate pairs it
+         must not take as pairs at both widths (pair_edges), then timed
+         with the deep panel's flags (at 72,000 rows also with
+         no_overlap); gc_refbase (csrc/refbase.cu, K11)
          against refbase_combine, starts negative, past the end and in
          range, host-row indices clamped;
     with each kernel's device time (vote_window: torch.profiler; vote.cu:
@@ -63,9 +66,9 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     CUDA tensors where a hand kernel stands for them (_no_plain_on_card):
     the plain _epilogue_core inside vote.py's Pallas counterparts
     (pallas_vote_window, pallas_vote_gathered, pallas_vote), the plain
-    upload rebuild and score map inside the deferred upload-and-score
-    program, and refbase_combine anywhere; each phase also needs the
-    counterparts and the deferred program to have run;
+    upload rebuild anywhere, the plain score map inside the upload-and-
+    score program, and refbase_combine anywhere; each phase also needs
+    the counterparts and the upload-and-score program to have run;
   4b the same input with `--shards 4 --checkpoint_dir D`, then again after
     one shard's files were deleted from D (resume): both equal to the
     golden digests, the second run recomputing exactly that shard;
@@ -112,11 +115,16 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
  10 entry.entry() on the card against kernels.consensus_plain (exact), and
     entry.dryrun_multichip(1) on cuda:0: 1-device records, stats_psum
     against the host merge, the window plan and the busy-time rebalance,
-    and two host processes pinned to cores 0 and 1 on the one card; then
+    and two host processes pinned to cores 0 and 1 on the one card, with
+    the plain versions made to raise as in phase 4 and each window's
+    upload staging (mode, rows, dense table) recorded: every sparse window
+    (162,257 rows, u32 mate rows) must launch upload_score once; then
     one more pinned host of both shards through host_steps, which times
     each step of multihost.run_host on its own (torch import, first CUDA
     call, library loads, FASTA load, read_all, shard keys, and per shard
-    the engine construction, eng.run and the files), on its own line;
+    the engine construction, eng.run and the files) and gives each
+    shard window's upload staging and upload_score launches (one for a
+    sparse window), on its own line;
  11 tools/measure_rss.py at scale 1 and 2 (the deep panel of 40,000 and
     80,000 fragments): peak resident set (VmHWM, or where the kernel does
     not report it, VmRSS sampled every 10 ms), tracemalloc peak, glibc's
@@ -172,6 +180,7 @@ DEEP_TIMED = (32, 2048)   # the ultradeep run's gathered buckets: K=2048
 PROFILED = ("vote_window_kernel", "upload_score_kernel", "refbase_kernel")
 # the deep panel's windows: ~48k read rows of 150 bases padded to L = 160
 N_UPLOAD, W_UPLOAD, L_UPLOAD = 48_000, 150, 160
+N_UPLOAD32 = 72_000     # past 65,536 rows: u32 mate rows
 SCORE_KW = dict(hi=30, mod=20, lo=15, s_hi=12, s_mod=8, s_lo=6, s_bad=4)
 # integer operations csrc/upload_score.cu does per (row, position): the
 # decode, the qual's source, the mask, the overlap test, the mate compare,
@@ -857,7 +866,7 @@ def _upload_static(w, L, flags):
     f = dict(zip(UPLOAD_FLAGS, flags))
     return (w, L, f["mode2"], f["has_sedit"], f["has_qdense"], f["has_qedit"],
             f["const_lens"], *SCORE_KW.values(), f["has_genome"],
-            f["no_overlap"])
+            f["no_overlap"], f.get("mate32", False))
 
 
 def _upload_calls(torch, static, staging, dev):
@@ -991,42 +1000,57 @@ def _refbase_timed(torch, np, dev, genome, gp, hr, hm, jp, L, phase):
 
 
 def phase_upload_score(torch, np):
-    """2e: csrc/upload_score.cu against its plain twin (on the card) at
-    the deep panel's window shape, for every combination of the seven
-    static flags, on staging with the program's edges
-    (workloads.upload_staging); timed with the flags the deep panel
-    takes; then csrc/refbase.cu against refbase_combine."""
+    """2e: csrc/upload_score.cu against its plain twin (on the card), for
+    every combination of the seven static flags besides mate32, on
+    staging with the program's edges (workloads.upload_staging): at the
+    deep panel's window shape with u16 mate rows and at N_UPLOAD32 rows
+    with u32 mate rows; then, at both widths, mate pairs the kernel must
+    not take as pairs (`pair_edges`) with the deep panel's flags; timed
+    with the flags the deep panel takes (and at N_UPLOAD32 also with
+    no_overlap); then csrc/refbase.cu against refbase_combine."""
     from gencore_tpu_torch.core import kernels
     from gencore_tpu_torch.tools import workloads
     dev = torch.device("cuda", 0)
-    n, w, L = N_UPLOAD, W_UPLOAD, L_UPLOAD
-    per_flags = []
+    w, L = W_UPLOAD, L_UPLOAD
+    per_flags = {N_UPLOAD: [], N_UPLOAD32: []}
     worst = 0
     t_check = time.perf_counter()
-    for bits in range(128):
-        flags = tuple(bool(bits >> i & 1) for i in range(7))
-        rng = np.random.default_rng(2000 + bits)
+    for n, mate32 in ((N_UPLOAD, False), (N_UPLOAD32, True)):
+        for bits in range(128):
+            flags = tuple(bool(bits >> i & 1) for i in range(7)) + (mate32,)
+            rng = np.random.default_rng(2000 + bits + 128 * mate32)
+            staging = workloads.upload_staging(
+                rng, n, w, L, **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+            static = _upload_static(w, L, flags)
+            kern, plain = _upload_calls(torch, static, staging, dev)
+            mism, err = _upload_compare(kern(), plain())
+            worst = max(worst, err)
+            if mism:
+                fail("2e", f"upload_score kernel != twin at {n} rows with "
+                           f"flags {dict(zip(kernels.UPLOAD_FLAGS, flags))}"
+                           f": {mism} mismatching bytes")
+            per_flags[n].append(mism)
+    # the deep panel's flags: 2-bit rows, seq and qual edits, genome rows,
+    # mates that overlap
+    deep = (True, True, False, True, True, True, False)
+    edges = []
+    for n, mate32 in ((N_UPLOAD, False), (N_UPLOAD32, True)):
         staging = workloads.upload_staging(
-            rng, n, w, L, **dict(zip(kernels.UPLOAD_FLAGS, flags)))
-        static = _upload_static(w, L, flags)
-        kern, plain = _upload_calls(torch, static, staging, dev)
+            np.random.default_rng(3000 + mate32), n, w, L, pair_edges=True,
+            **dict(zip(kernels.UPLOAD_FLAGS, deep + (mate32,))))
+        kern, plain = _upload_calls(
+            torch, _upload_static(w, L, deep + (mate32,)), staging, dev)
         mism, err = _upload_compare(kern(), plain())
         worst = max(worst, err)
         if mism:
-            fail("2e", f"upload_score kernel != twin with flags "
-                       f"{dict(zip(kernels.UPLOAD_FLAGS, flags))}: {mism} "
-                       "mismatching bytes")
-        per_flags.append(mism)
+            fail("2e", f"upload_score kernel != twin on the pair edges at {n}"
+                       f" rows: {mism} mismatching bytes")
+        edges.append({"n": n, "mate32": mate32, "mismatches": mism})
     t_check = time.perf_counter() - t_check
-    # timed as the deep panel runs it: 2-bit rows, seq and qual edits,
-    # genome rows, mates that overlap
-    flags = (True, True, False, True, True, True, False)
-    staging = workloads.upload_staging(
-        np.random.default_rng(7), n, w, L,
-        **dict(zip(kernels.UPLOAD_FLAGS, flags)))
-    timed = _upload_timed(torch, np, _upload_static(w, L, flags), staging,
-                          dev, "2e")
-    timed["flags"] = dict(zip(kernels.UPLOAD_FLAGS, flags))
+    timed = _upload_timed_shape(torch, np, N_UPLOAD, deep, dev)
+    timed32 = [_upload_timed_shape(torch, np, N_UPLOAD32,
+                                   deep[:6] + (no_ov, True), dev)
+               for no_ov in (False, True)]
     ref = []
     for J, L_r, nh in ((1, 32, 1), (16064, 160, 64), (96, 160, 8)):
         genome, gp, hr, hm, jp = _refbase_inputs(
@@ -1036,13 +1060,33 @@ def phase_upload_score(torch, np):
     emit({"phase": "2e", "name": "gc_upload_score vs engine._upload_score_plain"
                                  ", gc_refbase vs refbase_combine",
           "ok": True, "tolerance": "exact (0 mismatching bytes)",
-          "upload_score": {"n": n, "w": w, "L": L,
-                           "flag_combinations": len(per_flags),
-                           "mismatches": sum(per_flags),
+          "upload_score": {"n": [N_UPLOAD, N_UPLOAD32], "w": w, "L": L,
+                           "flag_combinations": {
+                               f"{n} rows, {'u32' if n > 1 << 16 else 'u16'}"
+                               " mates": len(v)
+                               for n, v in per_flags.items()},
+                           "mismatches": sum(sum(v) for v in
+                                             per_flags.values()),
+                           "pair_edges": edges,
                            "max_abs_err": worst, "check_s": t_check,
-                           "timed": timed},
+                           "timed": timed, "timed_u32": timed32},
           "refbase": ref})
-    return {"upload_score": timed, "max_abs_err": worst, "refbase": ref}
+    return {"upload_score": timed, "upload_score_u32": timed32,
+            "max_abs_err": worst, "refbase": ref}
+
+
+def _upload_timed_shape(torch, np, n, flags, dev):
+    """_upload_timed on generated staging of n rows (seed 7) with flags
+    (kernels.UPLOAD_FLAGS order)."""
+    from gencore_tpu_torch.core import kernels
+    from gencore_tpu_torch.tools import workloads
+    staging = workloads.upload_staging(
+        np.random.default_rng(7), n, W_UPLOAD, L_UPLOAD,
+        **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+    timed = _upload_timed(torch, np, _upload_static(W_UPLOAD, L_UPLOAD, flags),
+                          staging, dev, "2e")
+    timed["flags"] = dict(zip(kernels.UPLOAD_FLAGS, flags))
+    return timed
 
 
 def _cli(args):
@@ -1060,15 +1104,17 @@ def _no_plain_on_card(torch):
     hand kernel stands for it: vote.py's plain _epilogue_core inside one
     of its Pallas counterparts (pallas_vote_window, pallas_vote_gathered,
     pallas_vote), whose whole body on the card must be hand kernels; the
-    plain upload rebuild and score map (engine._upload_score_plain,
-    engine._upload_sparse_trace, kernels.score_map_kernel_packed,
-    score_map_kernel and _qual2score) inside the deferred upload-and-score
-    program (the function engine._upload_score_fn returns), whose body on
-    the card is csrc/upload_score.cu; and vote.refbase_combine anywhere
-    (the refbase assembly of every route is csrc/vote_window.cu or
-    csrc/refbase.cu on the card). Each raises there. The standalone,
-    non-deferred upload and score routes stay plain on purpose and stay
-    allowed. Yields counts: entries into the counterparts, deferred
+    plain upload rebuild (engine._upload_sparse_fn and
+    engine._upload_sparse_trace) anywhere, since every sparse window of
+    any size goes up through csrc/upload_score.cu; the plain score map
+    (engine._upload_score_plain, kernels.score_map_kernel_packed,
+    score_map_kernel and _qual2score) inside the upload-and-score program
+    (the function engine._upload_score_fn returns); and
+    vote.refbase_combine anywhere (the refbase assembly of every route is
+    csrc/vote_window.cu or csrc/refbase.cu on the card). Each raises
+    there. Only the dense route (windows whose staging stays dense: its
+    plain unpack and score map, ROADMAP queue 2) stays plain and stays
+    allowed. Yields counts: entries into the counterparts,
     upload-and-score programs run, and plain calls caught."""
     import threading
 
@@ -1126,11 +1172,13 @@ def _no_plain_on_card(torch):
             engine, "_upload_score_fn", factory(
                 engine._upload_score_fn,
                 lambda fn: entered("upload", "upload_score_calls", fn))))
-        for name in ("_upload_score_plain", "_upload_sparse_trace"):
+        stack.enter_context(_patched(engine, "_upload_score_plain", factory(
+            engine._upload_score_plain,
+            lambda fn: plain("upload", "engine._upload_score_plain", fn))))
+        for name in ("_upload_sparse_fn", "_upload_sparse_trace"):
             stack.enter_context(_patched(engine, name, factory(
                 getattr(engine, name),
-                lambda fn, name=name: plain("upload", f"engine.{name}",
-                                            fn))))
+                lambda fn, name=name: plain(None, f"engine.{name}", fn))))
         for name in ("score_map_kernel_packed", "score_map_kernel",
                      "_qual2score"):
             stack.enter_context(_patched(kernels, name, plain(
@@ -1148,6 +1196,53 @@ def _guard_ok(phase, seen):
                     "ran on the card where a hand kernel stands for it, or "
                     "a counterpart or the upload-and-score program did not "
                     "run")
+
+
+@contextlib.contextmanager
+def _window_uploads():
+    """Records, for each engine window made inside this process, its
+    upload staging (`_window_upload`); yields the list."""
+    from gencore_tpu_torch import engine
+    rec = []
+    orig = engine._WorkArrays.__init__
+
+    def init(self, *a, **k):
+        orig(self, *a, **k)
+        rec.append(_window_upload(self))
+    with _patched(engine._WorkArrays, "__init__", init):
+        yield rec
+
+
+def _window_upload(work):
+    """One window's upload staging: mode (sparse: the upload-and-score
+    kernel's; dense: the plain unpack), rows (n_pad), widths (w, L) and the
+    sizes that decided the mode (dense table rows nd, genome slots ns,
+    dense qual rows nq, as far as the sparse staging got)."""
+    return {"mode": work.upload_mode, "n_pad": int(work.n_pad),
+            "w": int(work.w_host), "L": int(work.L),
+            **{k: int(v) for k, v in getattr(work, "sparse_sizes",
+                                             {}).items()}}
+
+
+def upload_routes(args):
+    """The port's CLI on the card with `args`, printing one JSON line:
+    each window's upload staging (`_window_upload`), the upload-and-score
+    kernel's launches and the run's upload stage seconds."""
+    import torch  # noqa: F401
+
+    from gencore_tpu_torch.core import kernels
+    n0 = kernels.UPLOAD_SCORE_LAUNCHES
+    with _window_uploads() as rec:
+        rc, err = _cli([*args, "--device", "cuda", "--debug"])
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[stage\] (\S+): ([0-9.]+)s", err)}
+    print(json.dumps({"args": args, "rc": rc, "windows": rec,
+                      "upload_score_launches":
+                      kernels.UPLOAD_SCORE_LAUNCHES - n0,
+                      "stages": {k: v for k, v in stages.items()
+                                 if k.startswith(("materialize", "score"))}}),
+          flush=True)
+    return rc
 
 
 @contextlib.contextmanager
@@ -1884,12 +1979,12 @@ def _upload_before(torch):
 
     def f(arrays, genome, *, device, w, L, mode2, has_sedit, has_qdense,
           has_qedit, const_lens, has_genome, no_overlap, hi, mod, lo, s_hi,
-          s_mod, s_lo, s_bad):
+          s_mod, s_lo, s_bad, mate32=False):
         g = genome if isinstance(genome, torch.Tensor) else \
             torch.zeros(1, dtype=torch.uint8, device=device)
         static = (w, L, mode2, has_sedit, has_qdense, has_qedit, const_lens,
                   hi, mod, lo, s_hi, s_mod, s_lo, s_bad, has_genome,
-                  no_overlap)
+                  no_overlap, mate32)
         return engine._upload_score_plain(*static)(
             *[to_device(a, device) for a in arrays[:14]], g,
             to_device(arrays[14], device))
@@ -2076,7 +2171,9 @@ def host_steps(bam, fa, n_shards, shard_ids, out_dir, device):
     The two imports come before that timer, as in a host process; the
     library loads and the first CUDA call, which run_host makes inside its
     first engine run, are taken apart here so that each has its own time.
-    Each shard's engine stages (StageTimer sums) are printed beside it."""
+    Each shard's engine stages (StageTimer sums) are printed beside it,
+    and its window's upload staging (`_window_upload`) with the
+    upload-and-score kernel's launches in its eng.run."""
     mark = [time.perf_counter()]
     steps = []
 
@@ -2120,18 +2217,24 @@ def host_steps(bam, fa, n_shards, shard_ids, out_dir, device):
     wm = windows.global_watermark(batch, header.lengths)
     kind, shard = windows.shard_of_reads(batch, header.lengths, n_shards)
     lap("shard keys")
+    from gencore_tpu_torch.core import kernels
     stages = {}
+    uploads = {}
     os.makedirs(out_dir, exist_ok=True)
     for s in shard_ids:
         sub = windows.subset_batch(batch,
                                    np.nonzero((kind > 0) & (shard == s))[0])
         eng = VectorEngine(opt, header, fasta=fasta, device=device)
         lap(f"shard {s}: subset and engine construction")
+        n0 = kernels.UPLOAD_SCORE_LAUNCHES
         table = eng.run(sub, checkpoint=ck, watermark=wm,
                         count_pre_reads=False)
         if device != "cpu":
             torch.cuda.synchronize()
         lap(f"shard {s}: eng.run")
+        uploads[s] = {**(_window_upload(eng.work) if hasattr(eng, "work")
+                         else {}), "upload_score_launches":
+                      kernels.UPLOAD_SCORE_LAUNCHES - n0}
         stages[s] = {k: round(v, 4) for k, v in sorted(
             eng.timer.totals.items(), key=lambda kv: -kv[1])[:8]}
         stem = os.path.join(out_dir, f"shard_{s}")
@@ -2144,7 +2247,8 @@ def host_steps(bam, fa, n_shards, shard_ids, out_dir, device):
                       "timed_s": sum(t for _, t in steps[n_untimed:]),
                       "reads": int(batch.n), "shards": list(shard_ids),
                       "device": device, "torch_threads":
-                      torch.get_num_threads(), "eng_stages": stages}),
+                      torch.get_num_threads(), "eng_stages": stages,
+                      "eng_uploads": uploads}),
           flush=True)
 
 
@@ -2165,9 +2269,12 @@ def _pinned_host_steps(bam, fa, out_dir, core):
 def phase_entry(torch):
     """10: entry() on the card against kernels.consensus_plain on the same
     inputs (exact), then dryrun_multichip(1) on cuda:0 with its pinned
-    2-host run (two processes on one card, one core each), then one more
-    pinned host of both shards through host_steps, which times each step
-    of run_host on its own (printed on its own line)."""
+    2-host run (two processes on one card, one core each) under
+    _no_plain_on_card, each window's upload staging recorded (a sparse
+    window must launch upload_score once), then one more pinned host of
+    both shards through host_steps, which times each step of run_host on
+    its own (printed on its own line; each sparse shard window must
+    launch upload_score once)."""
     from gencore_tpu_torch import entry
     from gencore_tpu_torch.core import kernels, vote
     fn, args = entry.entry("cuda")
@@ -2188,24 +2295,40 @@ def phase_entry(torch):
     workload = entry._dryrun_workload(27000, wd)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _zero_counters(vote)
-    dry = entry.dryrun_multichip(1, device="cuda:0", busy_reps=2,
-                                 workload=workload)
+    with _window_uploads() as windows, _no_plain_on_card(torch) as guard:
+        _zero_counters(vote)
+        dry = entry.dryrun_multichip(1, device="cuda:0", busy_reps=2,
+                                     workload=workload)
+        dry_launches = _counters(vote)
     t_dry = time.perf_counter() - t0
-    dry_launches = _counters(vote)
     if dry["pinned_efficiency"] is None or not dry_launches["vote_window"]:
         fail(10, "dryrun_multichip(1) skipped its pinned 2-host run or "
                  "launched no window vote")
+    _guard_ok(10, guard)
+    sparse = [x for x in windows if x["mode"] == "sparse"]
+    if dry_launches["upload_score"] != len(sparse):
+        fail(10, f"dryrun_multichip(1) made {len(sparse)} sparse windows but "
+                 f"launched upload_score {dry_launches['upload_score']} "
+                 "times")
     steps = _pinned_host_steps(*workload, os.path.join(wd, "steps"),
                                sorted(os.sched_getaffinity(0))[0])
     emit({"phase": 10, "name": "run_host's steps, one host of both shards "
                                "pinned to one core on cuda:0", **steps})
+    bad = {s: u for s, u in steps["eng_uploads"].items()
+           if u.get("upload_score_launches") != (u.get("mode") == "sparse")}
+    if bad:
+        fail(10, f"a pinned host's sparse shard window did not launch "
+                 f"upload_score once (or a dense one did): {bad}")
     res = {"phase": 10, "name": "entry() vs consensus_plain; "
                                 "dryrun_multichip(1) on cuda:0", "ok": True,
            "entry": {"shape": list(args[0].shape), "mismatches": mism,
                      "max_abs_err": err, "kernel_launches": launches,
                      "tolerance": "exact (0 mismatches)"},
            "dryrun": dry, "dryrun_s": t_dry, "generate_s": t_gen,
+           "dryrun_windows": [dict(w, count=windows.count(w)) for w in
+                              {json.dumps(x, sort_keys=True): x
+                               for x in windows}.values()],
+           "dryrun_plain_guard": guard,
            "host_steps_timed_s": steps["timed_s"],
            "dryrun_kernel_launches_in_process": dry_launches}
     emit(res)
@@ -2337,7 +2460,7 @@ def main() -> int:
     mesh_res = phase_mesh(torch, np)
     t9 = time.perf_counter()
     cases = phase_cases(torch, np)
-    phase_entry(torch)
+    ent = phase_entry(torch)
     phase_rss(torch)
     t_new = time.perf_counter() - t9
     phase_tsan()
@@ -2430,6 +2553,10 @@ def main() -> int:
          "launches_ultradeep": ud["kernel_launches"]["upload_score"],
          "launches_cases": cases["kernel_launches"]["upload_score"],
          "launches_cases_in": cases_in,
+         "launches_dryrun": ent["dryrun_kernel_launches_in_process"][
+             "upload_score"],
+         "launches_dryrun_in": "phase 10, dryrun_multichip(1) in process: "
+                               "windows of more than 65,536 rows",
          "max_abs_err": max(ups["max_abs_err"],
                             rep["upload_score"]["max_abs_err"]),
          "ms": rep["upload_score"]["ms"],
@@ -2438,10 +2565,15 @@ def main() -> int:
          "plain_ms": rep["upload_score"]["plain_ms"],
          "bound_ms": rep["upload_score"]["bound_ms"],
          "bound_by": rep["upload_score"]["bound_by"], "library_ms": None,
+         "share_of_bound": rep["upload_score"]["share_of_bound"],
          "shape": f"phase 5, the deep panel's largest deferred upload: "
                   f"n={rep['upload_score']['n']}, "
                   f"w={rep['upload_score']['w']}, "
-                  f"L={rep['upload_score']['L']}"},
+                  f"L={rep['upload_score']['L']}",
+         "u32_ms": ups["upload_score_u32"][0]["ms"],
+         "u32_bound_ms": ups["upload_score_u32"][0]["bound_ms"],
+         "u32_shape": f"phase 2e, {N_UPLOAD32} rows with u32 mate rows, "
+                      "the deep panel's flags"},
         {"name": "refbase", "route": "cuda",
          "source": "gencore_tpu_torch/csrc/refbase.cu (refbase_at of "
                    "csrc/refbase.cuh, shared with vote_window.cu)",

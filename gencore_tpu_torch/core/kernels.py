@@ -348,18 +348,19 @@ def consensus_plain(seq, qual, score, valid, pos_valid, refbase, *, hi, mod,
 
 
 # the staging's host arrays in the order of the upload (the genome stays
-# resident on the device), with the dtypes the kernel reads; lens16 is
-# int32 [2] under const_lens and meta u8 (a bit per row) under no_overlap
+# resident on the device), with the dtypes the kernel reads; the flags set
+# three: lens16 is int32 [2] under const_lens, else u16; mate is u32 under
+# mate32, else u16; meta is u8 (a bit per row) under no_overlap, else u32
 UPLOAD_PARTS = (("sd", np.uint8), ("src", np.uint16), ("scnt", np.uint8),
                 ("epos", np.uint8), ("ecode", np.uint8), ("base", np.uint8),
                 ("q_src", np.uint16), ("qd", np.uint8), ("qcnt", np.uint8),
                 ("qpos", np.uint8), ("qval", np.uint8), ("lens16", None),
-                ("mate16", np.uint16), ("meta", None), ("gsl", np.int32))
+                ("mate", None), ("meta", None), ("gsl", np.int32))
 # the program's static flags, in the order of the kernel's flag bits
 UPLOAD_FLAGS = ("mode2", "has_sedit", "has_qdense", "has_qedit",
-                "const_lens", "has_genome", "no_overlap")
+                "const_lens", "has_genome", "no_overlap", "mate32")
 _UPLOAD_DIMS = 36     # csrc/upload_score.cu's kDims
-_UPLOAD_MAX_GRID = 2048
+_UPLOAD_MAX_GRID = 1280   # csrc/upload_score.cu's kMaxGrid
 
 
 def upload_score_layout(arrays):
@@ -404,6 +405,8 @@ def _upload_checks(arrays, flags, w, L):
         want = dt
         if name == "lens16":
             want = np.int32 if flags["const_lens"] else np.uint16
+        elif name == "mate":
+            want = np.uint32 if flags["mate32"] else np.uint16
         elif name == "meta":
             want = np.uint8 if flags["no_overlap"] else np.uint32
         if a[name].dtype != want:
@@ -414,12 +417,13 @@ def _upload_checks(arrays, flags, w, L):
         raise ValueError("upload_score: sd and qd must be 2-D")
     n = len(a["src"])
     nd, bw = sd.shape
-    if not 0 < w <= L <= 256:
-        raise ValueError(f"upload_score: needs 0 < w={w} <= L={L} <= 256")
+    if not 0 < w <= L <= 256 or L % 16:
+        raise ValueError(f"upload_score: needs 0 < w={w} <= L={L} <= 256, "
+                         "L a multiple of 16")
     if nd == 0 or (4 if flags["mode2"] else 2) * bw < w:
         raise ValueError(f"upload_score: sd {sd.shape} cannot hold rows of "
                          f"{w} codes")
-    need = {"base": n, "mate16": n if not flags["no_overlap"] else None,
+    need = {"base": n, "mate": n if not flags["no_overlap"] else None,
             "meta": -(-n // 8) if flags["no_overlap"] else n,
             "lens16": 2 if flags["const_lens"] else n}
     if flags["has_sedit"]:
@@ -453,18 +457,24 @@ def _upload_checks(arrays, flags, w, L):
 
 def upload_score(arrays, genome, *, device, w, L, mode2, has_sedit,
                  has_qdense, has_qedit, const_lens, has_genome, no_overlap,
-                 hi, mod, lo, s_hi, s_mod, s_lo, s_bad):
+                 hi, mod, lo, s_hi, s_mod, s_lo, s_bad, mate32=False,
+                 out=None):
     """csrc/upload_score.cu: the staging's 15 host arrays (UPLOAD_PARTS'
     order, numpy) go to `device` (a CUDA device) in one pinned
     non-blocking copy, and one launch rebuilds the resident matrices and
     scores every row. genome: the device NT16 genome (has_genome), else
-    unused. Returns (seq u8 [n, L], qual u8 [n, L] (scored), score i8
-    [n, L]), equal byte for byte to engine._upload_score_plain's."""
+    unused. mate32: the mate rows are u32 (windows of more than 65,536
+    rows), else u16. out: the three output tensors to write, else new
+    ones; the kernel stores 16 bytes at a time, so each must be
+    contiguous and 16-byte aligned. Returns (seq u8 [n, L], qual u8
+    [n, L] (scored), score i8 [n, L]), equal byte for byte to
+    engine._upload_score_plain's."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"upload_score: needs a CUDA device, got {dev}")
     flags = dict(zip(UPLOAD_FLAGS, (mode2, has_sedit, has_qdense, has_qedit,
-                                     const_lens, has_genome, no_overlap)))
+                                     const_lens, has_genome, no_overlap,
+                                     mate32)))
     arrays = [np.asarray(x) for x in arrays]
     n, nd, bw, ns, E, Eq, nq, qw = _upload_checks(arrays, flags, w, L)
     G = 0
@@ -479,9 +489,20 @@ def upload_score(arrays, genome, *, device, w, L, mode2, has_sedit,
                              f"of {w}")
     up, lay = vote.pinned_upload(
         lambda alloc: upload_score_pack(arrays, alloc=alloc), dev)
-    seq = torch.empty((n, L), dtype=torch.uint8, device=dev)
-    qual = torch.empty((n, L), dtype=torch.uint8, device=dev)
-    score = torch.empty((n, L), dtype=torch.int8, device=dev)
+    if out is None:
+        out = (torch.empty((n, L), dtype=torch.uint8, device=dev),
+               torch.empty((n, L), dtype=torch.uint8, device=dev),
+               torch.empty((n, L), dtype=torch.int8, device=dev))
+    for t, dt in zip(out, (torch.uint8, torch.uint8, torch.int8),
+                     strict=True):
+        if (t.dtype != dt or t.shape != (n, L) or t.device != dev
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(
+                f"upload_score: an output must be a contiguous {dt} "
+                f"[{n}, {L}] on {dev} at a 16-byte aligned address, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device} at "
+                f"{t.data_ptr() % 16} past 16")
+    seq, qual, score = out
     scratch = torch.empty(2 * n + 2 * _UPLOAD_MAX_GRID, dtype=torch.int32,
                           device=dev)
     bits = sum(1 << i for i, f in enumerate(UPLOAD_FLAGS) if flags[f])

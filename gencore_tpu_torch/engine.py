@@ -764,24 +764,17 @@ class VectorEngine:
                 self.work = work
                 ct = CigarTable(batch, cidx_rows)
             # read matrices live on device for the fused kernel pipeline.
-            # sparse uploads defer to the fused upload+score program
-            # (dispatched at the score stage, after election)
-            defer_up = (work.upload_mode == "sparse"
-                        and work.n_pad <= (1 << 16))
-            if defer_up:
+            # sparse uploads (rows of at most 256 bases, what the
+            # upload-and-score kernel takes) defer to the fused
+            # upload+score program at any row count (dispatched at the
+            # score stage, after election); dense ones upload here
+            if work.upload_mode == "sparse":
                 seq_dev = qual_dev = lens_dev = None
             else:
                 with _T("materialize.updispatch"):
-                    seq_dev, qual_dev, lens_dev = work.upload(
-                        self.device, genome_dev=self._genome_dev()
-                        if (work.upload_mode == "sparse"
-                            and work._sup["has_genome"]) else None)
-                    if work.upload_mode == "sparse":
-                        self._acct_up(*[v for v in work._sup.values()
-                                        if isinstance(v, np.ndarray)])
-                    else:
-                        self._acct_up(work.seq_up, work.qual_up, work.lens,
-                                      work.qtable16)
+                    seq_dev, qual_dev, lens_dev = work.upload(self.device)
+                    self._acct_up(work.seq_up, work.qual_up, work.lens,
+                                  work.qtable16)
                 if _SYNC_STAGES:
                     with _T("materialize.upwait"):
                         self._sync()
@@ -1306,14 +1299,14 @@ class VectorEngine:
                 if lrow is not None:
                     scored_m[lrow] = True
                     scored_m[rrow] = True
-                mate16 = np.zeros(1, dtype=np.uint16)
+                mate = np.zeros(1, dtype=np.uint16)
                 meta = np.packbits(scored_m, bitorder="little")
             else:
-                mate16, meta = _pack_score_meta(N, lrow, rrow, ls, rs, cl)
+                mate, meta = _pack_score_meta(N, lrow, rrow, ls, rs, cl)
             s = work._sup
             staging = (s["sd"], s["src"], s["scnt"], s["epos"], s["ecode"],
                        s["base"], s["q_src"], s["qd"], s["qcnt"], s["qpos"],
-                       s["qval"], s["lens16"], mate16, meta, s["gslots"])
+                       s["qval"], s["lens16"], mate, meta, s["gslots"])
             # the staging crosses as one buffer (kernels.upload_score_pack)
             self.wire_h2d += kernels.upload_score_layout(staging)["size"]
             g = (self._genome_dev() if s["has_genome"]
@@ -1324,8 +1317,8 @@ class VectorEngine:
                     s["has_qdense"], s["has_qedit"], s["const_lens"],
                     opts["hi"], opts["mod"], opts["lo"], opts["s_hi"],
                     opts["s_mod"], opts["s_lo"], opts["s_bad"],
-                    s["has_genome"], no_ov)(*staging[:14], g, staging[14],
-                                            device=self.device)
+                    s["has_genome"], no_ov, mate.dtype == np.uint32)(
+                        *staging[:14], g, staging[14], device=self.device)
             # the staging is on the device now: drop our references so
             # inflight windows don't stack ~8MB of dead staging each
             work._sup = None
@@ -1340,11 +1333,11 @@ class VectorEngine:
             # packed wire form: u32 geometry + u16 mate row = 6 B/row
             # (was 22 B across 7 arrays). cmp_len <= 0 (no overlap) clamps
             # to an empty window with start 0 — identical semantics.
-            mate16, meta = _pack_score_meta(N, lrow, rrow, ls, rs, cl)
-            self._acct_up(mate16, meta)
+            mate, meta = _pack_score_meta(N, lrow, rrow, ls, rs, cl)
+            self._acct_up(mate, meta)
             with _Ts("score.dispatch"):
                 score_dev, qual_dev = kernels.score_map_kernel_packed(
-                    seq_dev, qual_dev, lens_dev, self._dev(mate16),
+                    seq_dev, qual_dev, lens_dev, self._dev(mate),
                     self._dev(meta), **opts)
             return score_dev, qual_dev, seq_dev
         mate_row = np.arange(N, dtype=np.int32)
@@ -2748,16 +2741,18 @@ import functools as _functools
 
 
 def _pack_score_meta(N, lrow, rrow, ls, rs, cl):
-    """u16 mate rows + u32 packed geometry for score_map_kernel_packed:
+    """Mate rows (u16 for N <= 65,536 rows, else u32) + u32 packed
+    geometry for score_map_kernel_packed:
     my_start 8b | mate_start 8b | cmp_len 9b | is_left 1b | scored 1b.
     cmp_len <= 0 (no overlap) clamps to an empty window with start 0 —
     identical semantics (the window is empty either way). Single source
     of truth for the bit layout (decode: kernels.score_map_kernel_packed)."""
-    mate16 = np.arange(N, dtype=np.uint16)
+    mdt = np.uint16 if N <= (1 << 16) else np.uint32
+    mate = np.arange(N, dtype=mdt)
     meta = np.zeros(N, dtype=np.uint32)
     if lrow is not None and len(lrow):
-        mate16[lrow] = rrow.astype(np.uint16)
-        mate16[rrow] = lrow.astype(np.uint16)
+        mate[lrow] = rrow.astype(mdt)
+        mate[rrow] = lrow.astype(mdt)
         clc = np.clip(cl, 0, 511).astype(np.uint32)
         empty = clc == 0
         lsc = np.where(empty, 0, np.clip(ls, 0, 255)).astype(np.uint32)
@@ -2767,7 +2762,7 @@ def _pack_score_meta(N, lrow, rrow, ls, rs, cl):
             lsc | (rsc << 8) | (clc << 16) | (1 << 25) | (1 << 26),
             rsc | (lsc << 8) | (clc << 16) | (1 << 26)])
         meta[mrow] = mval
-    return mate16, meta
+    return mate, meta
 
 
 def _to_host(t) -> np.ndarray:
@@ -2936,7 +2931,9 @@ def _upload_sparse_fn(w: int, L: int, mode2: bool, has_sedit: bool,
     flat per-member (pos, code) seq edits and per-row qual base values
     with (pos, val) edits; the device rebuilds the dense [n_pad, L]
     matrices. Flat edit offsets come from a device cumsum over the per-row
-    counts."""
+    counts. The standalone rebuild, the first half of
+    _upload_score_plain: the engine runs every sparse window through
+    _upload_score_fn."""
     return _upload_sparse_trace(w, L, mode2, has_sedit, has_qdense,
                                 has_qedit, const_lens, has_genome)
 
@@ -2946,17 +2943,20 @@ def _upload_score_fn(w: int, L: int, mode2: bool, has_sedit: bool,
                      has_qdense: bool, has_qedit: bool, const_lens: bool,
                      hi: int, mod: int, lo: int, s_hi: int, s_mod: int,
                      s_lo: int, s_bad: int, has_genome: bool = False,
-                     no_overlap: bool = False):
+                     no_overlap: bool = False, mate32: bool = False):
     """Fused upload-reconstruction + overlap-scoring program: builds the
     resident seq/qual matrices from the sparse staging AND applies
     Pair::computeScore across all rows (pair.cpp:88-172). The returned
     function takes the staging (sd .. meta, genome, gsl) and `device`;
-    returns (seq_dev, qual_scored, score_dev). On a CUDA device the host
-    arrays go up in one copy and csrc/upload_score.cu rebuilds and scores
-    in one launch (kernels.upload_score); on the CPU (`device` "cpu", or
-    CPU tensors given) the kernel's plain twin _upload_score_plain runs."""
+    returns (seq_dev, qual_scored, score_dev). mate32: the mate rows are
+    u32 (windows of more than 65,536 rows, _pack_score_meta), else u16.
+    On a CUDA device the host arrays go up in one copy and
+    csrc/upload_score.cu rebuilds and scores in one launch
+    (kernels.upload_score); on the CPU (`device` "cpu", or CPU tensors
+    given) the kernel's plain twin _upload_score_plain runs."""
     static = (w, L, mode2, has_sedit, has_qdense, has_qedit, const_lens,
-              hi, mod, lo, s_hi, s_mod, s_lo, s_bad, has_genome, no_overlap)
+              hi, mod, lo, s_hi, s_mod, s_lo, s_bad, has_genome, no_overlap,
+              mate32)
 
     def f(*staging, device=None):
         dev = torch.device(device) if device is not None else next(
@@ -2969,7 +2969,7 @@ def _upload_score_fn(w: int, L: int, mode2: bool, has_sedit: bool,
                 has_qdense=has_qdense, has_qedit=has_qedit,
                 const_lens=const_lens, has_genome=has_genome,
                 no_overlap=no_overlap, hi=hi, mod=mod, lo=lo, s_hi=s_hi,
-                s_mod=s_mod, s_lo=s_lo, s_bad=s_bad)
+                s_mod=s_mod, s_lo=s_lo, s_bad=s_bad, mate32=mate32)
         if dev.type != "cpu":
             raise ValueError(f"upload and score: unsupported device {dev}")
         return _upload_score_plain(*static)(*[to_device(a, dev)
@@ -2982,15 +2982,17 @@ def _upload_score_plain(w: int, L: int, mode2: bool, has_sedit: bool,
                         has_qdense: bool, has_qedit: bool, const_lens: bool,
                         hi: int, mod: int, lo: int, s_hi: int, s_mod: int,
                         s_lo: int, s_bad: int, has_genome: bool = False,
-                        no_overlap: bool = False):
+                        no_overlap: bool = False, mate32: bool = False):
     """The upload-and-score program in plain PyTorch, on tensors of any
     device (int32 where the staging is u16/u32): the twin of
-    csrc/upload_score.cu and the CPU path of _upload_score_fn."""
+    csrc/upload_score.cu and the CPU path of _upload_score_fn. mate32
+    names the mate rows' host dtype (u32, else u16); both arrive widened,
+    so the program is the same."""
     up = _upload_sparse_trace(w, L, mode2, has_sedit, has_qdense,
                               has_qedit, const_lens, has_genome)
 
     def f(sd, src, scnt, epos, ecode, base, q_src, qd, qcnt, qpos, qval,
-          lens16, mate16, meta, genome, gsl):
+          lens16, mate, meta, genome, gsl):
         seq, qual, lens = up(sd, src, scnt, epos, ecode, base, q_src, qd,
                              qcnt, qpos, qval, lens16, genome, gsl)
         if no_overlap:
@@ -3006,7 +3008,7 @@ def _upload_score_plain(w: int, L: int, mode2: bool, has_sedit: bool,
                                 torch.full_like(sc, s_mod)).to(torch.int8)
             return seq, qual, score
         score, qual2 = kernels.score_map_kernel_packed(
-            seq, qual, lens, mate16, meta, hi=hi, mod=mod, lo=lo,
+            seq, qual, lens, mate, meta, hi=hi, mod=mod, lo=lo,
             s_hi=s_hi, s_mod=s_mod, s_lo=s_lo, s_bad=s_bad)
         return seq, qual2, score
 
@@ -3471,6 +3473,9 @@ class _WorkArrays:
             epos = epos_all.astype(np.uint8)
         dense_rows = np.nonzero(dense_mask)[0]
         nd = len(dense_rows) + 1  # index 0 = reserved all-zero row
+        # the sizes that decide sparse or dense (u16 row indices), as far
+        # as the staging got
+        self.sparse_sizes = {"nd": nd}
         if nd > 65535:
             return False
         nd2 = nd
@@ -3488,6 +3493,7 @@ class _WorkArrays:
             ug, ginv = np.unique(gpos_row[:ne][row_g], return_inverse=True)
             ns = len(ug)
             ns2 = ns
+            self.sparse_sizes["ns"] = ns
             if nd2 + ns2 > 65535:
                 return False
             has_genome = True
@@ -3510,6 +3516,7 @@ class _WorkArrays:
             base[:ne] = base_n
             over_q = qcnt_n == 255
             nq = int(over_q.sum())
+            self.sparse_sizes["nq"] = nq
             if nq > 65534:
                 return False
             qcnt_e = np.where(over_q, 0, qcnt_n).astype(np.uint8)
@@ -3545,6 +3552,7 @@ class _WorkArrays:
             qcnt_full = Dq.sum(axis=1)
             over_q = qcnt_full > qcap
             nq = int(over_q.sum())
+            self.sparse_sizes["nq"] = nq
             if nq > 65534:
                 return False
             q_src = np.zeros(n_pad, dtype=np.uint16)
@@ -3619,22 +3627,15 @@ class _WorkArrays:
             has_genome=has_genome, gslots=gslots)
         return True
 
-    def upload(self, device, genome_dev=None):
-        """Upload the staging to `device` and rebuild the resident
+    def upload(self, device):
+        """Upload the dense staging to `device` and rebuild the resident
         (seq_dev, qual_dev, lens_dev): [n_pad, L] uint8 matrices plus the
         int32 per-row lengths (consumed by the packed score kernel so the
-        lengths never ship twice). genome_dev: the device NT16 genome,
-        required when the staging has genome-sourced rows."""
-        if self.upload_mode == "sparse":
-            s = self._sup
-            g = genome_dev if s["has_genome"] else np.zeros(1, np.uint8)
-            return _upload_sparse_fn(
-                self.w_host, self.L, s["mode2"], s["has_sedit"],
-                s["has_qdense"], s["has_qedit"], s["const_lens"],
-                s["has_genome"])(*[to_device(a, device) for a in (
-                    s["sd"], s["src"], s["scnt"], s["epos"], s["ecode"],
-                    s["base"], s["q_src"], s["qd"], s["qcnt"], s["qpos"],
-                    s["qval"], s["lens16"], g, s["gslots"])])
+        lengths never ship twice). The sparse staging goes up with the
+        upload-and-score program instead (_upload_score_fn)."""
+        if self.upload_mode != "dense":
+            raise ValueError("upload: the sparse staging goes up through "
+                             "_upload_score_fn")
         return _upload_unpack_fn(
             self.w_host, self.L, self.qual_mode, self.seq_mode)(
             *[to_device(a, device) for a in (

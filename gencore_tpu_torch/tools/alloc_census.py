@@ -1,7 +1,7 @@
 """Where the streaming path's host memory goes, stage by stage.
 
     python -m gencore_tpu_torch.tools.alloc_census [--scale N]
-        [--fragments N] [--device cpu|cuda] [--workdir DIR]
+        [--fragments N] [--device cuda|cpu] [--workdir DIR]
 
 Runs the deep panel (`workloads.deep_panel`, 40,000 x scale fragments)
 through `parallel.streaming.run_streaming` once, in this process, with
@@ -80,7 +80,7 @@ def _torch_peak(events):
                                reverse=True)}
 
 
-def census(scale=1, device="cpu", fragments=None, workdir=None):
+def census(scale=1, device="cuda", fragments=None, workdir=None):
     sys.path.insert(0, REPO)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -154,7 +154,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=1)
     ap.add_argument("--fragments", type=int, default=None)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--workdir", default=None)
     a = ap.parse_args(argv)
     print(json.dumps(census(a.scale, a.device, a.fragments, a.workdir)))

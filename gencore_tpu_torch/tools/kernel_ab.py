@@ -1,8 +1,8 @@
-"""On-card A/B of kernel source variants of csrc/vote.cu and
-csrc/vote_window.cu.
+"""On-card A/B of kernel source variants of csrc/vote.cu,
+csrc/vote_window.cu and csrc/upload_score.cu.
 
     python3 -m gencore_tpu_torch.tools.kernel_ab DIR_A DIR_B [...]
-        [--window] [--profile] [--reps N]
+        [--window | --upload] [--profile] [--reps N]
 
 Each DIR is a copy of gencore_tpu_torch/csrc with one change, or the csrc
 directory of another checkout of the package (a `git archive` of another
@@ -48,6 +48,24 @@ out_len = L); (2) phase 2b's classes K = 4 and 16 at J = 4096, L = 160,
 with a qual table, out_len = L; (3) phase 2b's K = 32, 64, 128 and 256
 at the same sizes. A shape's line also gives its (job, position) pairs.
 
+Shapes with --upload: the upload-and-score entry kernels.upload_score
+(csrc/upload_score.cu), each variant through the core/kernels.py beside
+its DIR when there is one (driving that variant's vote module), at (1)
+the deep panel's largest deferred upload, as chip_smoke.py phase 5
+replays it (recorded from one CLI run, as --window records its launch);
+(2) phase 2e's timed shape (48,000 rows, w = 150, L = 160, the deep
+panel's flags); (3) the same flags at 72,000 rows with u32 mate rows,
+which only the variants whose upload_score takes `mate32` run
+(`upload_shapes`). Each round of turns (--rounds, default 1) calls the
+variants in the order A, B, ..., B, A. A shape's line gives each
+variant's `kernel_ms` per turn (the kernel's median duration in a
+torch.profiler trace of --reps calls), `host_ms` and `call_ms` as above,
+and the mismatching bytes against the first variant.
+A variant's library that exports gc_upload_score_split (a copy
+instrumented with clock64()) adds a `split` line per shape: the cycles of
+one launch summed per part; one that exports gc_upload_score_grid adds
+the grid it launches and its blocks per SM to its build line.
+
 Needs a card. Device printf output of a variant (a scratch copy
 instrumented with clock64(), say) goes to standard output.
 """
@@ -72,6 +90,12 @@ SHAPES = ([("pile", J, K) for J, K in ((8, 512), (32, 2048), (32, 4096),
                                        (128, 4096))]
           + [("2a", 4096, K) for K in (16, 64, 256)])
 WINDOW_K = (4, 16, 32, 64, 128, 256)
+# --upload: (name, rows, u32 mate rows) of the generated shapes; the
+# recorded deep-panel upload comes first
+UPLOAD_SHAPES = (("2e", 48_000, False), ("mate32", 72_000, True))
+UPLOAD_W, UPLOAD_L = 150, 160
+# the deep panel's flags (kernels.UPLOAD_FLAGS order, without mate32)
+UPLOAD_DEEP_FLAGS = (True, True, False, True, True, True, False)
 
 
 def _kernel_medians(torch, cs, fn, reps=10):
@@ -128,6 +152,36 @@ def _build(dirs, default):
     return mods
 
 
+def _kernels_module(d, vote_mod, default):
+    """A fresh instance of the kernels module beside csrc dir d (the
+    checkout's own core/kernels.py, else this checkout's, `default`) that
+    launches through vote_mod, the variant's vote module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(d)), "core",
+                        "kernels.py")
+    if not os.path.exists(path):
+        path = default.__file__
+    name = "kernel_ab_kernels_" + re.sub(r"\W", "_", os.path.abspath(d))
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.vote = vote_mod
+    return mod
+
+
+def takes_mate32(kernels_mod) -> bool:
+    """Whether a variant's upload_score takes u32 mate rows."""
+    return "mate32" in inspect.signature(kernels_mod.upload_score).parameters
+
+
+def upload_shapes(kmods):
+    """[(name, rows, mate32, the variants that run it)] of the generated
+    --upload shapes: a variant whose upload_score lacks `mate32` is left
+    out of the u32 shape. kmods: {dir: kernels module}."""
+    return [(name, n, m32, [d for d, k in kmods.items()
+                            if not m32 or takes_mate32(k)])
+            for name, n, m32 in UPLOAD_SHAPES]
+
+
 def _build_report(torch, d, mod):
     """Registers and spills per kernel, SASS instructions per kernel, and
     the window kernel's blocks per SM at L = 160 (new libraries only)."""
@@ -148,8 +202,19 @@ def _build_report(torch, d, mod):
     if hasattr(mod.build_library(), "gc_vote_window_grid"):
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         per_sm = mod.window_grid(160, 1 << 30, torch.device("cuda", 0)) / sms
-    return {"variant": d, "registers_spills": regs, "sass_instructions": sass,
-            "window_blocks_per_sm_L160": per_sm}
+    out = {"variant": d, "registers_spills": regs, "sass_instructions": sass,
+           "window_blocks_per_sm_L160": per_sm}
+    lib = mod.build_library()
+    if hasattr(lib, "gc_upload_score_grid"):
+        import ctypes
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        lib.gc_upload_score_grid.argtypes = [ctypes.c_int]
+        lib.gc_upload_score_grid.restype = ctypes.c_int
+        with torch.cuda.device(0):
+            grid = lib.gc_upload_score_grid(1 << 30)
+        out["upload_grid"] = grid
+        out["upload_blocks_per_sm"] = grid / sms
+    return out
 
 
 def _gathered(torch, np, cs, mods, dirs, opts, dev):
@@ -294,14 +359,131 @@ def _window(torch, np, cs, mods, dirs, opts, dev):
     return 0
 
 
-def main(argv=None) -> int:
+def _deep_panel_upload(cs):
+    """The deep panel's largest deferred upload, recorded from one CLI run
+    on the card (chip_smoke.py phases 4 and 5): (static, staging)."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.tools import workloads
+    bam, fa = workloads.deep_panel(os.path.join(cs.WORK, "workloads"))
+    upload = {}
+    d = os.path.join(cs.WORK, "kernel_ab_run")
+    os.makedirs(d, exist_ok=True)
+    with cs._patched(engine, "_upload_score_fn", cs._upload_recorder(upload)):
+        rc, err = cs._cli(["-i", bam, "-o", os.path.join(d, "out.bam"),
+                           "-r", fa, "--device", "cuda"])
+    if rc:
+        raise RuntimeError(f"deep panel run failed: {err[-2000:]}")
+    return upload["static"], upload["staging"]
+
+
+def _upload_split(torch, lib, fn):
+    """One launch of fn under a library instrumented with clock64(): the
+    cycles per part it summed (gc_upload_score_split fills and zeroes 16
+    counters), or None for a library without it."""
+    if not hasattr(lib, "gc_upload_score_split"):
+        return None
+    import ctypes
+    buf = (ctypes.c_ulonglong * 16)()
+    lib.gc_upload_score_split.argtypes = [ctypes.c_void_p]
+    lib.gc_upload_score_split.restype = ctypes.c_int
+    torch.cuda.synchronize()
+    lib.gc_upload_score_split(buf)    # zeroes what the checks summed
+    fn()
+    torch.cuda.synchronize()
+    if lib.gc_upload_score_split(buf):
+        raise RuntimeError("gc_upload_score_split failed")
+    return list(buf)
+
+
+def _upload(torch, np, cs, mods, dirs, opts, dev):
+    from gencore_tpu_torch.core import kernels
+    from gencore_tpu_torch.tools import workloads
+    kmods = {d: _kernels_module(d, mods[d], kernels) for d in dirs}
+    shapes = [("deep_panel_largest", None, False, dirs)] + upload_shapes(kmods)
+    for kind, n, m32, run in shapes:
+        if not run:
+            continue
+        if kind == "deep_panel_largest":
+            static, staging = _deep_panel_upload(cs)
+        else:
+            flags = UPLOAD_DEEP_FLAGS + (m32,)
+            staging = workloads.upload_staging(
+                np.random.default_rng(7), n, UPLOAD_W, UPLOAD_L,
+                **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+            static = cs._upload_static(UPLOAD_W, UPLOAD_L, flags)
+        (w, L, mode2, has_sedit, has_qdense, has_qedit, const_lens, hi, mod,
+         lo, s_hi, s_mod, s_lo, s_bad, has_genome, no_overlap) = static[:16]
+        kw = dict(device=dev, w=w, L=L, mode2=mode2, has_sedit=has_sedit,
+                  has_qdense=has_qdense, has_qedit=has_qedit,
+                  const_lens=const_lens, has_genome=has_genome,
+                  no_overlap=no_overlap, hi=hi, mod=mod, lo=lo, s_hi=s_hi,
+                  s_mod=s_mod, s_lo=s_lo, s_bad=s_bad)
+        mate32 = len(static) > 16 and static[16]
+        arrays = [np.asarray(a) for a in (*staging[:14], staging[15])]
+        genome = staging[14]
+        if not isinstance(genome, torch.Tensor):
+            genome = torch.from_numpy(np.asarray(genome)).to(dev)
+        outs, kms, calls, hosts, splits = {}, {}, {}, {}, {}
+        for d in (run + run[::-1]) * opts.rounds:
+            kd = dict(kw, mate32=True) if mate32 else kw
+
+            def call(k=kmods[d], kd=kd):
+                return k.upload_score(arrays, genome, **kd)
+            try:
+                outs[d] = call()
+                torch.cuda.synchronize()
+            except Exception:
+                print(f"kernel_ab: {d} failed at shape {kind}",
+                      file=sys.stderr, flush=True)
+                raise
+            if d not in splits:
+                splits[d] = _upload_split(torch, mods[d].build_library(),
+                                          call)
+            kms.setdefault(d, []).append(cs._device_ms(
+                torch, call, opts.reps, "upload_score_kernel")[0])
+            calls.setdefault(d, []).append(cs._time_ms(torch, call,
+                                                       opts.reps))
+            hosts.setdefault(d, []).append(cs._host_ms(torch, call,
+                                                       opts.reps))
+        ref = outs[run[0]]
+        mism = {d: cs._upload_compare(o, ref)[0] for d, o in outs.items()}
+        n_bytes, _ops = cs._upload_bound(np, static, staging)
+        print(json.dumps({
+            "shape": kind, "n": len(staging[1]), "w": w, "L": L,
+            "mate32": bool(mate32), "flags": dict(zip(
+                kernels.UPLOAD_FLAGS, (mode2, has_sedit, has_qdense,
+                                       has_qedit, const_lens, has_genome,
+                                       no_overlap))),
+            "bytes": n_bytes, "bound_ms": n_bytes / cs.HBM_BYTES_PER_S * 1e3,
+            "mismatching_bytes": mism, "kernel_ms": kms, "call_ms": calls,
+            "host_ms": hosts}), flush=True)
+        for d, sp in splits.items():
+            if sp is not None:
+                print(json.dumps({"shape": kind, "variant": d,
+                                  "split": sp}), flush=True)
+        if any(mism.values()):
+            return 1
+    return 0
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
-    ap.add_argument("--window", action="store_true",
-                    help="time the window entry (csrc/vote_window.cu)")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--window", action="store_true",
+                      help="time the window entry (csrc/vote_window.cu)")
+    kind.add_argument("--upload", action="store_true",
+                      help="time the upload-and-score entry "
+                           "(csrc/upload_score.cu)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--reps", type=int, default=7)
-    opts = ap.parse_args(argv)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="--upload: rounds of turns (A, B, ..., B, A)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    opts = parse_args(argv)
     sys.path.insert(0, REPO)
     import numpy as np
     import torch
@@ -316,7 +498,7 @@ def main(argv=None) -> int:
     mods = _build(opts.dirs, vote)
     for d in opts.dirs:
         print(json.dumps(_build_report(torch, d, mods[d])), flush=True)
-    run = _window if opts.window else _gathered
+    run = _window if opts.window else _upload if opts.upload else _gathered
     rc = run(torch, np, cs, mods, list(opts.dirs), opts, dev)
     print(cs.nvidia_smi_line())
     return rc

@@ -333,8 +333,8 @@ def full_bins_panel(out_dir: str):
     return bam_path, fa_path
 
 
-def upload_staging(rng: np.random.Generator, n: int, w: int, L: int,
-                   **flags):
+def upload_staging(rng: np.random.Generator, n: int, w: int, L: int, *,
+                   pair_edges: bool = False, **flags):
     """Random sparse upload staging of n rows of width w (L the padded
     width) in the layout the engine ships, with the program's edges:
     a non-zero reserved row 0 (2-bit mode must zero it), genome slots past
@@ -342,18 +342,27 @@ def upload_staging(rng: np.random.Generator, n: int, w: int, L: int,
     (more than the 12 applied), repeated edit positions in a row (the
     later edit wins), edit positions >= w (they match nothing), rows of
     length 0, mate pairs whose overlap wraps past L (mate_start + cmp_len
-    > L) and unscored rows. flags: kernels.UPLOAD_FLAGS, each False unless
-    given.
+    > L) and unscored rows; mate pairs lie anywhere in the window, so most
+    span the kernel's blocks. flags: kernels.UPLOAD_FLAGS, each False
+    unless given; mate32 ships u32 mate rows (else u16, which needs n <=
+    65,536). pair_edges (with mates): also scored rows whose mate is
+    themselves, whose mate is scored but names another row, whose mate
+    names them back unscored, and whose mate lies past the rows (it
+    clamps).
     Returns the 16 arguments of _upload_score_fn's function in order (sd,
     src, scnt, epos, ecode, base, q_src, qd, qcnt, qpos, qval, lens16,
-    mate16, meta, genome, gsl), the genome as a host array."""
+    mate, meta, genome, gsl), the genome as a host array."""
     from gencore_tpu_torch.core.kernels import UPLOAD_FLAGS
     from gencore_tpu_torch.engine import _pack_score_meta
     f = {k: bool(flags.pop(k, False)) for k in UPLOAD_FLAGS}
     if flags:
         raise TypeError(f"upload_staging: unknown flags {sorted(flags)}")
+    mdt = np.uint32 if f["mate32"] else np.uint16
+    if n > (1 << 16) and not f["mate32"]:
+        raise ValueError(f"upload_staging: {n} rows need mate32")
     codes = np.array([1, 2, 4, 8], dtype=np.uint8)
-    nd = max(2, n // 3)
+    # src is u16: the dense and genome rows stay below 65,536 together
+    nd = max(2, min(n // 3, 40_000))
     if f["mode2"]:
         sd = rng.integers(0, 256, size=(nd, -(-w // 4))).astype(np.uint8)
     else:
@@ -363,7 +372,7 @@ def upload_staging(rng: np.random.Generator, n: int, w: int, L: int,
               | nib[rng.integers(0, 5, size=(nd, bw))]).astype(np.uint8)
     genome = np.pad(codes[rng.integers(0, 4, size=3000)], (0, 4096))
     if f["has_genome"]:
-        ns = max(2, n // 20)
+        ns = max(2, min(n // 20, 20_000))
         gsl = rng.integers(0, 3000, size=ns).astype(np.int32)
         gsl[0] = len(genome) - w // 2      # past the end: clamps
         gsl[1] = 0
@@ -413,14 +422,27 @@ def upload_staging(rng: np.random.Generator, n: int, w: int, L: int,
         lens16[::5] = w
         lens16[3::11] = 0
     if f["no_overlap"]:
-        mate16 = np.zeros(1, dtype=np.uint16)
+        mate = np.zeros(1, dtype=mdt)
         meta = np.packbits(rng.random(n) < 0.6, bitorder="little")
     else:
         rows = rng.permutation(n)[:(n // 2) * 2 - 2].reshape(-1, 2)
         ls = rng.integers(0, L, size=len(rows))
         rs = rng.integers(0, L, size=len(rows))
         cl = rng.integers(-3, L + 1, size=len(rows))
-        mate16, meta = _pack_score_meta(n, rows[:, 0], rows[:, 1], ls, rs,
-                                        cl)
+        mate, meta = _pack_score_meta(n, rows[:, 0], rows[:, 1], ls, rs, cl)
+        mate = mate.astype(mdt)
+        if pair_edges and n >= 8:
+            k = max(1, n // 40)
+            a, b, c, d = rng.choice(n, size=(4, k), replace=False)
+            on = np.uint32(1 << 26)
+            meta[a] |= on             # scored, the mate itself
+            mate[a] = a
+            meta[b] |= on             # scored, a mate naming another row
+            mate[b] = c
+            meta[c] |= on             # scored, its mate names it back
+            mate[c] = d               # but is unscored
+            meta[d] &= ~on
+            mate[d] = c
+            mate[a[0]] = min(n + 3, np.iinfo(mdt).max)   # past the rows
     return (sd, src, scnt, epos, ecode, base, q_src, qd, qcnt, qpos, qval,
-            lens16, mate16, meta, genome, gsl)
+            lens16, mate, meta, genome, gsl)

@@ -627,7 +627,7 @@ def _upload_both(cuda, staging, w, L, flags):
     f = dict(zip(UPLOAD_FLAGS, flags))
     static = (w, L, f["mode2"], f["has_sedit"], f["has_qdense"],
               f["has_qedit"], f["const_lens"], *SCORE_KW.values(),
-              f["has_genome"], f["no_overlap"])
+              f["has_genome"], f["no_overlap"], f.get("mate32", False))
     fn = engine._upload_score_fn(*static)
     args = list(staging)
     if f["has_genome"]:
@@ -646,16 +646,16 @@ def _same_bytes(got, want):
         assert int((a.cpu() != b).sum()) == 0
 
 
-@pytest.mark.parametrize("bits", range(128))
+@pytest.mark.parametrize("bits", range(256))
 def test_upload_score_kernel_matches_twin(cuda, bits):
-    """Every combination of the seven static flags (mode2, has_sedit,
-    has_qdense, has_qedit, const_lens, has_genome, no_overlap) on staging
-    with the program's edges (workloads.upload_staging: the reserved row,
-    genome slots past the end, repeated and out-of-range edit positions,
-    rows without edits and of length 0, overlaps wrapping past L): every
-    byte of seq, qual and score equal to the twin's."""
+    """Every combination of the eight static flags (mode2, has_sedit,
+    has_qdense, has_qedit, const_lens, has_genome, no_overlap, mate32) on
+    staging with the program's edges (workloads.upload_staging: the
+    reserved row, genome slots past the end, repeated and out-of-range
+    edit positions, rows without edits and of length 0, overlaps wrapping
+    past L): every byte of seq, qual and score equal to the twin's."""
     from gencore_tpu_torch.tools import workloads
-    flags = tuple(bool(bits >> i & 1) for i in range(7))
+    flags = tuple(bool(bits >> i & 1) for i in range(8))
     rng = np.random.default_rng(500 + bits)
     n, w, L = 700, 151, 160
     staging = workloads.upload_staging(
@@ -680,6 +680,60 @@ def test_upload_score_kernel_shapes(cuda, n, w, L):
         _same_bytes(*_upload_both(cuda, staging, w, L, flags))
 
 
+@pytest.mark.parametrize("mate32", [False, True])
+@pytest.mark.parametrize("bits", [0b0101011, 0b0111111, 0b0010100])
+def test_upload_score_kernel_pair_edges(cuda, bits, mate32):
+    """Mate pairs the kernel must not take as pairs (a scored row whose
+    mate is itself, whose mate names another row, whose mate names it
+    back unscored, whose mate lies past the rows) beside real pairs, over
+    20,000 rows, so that pairs span blocks; with u16 and u32 mate rows."""
+    from gencore_tpu_torch.tools import workloads
+    flags = tuple(bool(bits >> i & 1) for i in range(7)) + (mate32,)
+    rng = np.random.default_rng(bits + 7 * mate32)
+    n, w, L = 20000, 150, 160
+    staging = workloads.upload_staging(
+        rng, n, w, L, pair_edges=True,
+        **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+    _same_bytes(*_upload_both(cuda, staging, w, L, flags))
+
+
+@pytest.mark.parametrize("no_overlap", [False, True])
+def test_upload_score_kernel_u32_window(cuda, no_overlap):
+    """A window of more than 65,536 rows (u32 mate rows), with the deep
+    panel's flags and with no_overlap."""
+    from gencore_tpu_torch.tools import workloads
+    flags = (True, True, False, True, True, True, no_overlap, True)
+    staging = workloads.upload_staging(
+        np.random.default_rng(72), 72000, 150, 160,
+        **dict(zip(kernels.UPLOAD_FLAGS, flags)))
+    _same_bytes(*_upload_both(cuda, staging, 150, 160, flags))
+
+
+def test_upload_score_kernel_rejects_misaligned_output(cuda):
+    """The kernel stores 16 bytes at a time: an output 1 byte past an
+    aligned address raises, with nothing launched and no plain fallback."""
+    from gencore_tpu_torch.tools import workloads
+    rng = np.random.default_rng(3)
+    n, w, L = 64, 40, 64
+    flags = dict(has_sedit=True, has_qedit=True)
+    staging = workloads.upload_staging(rng, n, w, L, **flags)
+    arrays = list(staging[:14]) + [staging[15]]
+    kw = dict(device=cuda, w=w, L=L, mode2=False, has_sedit=True,
+              has_qdense=False, has_qedit=True, const_lens=False,
+              has_genome=False, no_overlap=False, **SCORE_KW)
+    buf = torch.empty(n * L + 16, dtype=torch.uint8, device=cuda)
+    good = [torch.empty((n, L), dtype=dt, device=cuda)
+            for dt in (torch.uint8, torch.uint8, torch.int8)]
+    bad = buf[1:1 + n * L].view(n, L)
+    n0 = kernels.UPLOAD_SCORE_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.upload_score(arrays, None, out=(bad, *good[1:]), **kw)
+    assert kernels.UPLOAD_SCORE_LAUNCHES == n0
+    got = kernels.upload_score(arrays, None, out=good, **kw)
+    assert all(g is o for g, o in zip(got, good))
+    assert kernels.UPLOAD_SCORE_LAUNCHES == n0 + 1
+
+
 def test_upload_score_kernel_rejects_bad_staging(cuda):
     from gencore_tpu_torch.tools import workloads
     rng = np.random.default_rng(1)
@@ -700,6 +754,8 @@ def test_upload_score_kernel_rejects_bad_staging(cuda):
         kernels.upload_score(arrays, None, **dict(kw, device="cpu"))
     with pytest.raises(ValueError, match="genome"):
         kernels.upload_score(arrays, None, **dict(kw, has_genome=True))
+    with pytest.raises(TypeError, match="mate is uint16"):
+        kernels.upload_score(arrays, None, **dict(kw, mate32=True))
 
 
 @pytest.mark.parametrize("J,L,nh", [(1, 32, 1), (300, 160, 40),

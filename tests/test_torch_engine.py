@@ -167,6 +167,43 @@ def test_port_engine_deep_pile(tmp_path, monkeypatch):
     assert (512, 4) in calls
 
 
+def test_port_engine_window_past_u16_rows(tmp_path, monkeypatch):
+    """One window of 66,400 sparse rows (830 loci x 40 overlapping pairs
+    of 40-base reads), more than a u16 mate row can name: the port takes
+    the deferred upload-and-score program with u32 mate rows (where the
+    JAX engine takes its non-deferred upload and int32 score map), never
+    the plain standalone upload, and its records equal the oracle's and
+    the JAX engine's (its XLA route on the CPU)."""
+    from gencore_tpu_torch import engine as teng_mod
+    rng = np.random.default_rng(5)
+    sb = SyntheticBam(seed=5, contig_len=2_000_000)
+    for k in range(830):
+        pos = 1000 + 600 * k
+        for _ in range(40):
+            sb.add_pair(0, pos, pos + int(rng.integers(10, 30)), read_len=40,
+                        umi="AACC_GGTT", n_errors=int(rng.random() < 0.3),
+                        qual=int(rng.choice([18, 30, 36])))
+    deferred, standalone = [], []
+    orig_fn = teng_mod._upload_score_fn
+    orig_up = teng_mod._WorkArrays.upload
+
+    def fn(*static):
+        deferred.append(static)
+        return orig_fn(*static)
+
+    def up(self, *a, **k):
+        standalone.append(self.upload_mode)
+        return orig_up(self, *a, **k)
+
+    monkeypatch.setattr(teng_mod, "_upload_score_fn", fn)
+    monkeypatch.setattr(teng_mod._WorkArrays, "upload", up)
+    teng = run_three(sb, tmp_path, monkeypatch, jax_pallas=False)
+    assert teng.work.upload_mode == "sparse" and teng.work.n_pad > 1 << 16
+    assert len(deferred) == 1 and deferred[0][-1] is True    # mate32
+    assert deferred[0][-2] is False                          # overlaps
+    assert standalone == []
+
+
 def test_port_engine_default_device_needs_cuda():
     """The default device is CUDA; without one the engine raises rather
     than running on the CPU."""

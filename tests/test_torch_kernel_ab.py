@@ -1,8 +1,11 @@
 """gencore_tpu_torch/tools/kernel_ab.py on the CPU: which wrapper module
-drives the library built from each variant's csrc directory. The A/B
-itself builds and times kernels, so it needs a card."""
+drives the library built from each variant's csrc directory, and the CPU
+side of --upload (its arguments, its shapes and which variants run each).
+The A/B itself builds and times kernels, so it needs a card."""
 
 import pathlib
+
+import pytest
 
 from gencore_tpu_torch.core import vote
 from gencore_tpu_torch.tools import kernel_ab
@@ -30,3 +33,40 @@ def test_wrapper_of_each_variant(tmp_path):
     assert a.__file__ == vote.__file__ and not hasattr(a, "CHECKOUT")
     a.WINDOW_LAUNCHES += 5
     assert b.WINDOW_LAUNCHES == 0
+
+
+def test_upload_arguments():
+    opts = kernel_ab.parse_args(["A", "B", "--upload", "--reps", "20",
+                                 "--rounds", "2"])
+    assert opts.dirs == ["A", "B"] and opts.upload and not opts.window
+    assert (opts.reps, opts.rounds) == (20, 2)
+    opts = kernel_ab.parse_args(["A"])
+    assert not opts.upload and not opts.window and opts.rounds == 1
+    with pytest.raises(SystemExit):   # one entry at a time
+        kernel_ab.parse_args(["A", "--upload", "--window"])
+
+
+def test_upload_shapes_leave_out_variants_without_mate32(tmp_path):
+    """The generated --upload shapes: phase 2e's 48,000 rows with u16 mate
+    rows for every variant, then 72,000 rows with u32 mate rows for the
+    variants whose upload_score takes mate32 (a checkout from before it,
+    here a copy of core/kernels.py whose upload_score lacks it, is left
+    out)."""
+    from gencore_tpu_torch.core import kernels
+    pkg = tmp_path / "old" / "gencore_tpu_torch"
+    (pkg / "core").mkdir(parents=True)
+    (pkg / "csrc").mkdir()
+    src = pathlib.Path(kernels.__file__).read_text()
+    assert src.count("mate32=False,") == 1
+    (pkg / "core" / "kernels.py").write_text(src.replace("mate32=False,",
+                                                         ""))
+    old = kernel_ab._kernels_module(str(pkg / "csrc"), vote, kernels)
+    new = kernel_ab._kernels_module(str(tmp_path / "variant" / "csrc"), vote,
+                                    kernels)
+    assert old.vote is vote and new is not kernels
+    assert not kernel_ab.takes_mate32(old) and kernel_ab.takes_mate32(new)
+    shapes = kernel_ab.upload_shapes({"old": old, "new": new})
+    assert [(name, n, m32) for name, n, m32, _ in shapes] == [
+        ("2e", 48_000, False), ("mate32", 72_000, True)]
+    assert shapes[0][3] == ["old", "new"] and shapes[1][3] == ["new"]
+    assert all(n > 1 << 16 for _, n, m32, _ in shapes if m32)

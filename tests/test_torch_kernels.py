@@ -196,6 +196,59 @@ def test_upload_score_fn_matches_jax(case):
         _eq(a, b)
 
 
+# (mode2, has_sedit, has_qdense, has_qedit, const_lens, has_genome,
+#  no_overlap) of the windows past 65,536 rows: the deep panel's flags,
+# with no_overlap, 4-bit rows with dense quals and without edits, 4-bit
+# rows with edits and genome rows, 2-bit rows without edits or genome
+U32_CASES = [(True, True, False, True, True, True, False),
+             (True, True, False, True, True, True, True),
+             (False, False, True, False, False, False, False),
+             (False, True, True, True, False, True, True),
+             (True, False, False, False, True, False, False)]
+
+
+@pytest.mark.parametrize("case", U32_CASES)
+def test_upload_score_u32_mates_match_jax_nondeferred(case):
+    """Past 65,536 rows the engine ships u32 mate rows (mate32) to the
+    upload-and-score program, where the JAX engine takes its non-deferred
+    route: _upload_sparse_fn, then score_map_kernel with int32 mate rows
+    and geometry. The twin equals that pair byte for byte (70,001 rows of
+    width 32; edits, genome slots and overlaps as workloads.upload_staging
+    makes them)."""
+    flags = dict(zip(tk.UPLOAD_FLAGS, case + (True,)))
+    rng = np.random.default_rng(70_001 + sum(1 << i for i, v in
+                                             enumerate(case) if v))
+    n, w, L = 70_001, 32, 32
+    *staging, mate, meta, genome, gsl = workloads.upload_staging(
+        rng, n, w, L, **flags)
+    assert mate.dtype == np.uint32
+    g = genome if flags["has_genome"] else np.zeros(1, np.uint8)
+    sk = SCORE_KW
+    static = (w, L, flags["mode2"], flags["has_sedit"], flags["has_qdense"],
+              flags["has_qedit"], flags["const_lens"], sk["hi"], sk["mod"],
+              sk["lo"], sk["s_hi"], sk["s_mod"], sk["s_lo"], sk["s_bad"],
+              flags["has_genome"], flags["no_overlap"], True)
+    got = teng._upload_score_fn(*static)(*_dev(*staging, mate, meta, g, gsl))
+    seq, qual, lens = jeng._upload_sparse_fn(*static[:7], flags["has_genome"])(
+        *staging, g, gsl)
+    if flags["no_overlap"]:
+        scored = np.unpackbits(meta, bitorder="little")[:n].astype(bool)
+        mate_row = np.arange(n, dtype=np.int32)
+        geo = np.zeros((3, n), dtype=np.int32)
+        is_left = np.zeros(n, dtype=bool)
+    else:
+        m = meta.astype(np.int64)
+        mate_row = mate.astype(np.int32)
+        geo = np.stack([m & 0xFF, (m >> 8) & 0xFF, (m >> 16) & 0x1FF]
+                       ).astype(np.int32)
+        is_left = ((m >> 25) & 1).astype(bool)
+        scored = ((m >> 26) & 1).astype(bool)
+    score, qual2 = jk.score_map_kernel(seq, qual, mate_row, *geo, lens,
+                                       is_left, scored, **SCORE_KW)
+    for a, b in zip(got, (seq, qual2, score)):
+        _eq(a, b)
+
+
 @pytest.mark.parametrize("seq_mode,qual_mode", [
     ("2bit", "2bit"), ("4bit", "4bit"), ("4bit", "raw"), ("2bit", "raw")])
 def test_upload_unpack_fn_matches_jax(seq_mode, qual_mode):

@@ -30,12 +30,13 @@ NAMES = [name for name, _dt in kernels.UPLOAD_PARTS]
          has_genome=True),
     dict(const_lens=True, no_overlap=True),
     dict(has_sedit=True, has_qedit=True, no_overlap=True, const_lens=True),
+    dict(mode2=True, has_sedit=True, has_genome=True, mate32=True),
 ])
 def test_upload_score_layout_round_trip(flags):
     rng = np.random.default_rng(len(flags))
-    *parts, mate16, meta, _genome, gsl = workloads.upload_staging(
+    *parts, mate, meta, _genome, gsl = workloads.upload_staging(
         rng, 45, 33, 64, **flags)
-    arrays = (*parts, mate16, meta, gsl)
+    arrays = (*parts, mate, meta, gsl)
     buf, lay = kernels.upload_score_pack(arrays)
     assert lay == kernels.upload_score_layout(arrays)
     assert buf.dtype == np.uint8 and buf.size == lay["size"]
@@ -58,6 +59,8 @@ def test_upload_score_layout_round_trip(flags):
         np.int32 if flags.get("const_lens") else np.uint16)
     assert back["meta"].dtype == (np.uint8 if flags.get("no_overlap")
                                   else np.uint32)
+    assert back["mate"].dtype == (np.uint32 if flags.get("mate32")
+                                  else np.uint16)
     # alloc supplies the buffer
     room = []
     got, lay2 = kernels.upload_score_pack(
@@ -150,3 +153,45 @@ def test_window_upload_with_the_engine_list():
         alloc=lambda size: room.append(np.empty(size, np.uint8)) or room[0])
     assert lay2 == lay and got.tobytes() == want.tobytes()
     assert room[0].size == lay["size"]
+
+
+def test_upload_checks_mate_dtype():
+    """The mate rows' dtype follows mate32: u16 without it, u32 with it;
+    either mismatch is refused before anything is uploaded."""
+    for mate32 in (False, True):
+        flags = dict(zip(kernels.UPLOAD_FLAGS, [False] * 8))
+        flags.update(has_sedit=True, mate32=mate32)
+        staging = workloads.upload_staging(np.random.default_rng(9), 40, 32,
+                                           32, **flags)
+        arrays = [*staging[:14], staging[15]]
+        assert kernels._upload_checks(arrays, flags, 32, 32)[0] == 40
+        wrong = np.uint16 if mate32 else np.uint32
+        arrays[12] = arrays[12].astype(wrong)
+        with pytest.raises(TypeError, match=f"mate is {np.dtype(wrong)}"):
+            kernels._upload_checks(arrays, flags, 32, 32)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            kernels._upload_checks(staging[:14] + staging[15:], flags, 32,
+                                   40)
+
+
+@pytest.mark.parametrize("N", [65_536, 65_537])
+def test_pack_score_meta_mate_dtype(N):
+    """u16 mate rows up to 65,536 rows (the JAX package's packing, byte for
+    byte), u32 above: every row's mate fits."""
+    from gencore_tpu import engine as jeng
+    from gencore_tpu_torch import engine as teng
+    rng = np.random.default_rng(N)
+    rows = rng.permutation(N)[:2000].reshape(-1, 2)
+    rows[0] = (N - 1, 0)     # the last row pairs with the first
+    lrow, rrow = rows[:, 0], rows[:, 1]
+    ls, rs = rng.integers(0, 150, size=(2, len(rows)))
+    cl = rng.integers(-3, 150, size=len(rows))
+    mate, meta = teng._pack_score_meta(N, lrow, rrow, ls, rs, cl)
+    assert mate.dtype == (np.uint16 if N <= 1 << 16 else np.uint32)
+    want = np.arange(N)
+    want[lrow], want[rrow] = rrow, lrow
+    assert (mate.astype(np.int64) == want).all()
+    jmate, jmeta = jeng._pack_score_meta(N, lrow, rrow, ls, rs, cl)
+    assert (meta == jmeta).all() and meta.dtype == jmeta.dtype
+    if N <= 1 << 16:
+        assert jmate.dtype == mate.dtype and (jmate == mate).all()
