@@ -41,6 +41,16 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
          no_overlap); gc_refbase (csrc/refbase.cu, K11)
          against refbase_combine, starts negative, past the end and in
          range, host-row indices clamped;
+      2f the dense staging route's kernels (csrc/upload_dense.cu):
+         gc_upload_unpack (K12) against engine._upload_unpack_plain for
+         all 6 seq and qual mode pairs at the deep panel's single-shot
+         shape (239,499 rows, w = 152, L = 160) and a 2x300 window
+         (48,000 rows, w = 304, L = 320), lengths 0, odd, w and past w;
+         gc_score_map (K5) against kernels.score_map_packed_plain (packed,
+         48,000 rows) and kernels.score_map_plain (int32 geometry,
+         239,499 rows at L = 160 and 48,000 at L = 320) with negative
+         cmp_len, mate starts on both sides, ties, self and clamped mates
+         and unscored rows;
     with each kernel's device time (vote_window: torch.profiler; vote.cu:
     CUDA events around each call with the stream kept busy ahead of them)
     and its wrapper's time per call, its plain version's time per call on
@@ -62,13 +72,14 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     (gencore_tpu_torch/testdata): wall seconds, reads/s, the codec, the
     stage sums, each window launch's (K, J, sum of member counts) per class
     and whether it had a qual nibble table;
-  phases 4, 4b, 4c, 7 and 9 run with the plain versions made to raise on
-    CUDA tensors where a hand kernel stands for them (_no_plain_on_card):
-    the plain _epilogue_core inside vote.py's Pallas counterparts
-    (pallas_vote_window, pallas_vote_gathered, pallas_vote), the plain
-    upload rebuild anywhere, the plain score map inside the upload-and-
-    score program, and refbase_combine anywhere; each phase also needs
-    the counterparts and the upload-and-score program to have run;
+  phases 4, 4b, 4c, 4d, 7, 7b and 9 run with the plain versions made to
+    raise on CUDA tensors where a hand kernel stands for them
+    (_no_plain_on_card): the plain _epilogue_core inside vote.py's Pallas
+    counterparts (pallas_vote_window, pallas_vote_gathered, pallas_vote),
+    and anywhere the plain upload rebuild and upload-and-score program,
+    the plain dense unpack, both plain score maps and refbase_combine;
+    each phase also needs the counterparts and (where its windows stage
+    sparse) the upload-and-score program to have run;
   4b the same input with `--shards 4 --checkpoint_dir D`, then again after
     one shard's files were deleted from D (resume): both equal to the
     golden digests, the second run recomputing exactly that shard;
@@ -78,6 +89,9 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     with the native core, each window written as it retires, and once as
     on a machine without the core (pure-Python codec, windows merged into
     one payload); both equal to the golden digests, window votes launched;
+  4d the same input single-shot (`--windows 1`): one window of 239,499
+    rows whose staging stays dense (past the u16 row limit), against the
+    golden digests; the dense unpack and score map must launch;
   5 the deep panel's largest window launch, replayed: the fused kernel
     against its twin (exact) and timed against the plain composition on
     the card, with its bound, its (job, position) pairs and the
@@ -85,11 +99,15 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     deep panel's largest deferred upload (recorded in phase 4) through
     gc_upload_score against its twin (exact), timed the same way, with
     the host's time per call;
-  6 device busy time, kernel and memcpy counts of one deep-panel run and
-    one ultra-deep run (torch.profiler) before, with the compositions this
-    slice replaced put back for those runs only (the plain upload-and-
-    score program after 16 copies up; the plain refbase assembly after
-    four), and after; all must take the streaming path;
+  6 device busy time, kernel and memcpy counts of one run each of the
+    deep panel (streaming and single-shot), the ultra-deep pile and the
+    long-read panel (torch.profiler) before, with the compositions the
+    port's kernels replaced put back for those runs only (the plain
+    upload-and-score program after 16 copies up; the plain refbase
+    assembly after four; the dense route's plain unpack after four and
+    its plain score maps), and after; all but the single-shot run must
+    take the streaming path; a run whose trace lost kernel records is
+    profiled again, up to three times;
   7 the ultra-deep pile (workloads.ultradeep: 40 loci x 1,500 pairs, UMI
     grouping off) through the CLI on cuda, which must take the streaming
     path, against its golden digests, its leftover buckets' refbase rows
@@ -97,6 +115,13 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     with each gathered vote launch's (K, J), split, device time and share
     of its bound, and its largest refbase assembly replayed against
     refbase_combine and timed;
+  7b the long_amplicon panel (workloads.long_amplicon: 2x300 reads, so
+    every window stages dense and votes at L = 320 through the gathered
+    entry) through the CLI's default streaming path against its golden
+    digests: the dense unpack and score map, the gathered vote at L = 320
+    and the refbase assembly must launch; wall seconds and reads/s, then
+    the run's largest unpack and score map replayed against their twins
+    and timed;
   8 parallel/mesh.py with one rank on the card (a torch.distributed NCCL
     group of one process, and a one-device mesh): sharded_consensus_step
     (the Bins16 kernel through kernels.consensus_kernel) against the plain
@@ -143,8 +168,9 @@ and the card line, and last
 
 Bounds: the bytes each input is read once and each output written once
 over 3.35 TB/s, and ~10 int32 operations per (valid member, position) of
-a vote (16 per (row, position) of the upload-and-score program) over
-16.7 T op/s (132 SMs x 64 INT32 lanes x 1.98 GHz); the larger one binds.
+a vote (16 per (row, position) of the upload-and-score program, 8 of the
+dense unpack, 12 of the dense score map) over 16.7 T op/s (132 SMs x 64
+INT32 lanes x 1.98 GHz); the larger one binds.
 
 JAX and the JAX package are blocked for the whole run: nothing here may
 import them.
@@ -186,6 +212,18 @@ SCORE_KW = dict(hi=30, mod=20, lo=15, s_hi=12, s_mod=8, s_lo=6, s_bad=4)
 # decode, the qual's source, the mask, the overlap test, the mate compare,
 # the tier chain and the selects (a scored row's mate rebuilt again)
 OPS_PER_UPLOAD_POS = 16
+# the dense staging route's shapes (rows, w, L): the deep panel single-shot
+# (--windows 1: one window of 239,499 rows of 150 bases) and a 2x300
+# streaming window; and the modes each times with (seq, qual: the deep
+# panel's three qual values ship 2-bit, unbinned MiSeq quals raw)
+DENSE_SHAPES = ((239_499, 152, 160), (48_000, 304, 320))
+DENSE_TIMED_MODES = (("2bit", "2bit"), ("2bit", "raw"))
+# integer operations per (row, position): csrc/upload_dense.cu's unpack
+# (the length test, the decode, the table, two byte inserts) and score map
+# (the overlap test, the mate's column, the compare, the tier chain, the
+# selects, two byte inserts)
+OPS_PER_UNPACK_POS = 8
+OPS_PER_SCORE_POS = 12
 
 
 def emit(obj):
@@ -255,6 +293,9 @@ def phase_build():
         name = ("vote_window" if "vote_window" in fn else
                 "upload_score" if "upload_score" in fn else
                 "refbase" if "refbase_kernel" in fn else
+                "upload_unpack" if "upload_unpack" in fn else
+                ("score_map (packed)" if "ILb1E" in fn else "score_map")
+                if "score_map" in fn else
                 "vote (16 bins)" if "Bins16" in fn else
                 "vote alone" if out and out.group(1) == "0" else "vote")
         if "decide_kernel" in fn:   # vote.cu's second pass (split > 1)
@@ -1089,6 +1130,144 @@ def _upload_timed_shape(torch, np, n, flags, dev):
     return timed
 
 
+def _score_map_plain(kernels):
+    """kernels.score_map's signature over the plain twins: the dense
+    route's score maps as the port ran them before csrc/upload_dense.cu."""
+    def f(seq_all, qual_all, mate_row, my_len, *, meta=None, my_start=None,
+          mate_start=None, cmp_len=None, is_left=None, scored=None,
+          **tiers):
+        if meta is not None:
+            return kernels.score_map_packed_plain(
+                seq_all, qual_all, my_len, mate_row, meta, **tiers)
+        return kernels.score_map_plain(
+            seq_all, qual_all, mate_row, my_start, mate_start, cmp_len,
+            my_len, is_left, scored, **tiers)
+    return f
+
+
+def _unpack_bound(args, kw):
+    """(bytes, int ops) of one dense unpack: the staging read once, seq
+    and qual [n, L] and the lengths written once."""
+    n, L = args[0].shape[0], kw["L"]
+    n_bytes = sum(t.numel() * t.element_size() for t in args) + 2 * n * L \
+        + 4 * n
+    return n_bytes, OPS_PER_UNPACK_POS * n * L
+
+
+def _score_bound(args, kw):
+    """(bytes, int ops) of one score map: qual [N, L] read once, seq only
+    for scored rows (the kernel reads no seq of an unscored row), the
+    geometry once, score and qual [N, L] written once."""
+    seq = args[0]
+    N, L = seq.shape
+    if kw.get("meta") is not None:
+        n_scored = int(((kw["meta"] >> 26) & 1).sum())
+    else:
+        n_scored = int((kw["scored"] != 0).sum())
+    geo = [args[2], args[3]] + [t for t in kw.values()
+                                if hasattr(t, "element_size")]
+    n_bytes = (N * L + n_scored * L + 2 * N * L
+               + sum(t.numel() * t.element_size() for t in geo))
+    return n_bytes, OPS_PER_SCORE_POS * N * L
+
+
+def _dense_check(torch, kind, args, kw, phase, timed=True):
+    """One dense-route kernel call: the kernel (kernels.upload_unpack or
+    kernels.score_map) against its plain twin on the card (exact), then,
+    where `timed`, its device ms (CUDA events), call ms and the twin's in
+    turns, bound and share."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.core import kernels
+    if kind == "upload_unpack":
+        def kern():
+            return kernels.upload_unpack(*args, **kw)
+
+        def plain():
+            return engine._upload_unpack_plain(
+                kw["w"], kw["L"], kw["qual_mode"], kw["seq_mode"])(*args)
+        n_bytes, n_ops = _unpack_bound(args, kw)
+    else:
+        twin = _score_map_plain(kernels)
+
+        def kern():
+            return kernels.score_map(*args, **kw)
+
+        def plain():
+            return twin(*args, **kw)
+        n_bytes, n_ops = _score_bound(args, kw)
+    mism, err = _upload_compare(kern(), plain())
+    torch.cuda.synchronize()
+    if mism:
+        static = {k: v for k, v in kw.items() if isinstance(v, (int, str))}
+        fail(phase, f"{kind} kernel != twin at {tuple(args[0].shape)} "
+                    f"{static}: {mism} mismatching bytes")
+    if not timed:
+        return {"rows": int(args[0].shape[0]), "mismatches": mism,
+                "max_abs_err": err}
+    t = _timings(torch, plain, kern, f"{kind}_kernel", 5, 20)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return {"rows": int(args[0].shape[0]), "mismatches": mism,
+            "max_abs_err": err, **t, "bytes": n_bytes, "int_ops": n_ops,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / t["ms"]}
+
+
+def phase_dense(torch, np):
+    """2f: csrc/upload_dense.cu against its plain twins on the card,
+    exact: gc_upload_unpack against engine._upload_unpack_plain for the 6
+    seq and qual mode pairs at each of DENSE_SHAPES, timed with the
+    route's modes (DENSE_TIMED_MODES); gc_score_map against
+    kernels.score_map_packed_plain (packed, 48,000 rows, L = 160) and
+    kernels.score_map_plain (int32, 239,499 rows at L = 160 and 48,000
+    rows at L = 320), each timed."""
+    from gencore_tpu_torch.tools import workloads
+    dev = torch.device("cuda", 0)
+    unpack = []
+    worst = 0
+    for si, ((n, w, L), timed_modes) in enumerate(zip(DENSE_SHAPES,
+                                                      DENSE_TIMED_MODES)):
+        for mi, modes in enumerate((sm, qm) for sm in ("2bit", "4bit")
+                                   for qm in ("2bit", "4bit", "raw")):
+            rng = np.random.default_rng(4000 + 10 * si + mi)
+            args = [torch.from_numpy(a).to(dev)
+                    for a in workloads.dense_staging(rng, n, w, *modes)]
+            kw = dict(w=w, L=L, seq_mode=modes[0], qual_mode=modes[1])
+            r = _dense_check(torch, "upload_unpack", args, kw, "2f",
+                             timed=modes == timed_modes)
+            worst = max(worst, r["max_abs_err"])
+            unpack.append({"w": w, "L": L, "seq_mode": modes[0],
+                           "qual_mode": modes[1], **r})
+            del args
+    score = []
+    for si, (N, L, packed) in enumerate(((48_000, 160, True),
+                                         (239_499, 160, False),
+                                         (48_000, 320, False))):
+        host = workloads.score_geometry(np.random.default_rng(5000 + si), N,
+                                        L, packed)
+        t = [torch.from_numpy(a).to(dev) for a in host]
+        if packed:
+            seq, qual, my_len, mate, meta = t
+            args, kw = (seq, qual, mate, my_len), dict(meta=meta)
+        else:
+            seq, qual, mate, ms, ts, cl, my_len, left, sc = t
+            args = (seq, qual, mate, my_len)
+            kw = dict(my_start=ms, mate_start=ts, cmp_len=cl, is_left=left,
+                      scored=sc)
+        r = _dense_check(torch, "score_map", args, {**kw, **SCORE_KW}, "2f")
+        worst = max(worst, r["max_abs_err"])
+        score.append({"L": L, "packed": packed, **r})
+        del t, args, kw
+    emit({"phase": "2f", "name": "gc_upload_unpack vs "
+                                 "engine._upload_unpack_plain, gc_score_map "
+                                 "vs kernels.score_map_plain / "
+                                 "score_map_packed_plain", "ok": True,
+          "tolerance": "exact (0 mismatching bytes)",
+          "upload_unpack": unpack, "score_map": score,
+          "max_abs_err": worst})
+    return {"upload_unpack": unpack, "score_map": score,
+            "max_abs_err": worst}
+
+
 def _cli(args):
     """The port's CLI in-process; returns (rc, captured stderr)."""
     from gencore_tpu_torch import cli
@@ -1103,18 +1282,14 @@ def _no_plain_on_card(torch):
     """For the run inside, no plain version runs on CUDA tensors where a
     hand kernel stands for it: vote.py's plain _epilogue_core inside one
     of its Pallas counterparts (pallas_vote_window, pallas_vote_gathered,
-    pallas_vote), whose whole body on the card must be hand kernels; the
-    plain upload rebuild (engine._upload_sparse_fn and
-    engine._upload_sparse_trace) anywhere, since every sparse window of
-    any size goes up through csrc/upload_score.cu; the plain score map
-    (engine._upload_score_plain, kernels.score_map_kernel_packed,
-    score_map_kernel and _qual2score) inside the upload-and-score program
-    (the function engine._upload_score_fn returns); and
-    vote.refbase_combine anywhere (the refbase assembly of every route is
-    csrc/vote_window.cu or csrc/refbase.cu on the card). Each raises
-    there. Only the dense route (windows whose staging stays dense: its
-    plain unpack and score map, ROADMAP queue 2) stays plain and stays
-    allowed. Yields counts: entries into the counterparts,
+    pallas_vote), whose whole body on the card must be hand kernels; and
+    anywhere the plain upload rebuild (engine._upload_sparse_fn,
+    engine._upload_sparse_trace) and upload-and-score program
+    (engine._upload_score_plain), the plain dense unpack
+    (engine._upload_unpack_plain), both plain score maps
+    (kernels.score_map_plain, kernels.score_map_packed_plain) and their
+    tiering (kernels._qual2score), and vote.refbase_combine. Each raises
+    there. Yields counts: entries into the counterparts,
     upload-and-score programs run, and plain calls caught."""
     import threading
 
@@ -1172,25 +1347,24 @@ def _no_plain_on_card(torch):
             engine, "_upload_score_fn", factory(
                 engine._upload_score_fn,
                 lambda fn: entered("upload", "upload_score_calls", fn))))
-        stack.enter_context(_patched(engine, "_upload_score_plain", factory(
-            engine._upload_score_plain,
-            lambda fn: plain("upload", "engine._upload_score_plain", fn))))
-        for name in ("_upload_sparse_fn", "_upload_sparse_trace"):
+        for name in ("_upload_score_plain", "_upload_sparse_fn",
+                     "_upload_sparse_trace", "_upload_unpack_plain"):
             stack.enter_context(_patched(engine, name, factory(
                 getattr(engine, name),
                 lambda fn, name=name: plain(None, f"engine.{name}", fn))))
-        for name in ("score_map_kernel_packed", "score_map_kernel",
+        for name in ("score_map_plain", "score_map_packed_plain",
                      "_qual2score"):
             stack.enter_context(_patched(kernels, name, plain(
-                "upload", f"kernels.{name}", getattr(kernels, name))))
+                None, f"kernels.{name}", getattr(kernels, name))))
         yield seen
 
 
-def _guard_ok(phase, seen):
-    """Fails the phase unless the counterparts and the deferred upload-
-    and-score program ran and no plain version ran where a kernel stands
-    for it."""
-    if (not seen["counterpart_calls"] or not seen["upload_score_calls"]
+def _guard_ok(phase, seen, deferred=True):
+    """Fails the phase unless the counterparts ran, the deferred upload-
+    and-score program too where `deferred` (windows that stage sparse),
+    and no plain version ran where a kernel stands for it."""
+    if (not seen["counterpart_calls"]
+            or (deferred and not seen["upload_score_calls"])
             or seen["plain_calls_inside"]):
         fail(phase, f"the plain-version guard saw {seen}: a plain version "
                     "ran on the card where a hand kernel stands for it, or "
@@ -1215,30 +1389,37 @@ def _window_uploads():
 
 def _window_upload(work):
     """One window's upload staging: mode (sparse: the upload-and-score
-    kernel's; dense: the plain unpack), rows (n_pad), widths (w, L) and the
+    kernel's; dense: csrc/upload_dense.cu's unpack and score map), its
+    seq and qual modes, rows (n_pad), widths (w, L) and the
     sizes that decided the mode (dense table rows nd, genome slots ns,
     dense qual rows nq, as far as the sparse staging got)."""
     return {"mode": work.upload_mode, "n_pad": int(work.n_pad),
             "w": int(work.w_host), "L": int(work.L),
+            "seq_mode": work.seq_mode, "qual_mode": work.qual_mode,
             **{k: int(v) for k, v in getattr(work, "sparse_sizes",
                                              {}).items()}}
 
 
 def upload_routes(args):
     """The port's CLI on the card with `args`, printing one JSON line:
-    each window's upload staging (`_window_upload`), the upload-and-score
-    kernel's launches and the run's upload stage seconds."""
+    each window's upload staging (`_window_upload`), the launches of the
+    upload-and-score kernel and of the dense route's unpack and score map,
+    and the run's upload stage seconds."""
     import torch  # noqa: F401
 
     from gencore_tpu_torch.core import kernels
-    n0 = kernels.UPLOAD_SCORE_LAUNCHES
+    n0 = (kernels.UPLOAD_SCORE_LAUNCHES, kernels.UPLOAD_UNPACK_LAUNCHES,
+          kernels.SCORE_MAP_LAUNCHES)
     with _window_uploads() as rec:
         rc, err = _cli([*args, "--device", "cuda", "--debug"])
-    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
-        r"\[stage\] (\S+): ([0-9.]+)s", err)}
+    stages = _stage_seconds(err)
     print(json.dumps({"args": args, "rc": rc, "windows": rec,
                       "upload_score_launches":
-                      kernels.UPLOAD_SCORE_LAUNCHES - n0,
+                      kernels.UPLOAD_SCORE_LAUNCHES - n0[0],
+                      "upload_unpack_launches":
+                      kernels.UPLOAD_UNPACK_LAUNCHES - n0[1],
+                      "score_map_launches":
+                      kernels.SCORE_MAP_LAUNCHES - n0[2],
                       "stages": {k: v for k, v in stages.items()
                                  if k.startswith(("materialize", "score"))}}),
           flush=True)
@@ -1347,6 +1528,17 @@ def _golden_workload(name, phase):
     return bam, fa, golden, n_in, t_gen
 
 
+def _stage_seconds(err):
+    """A --debug CLI run's stage sums from its stderr: the windowed paths'
+    `[stage] name: 1.234s (summed over ...)` lines and the single-shot
+    run's `  name   1.234s  12.3%  xN` table."""
+    out = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[stage\] (\S+): ([0-9.]+)s", err)}
+    out.update((m.group(1), float(m.group(2))) for m in re.finditer(
+        r"(?m)^  (\S+) +([0-9.]+)s +[0-9.]+%  x\d+$", err))
+    return out
+
+
 def _io_lines(err):
     """The `I/O: ...` lines of a CLI run's stderr (the CLI prints one)."""
     return [ln for ln in err.splitlines() if ln.startswith("I/O: ")]
@@ -1362,6 +1554,8 @@ def _counters(vote):
     return {"vote": vote.LAUNCHES, "vote_full": vote.FULL_LAUNCHES,
             "vote_window": vote.WINDOW_LAUNCHES,
             "upload_score": kernels.UPLOAD_SCORE_LAUNCHES,
+            "upload_unpack": kernels.UPLOAD_UNPACK_LAUNCHES,
+            "score_map": kernels.SCORE_MAP_LAUNCHES,
             "refbase": vote.REFBASE_LAUNCHES}
 
 
@@ -1373,6 +1567,8 @@ def _zero_counters(vote):
     vote.VOTE_ONLY_LAUNCHES = 0
     vote.REFBASE_LAUNCHES = 0
     kernels.UPLOAD_SCORE_LAUNCHES = 0
+    kernels.UPLOAD_UNPACK_LAUNCHES = 0
+    kernels.SCORE_MAP_LAUNCHES = 0
 
 
 def phase_full_bins(torch):
@@ -1439,8 +1635,7 @@ def phase_ultradeep(torch, np):
     if io_lines != [_streaming_line()]:
         fail(7, f"the ultradeep run did not take the streaming path on the "
                 f"native core: {io_lines}")
-    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
-        r"\[stage\] (\S+): ([0-9.]+)s", err)}
+    stages = _stage_seconds(err)
 
     # a second run records each gathered launch's inputs, replayed after,
     # and the refbase assembly's of the most jobs
@@ -1497,6 +1692,96 @@ def phase_ultradeep(torch, np):
            "refbase_largest": refbase_timed,
            "output_digest_equal": out_ok, "report_stats_equal": rep_ok,
            "stage_seconds": stages}
+    emit(res)
+    return res, (bam, fa, golden)
+
+
+def _dense_recorder(torch, largest):
+    """Stand-ins for kernels.upload_unpack and kernels.score_map that call
+    them and keep, in largest["upload_unpack"] / largest["score_map"],
+    copies of the arguments of the call of the most rows (replayed after
+    the run)."""
+    from gencore_tpu_torch.core import kernels
+
+    def rec(key, orig):
+        def f(*a, **k):
+            if a[0].shape[0] > largest.get(key, {}).get("rows", -1):
+                largest[key] = {
+                    "rows": a[0].shape[0],
+                    "args": [t.clone() for t in a],
+                    "kw": {kk: v.clone() if isinstance(v, torch.Tensor)
+                           else v for kk, v in k.items()}}
+            return orig(*a, **k)
+        return f
+    return (rec("upload_unpack", kernels.upload_unpack),
+            rec("score_map", kernels.score_map))
+
+
+def phase_long_reads(torch):
+    """7b: the long_amplicon panel (2x300 reads, so every window stages
+    dense and votes at L = 320 through csrc/vote.cu's gathered entry)
+    through the CLI's default streaming path on cuda against its golden
+    digests, with no plain version on the card: the dense unpack and
+    score map, the gathered vote at L = 320 and the refbase assembly
+    (K11) must launch; wall seconds and reads/s of that run, then its
+    largest unpack and score map (recorded in the run) replayed against
+    their twins and timed."""
+    from gencore_tpu_torch.core import kernels, vote
+    bam, fa, golden, n_in, t_gen = _golden_workload("long_amplicon", "7b")
+    largest = {}
+    gathered_L = []
+    orig_g = vote.vote_gathered
+
+    def counted_g(*a, **k):
+        gathered_L.append(int(a[0].shape[1]))
+        return orig_g(*a, **k)
+
+    u_rec, s_rec = _dense_recorder(torch, largest)
+    with _patched(kernels, "upload_unpack", u_rec), \
+            _patched(kernels, "score_map", s_rec), \
+            _patched(vote, "vote_gathered", counted_g), \
+            _window_uploads() as windows, \
+            _no_plain_on_card(torch) as guard:
+        _zero_counters(vote)
+        rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
+            torch, bam, fa, os.path.join(WORK, "long_amplicon"), golden)
+        launches = _counters(vote)
+    if rc:
+        fail("7b", f"CLI exit code {rc}: {err[-2000:]}")
+    _guard_ok("7b", guard, deferred=False)
+    io_lines = _io_lines(err)
+    stages = _stage_seconds(err)
+    res = {"phase": "7b", "name": "long_amplicon (2x300, dense windows, "
+                                  "L = 320) vs golden, streaming path",
+           "ok": True, "workload": golden["workload"], "io_line": io_lines,
+           "reads_in": n_in, "records_out": n_out, "generate_s": t_gen,
+           "run_s": t_run, "reads_per_s": n_in / t_run, "windows": windows,
+           "gathered_launch_L": sorted(set(gathered_L)),
+           "kernel_launches": launches, "plain_guard": guard,
+           "output_digest_equal": out_ok, "report_stats_equal": rep_ok,
+           "stage_seconds": stages}
+    if not (out_ok and rep_ok and io_lines == [_streaming_line()] and windows
+            and all(w["mode"] == "dense" and w["L"] == 320 for w in windows)
+            and launches["vote"] > 0 and 320 in gathered_L
+            and launches["refbase"] > 0
+            and launches["upload_unpack"] == len(windows)
+            and launches["score_map"] > 0):
+        res["ok"] = False
+        emit(res)
+        fail("7b", "the long-read panel differs from the golden digests, "
+                   "left the streaming path, staged a window sparse or not "
+                   "at L = 320, or did not launch the dense kernels, the "
+                   "gathered vote at L = 320 or the refbase assembly")
+    for kind in ("upload_unpack", "score_map"):
+        rec = largest.pop(kind)
+        kw = rec["kw"]
+        res[f"{kind}_largest"] = {
+            "modes": {k: kw[k] for k in ("seq_mode", "qual_mode")}
+            if kind == "upload_unpack" else {"packed": "meta" in kw and
+                                             kw["meta"] is not None},
+            "L": int(rec["args"][0].shape[1]) if kind == "score_map"
+            else kw["L"],
+            **_dense_check(torch, kind, rec["args"], kw, "7b")}
     emit(res)
     return res, (bam, fa, golden)
 
@@ -1602,8 +1887,7 @@ def phase_full(torch, np):
     if len(streamed) != 1 or io_lines != [_streaming_line()]:
         fail(4, f"the deep panel did not go through run_streaming once on "
                 f"the native core: calls={len(streamed)} lines={io_lines}")
-    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
-        r"\[stage\] (\S+): ([0-9.]+)s", err)}
+    stages = _stage_seconds(err)
     ok = (output_ok and report_ok and launches["vote_window"] > 0
           and launches["vote_window"] == len(per_launch)
           and launches["upload_score"] == guard["upload_score_calls"] > 0)
@@ -1772,8 +2056,7 @@ def phase_in_memory(torch, bam, fa, golden, n_windows=5):
         if rc:
             fail("4c", f"CLI exit code {rc} ({tag}): {err[-2000:]}")
         _guard_ok("4c", guard)
-        stages = {m.group(1): float(m.group(2)) for m in re.finditer(
-            r"\[stage\] (\S+): ([0-9.]+)s", err)}
+        stages = _stage_seconds(err)
         runs[tag] = {"io_line": _io_lines(err), "run_s": t_run,
                      "records_out": n_out, "kernel_launches": launches,
                      "output_digest_equal": out_ok,
@@ -1798,6 +2081,43 @@ def phase_in_memory(torch, bam, fa, golden, n_windows=5):
                                  "native core, vs golden", "ok": True,
           "n_windows": n_windows, **runs})
     return runs
+
+
+def phase_single_shot(torch, bam, fa, golden):
+    """4d: the deep panel single-shot (`--windows 1`: one window of
+    239,499 rows, whose sparse staging would pass the u16 row limit, so it
+    stages dense) against the golden digests, with no plain version on
+    the card: the dense unpack and score map of csrc/upload_dense.cu must
+    launch."""
+    from gencore_tpu_torch.core import vote
+    with _window_uploads() as windows, _no_plain_on_card(torch) as guard:
+        _zero_counters(vote)
+        rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
+            torch, bam, fa, os.path.join(WORK, "single_shot"), golden,
+            ["--windows", "1"])
+        launches = _counters(vote)
+    if rc:
+        fail("4d", f"CLI exit code {rc}: {err[-2000:]}")
+    _guard_ok("4d", guard, deferred=False)
+    dense = [w for w in windows if w["mode"] == "dense"]
+    stages = _stage_seconds(err)
+    res = {"phase": "4d", "name": "deep panel single-shot (--windows 1, "
+                                  "dense staging) vs golden",
+           "ok": True, "io_line": _io_lines(err), "windows": windows,
+           "run_s": t_run, "reads_per_s": golden["input"]["records"] / t_run,
+           "records_out": n_out, "kernel_launches": launches,
+           "plain_guard": guard, "output_digest_equal": out_ok,
+           "report_stats_equal": rep_ok, "stage_seconds": stages}
+    if not (out_ok and rep_ok and dense
+            and launches["upload_unpack"] == len(dense)
+            and launches["score_map"] > 0):
+        res["ok"] = False
+        emit(res)
+        fail("4d", "the single-shot deep panel differs from the golden "
+                   "digests, staged no dense window, or did not launch the "
+                   "dense unpack and score map")
+    emit(res)
+    return res
 
 
 def phase_mesh(torch, np):
@@ -2006,58 +2326,97 @@ def _refbase_before(torch):
     return f
 
 
+def _dense_upload_before():
+    """engine._WorkArrays.upload as the port ran the dense route before
+    csrc/upload_dense.cu: the four staging arrays copied up one by one,
+    then the plain unpack."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.core.vote import to_device
+
+    def upload(self, device):
+        return engine._upload_unpack_plain(
+            self.w_host, self.L, self.qual_mode, self.seq_mode)(
+            *[to_device(a, device) for a in (
+                self.seq_up, self.qual_up, self.lens, self.qtable16)])
+    return upload
+
+
 def phase_busy(torch, np, runs):
     """6: one profiled run of each workload in `runs` ((tag, bam, fasta,
-    golden), on its streaming path) before, with the compositions this
-    slice replaced put back for that run only (the plain upload-and-score
-    program after 16 copies, the plain refbase assembly after four), and
-    after."""
+    golden, extra CLI arguments, whether it must stream)) before, with the
+    compositions the port's kernels replaced put back for that run only
+    (the plain upload-and-score program after 16 copies, the plain
+    refbase assembly after four, the dense route's plain unpack after four
+    copies and its plain score maps), and after. A run whose trace holds
+    fewer kernels than its kernel wrappers launched (the profiler drops
+    records now and then) is profiled again, up to three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
+    from gencore_tpu_torch import engine
     from gencore_tpu_torch.core import kernels, vote
     res = {}
-    for wl, bam, fa, golden in runs:
+    for wl, bam, fa, golden, extra, streams in runs:
         res[wl] = {}
         for tag in ("before", "after"):
             d = os.path.join(WORK, f"busy_{wl}_{tag}")
             os.makedirs(d, exist_ok=True)
-            with contextlib.ExitStack() as stack:
-                if tag == "before":
-                    stack.enter_context(_patched(
-                        kernels, "upload_score", _upload_before(torch)))
-                    stack.enter_context(_patched(
-                        vote, "refbase", _refbase_before(torch)))
-                _zero_counters(vote)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    rc, err, t_run, _n, out_ok, rep_ok = _deep_panel_run(
-                        torch, bam, fa, d, golden)
-                counted = _counters(vote)
-                counted["vote_alone"] = vote.VOTE_ONLY_LAUNCHES
-            if rc or not (out_ok and rep_ok):
-                fail(6, f"profiled {wl} run ({tag}) failed or differs from "
-                        f"the golden digests: rc={rc} {err[-1000:]}")
-            if _io_lines(err) != [_streaming_line()]:
-                fail(6, f"profiled {wl} run ({tag}) did not take the "
-                        f"streaming path on the native core: {_io_lines(err)}")
-            trace = os.path.join(d, "trace.json")
-            prof.export_chrome_trace(trace)
+            # the profiler now and then drops a run's kernel records (a
+            # trace with fewer kernels than the kernel wrappers counted):
+            # such a run is profiled again, up to three times
+            for attempt in range(1, 4):
+                with contextlib.ExitStack() as stack:
+                    if tag == "before":
+                        stack.enter_context(_patched(
+                            kernels, "upload_score", _upload_before(torch)))
+                        stack.enter_context(_patched(
+                            vote, "refbase", _refbase_before(torch)))
+                        stack.enter_context(_patched(
+                            engine._WorkArrays, "upload",
+                            _dense_upload_before()))
+                        stack.enter_context(_patched(
+                            kernels, "score_map",
+                            _score_map_plain(kernels)))
+                    _zero_counters(vote)
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        rc, err, t_run, _n, out_ok, rep_ok = _deep_panel_run(
+                            torch, bam, fa, d, golden, extra)
+                    counted = _counters(vote)
+                    counted["vote_alone"] = vote.VOTE_ONLY_LAUNCHES
+                if rc or not (out_ok and rep_ok):
+                    fail(6, f"profiled {wl} run ({tag}) failed or differs "
+                            f"from the golden digests: rc={rc} "
+                            f"{err[-1000:]}")
+                if streams and _io_lines(err) != [_streaming_line()]:
+                    fail(6, f"profiled {wl} run ({tag}) did not take the "
+                            "streaming path on the native core: "
+                            f"{_io_lines(err)}")
+                trace = os.path.join(d, "trace.json")
+                prof.export_chrome_trace(trace)
+                act = _device_activity(trace)
+                os.remove(trace)
+                if act["kernels"] >= sum(counted.values()):
+                    break
             res[wl][tag] = {"wall_s_profiled": t_run,
                             "kernel_launches": counted,
-                            **_device_activity(trace)}
-            os.remove(trace)
+                            "profiled_runs": attempt, **act}
         b, a = res[wl]["before"], res[wl]["after"]
         res[wl]["fewer"] = {k: b[k] - a[k] for k in ("kernels", "memcpys",
                                                     "memsets")}
     emit({"phase": 6, "name": "device busy, kernels and memcpys per run, "
                               "before/after", "ok": True,
           "before": "the plain upload-and-score program "
-                    "(engine._upload_score_plain after 16 copies up) and "
+                    "(engine._upload_score_plain after 16 copies up), "
                     "the plain refbase assembly of the unfused routes "
-                    "(refbase_combine after four copies up), substituted "
-                    "for that run only",
+                    "(refbase_combine after four copies up) and the dense "
+                    "route's plain unpack (engine._upload_unpack_plain "
+                    "after four copies up) and score maps "
+                    "(kernels.score_map_plain, score_map_packed_plain), "
+                    "substituted for that run only",
           "after": "csrc/upload_score.cu (one copy up, one launch per "
-                   "window) and csrc/refbase.cu (one copy, one launch)",
+                   "window), csrc/refbase.cu (one copy, one launch) and "
+                   "csrc/upload_dense.cu (one copy up, one unpack and one "
+                   "score-map launch per dense window)",
           **res})
     return res
 
@@ -2080,7 +2439,8 @@ def phase_cases(torch, np):
     t_gen = time.perf_counter() - t0
     runs = []
     totals = {"vote": 0, "vote_full": 0, "vote_window": 0,
-              "upload_score": 0, "refbase": 0}
+              "upload_score": 0, "upload_unpack": 0, "score_map": 0,
+              "refbase": 0}
     largest = {"sum_counts": -1}
     t0 = time.perf_counter()
     guards = {"counterpart_calls": 0, "upload_score_calls": 0,
@@ -2431,6 +2791,42 @@ def phase_tsan():
           "program": os.path.relpath(exe, REPO)})
 
 
+def _dense_line(kind, lr, single, cases, cases_in, dense):
+    """The kernels line's entry of one csrc/upload_dense.cu kernel: its
+    launches in phase 7b (the long-read panel on the default streaming
+    path), 4d and 9, and its times at 7b's largest call."""
+    t = lr[f"{kind}_largest"]
+    return {
+        "name": kind, "route": "cuda",
+        "source": "gencore_tpu_torch/csrc/upload_dense.cu",
+        "replaces": {"upload_unpack": "gencore_tpu/engine.py:2883",
+                     "score_map": "gencore_tpu/core/kernels.py:310"}[kind],
+        "replaces_what": {
+            "upload_unpack": "_upload_unpack_fn, the XLA program K12 of "
+                             "the dense staging route; no Pallas kernel",
+            "score_map": "score_map_kernel and :373 "
+                         "score_map_kernel_packed, the XLA program K5 of "
+                         "the dense staging route; no Pallas kernel"}[kind],
+        "launches": lr["kernel_launches"][kind],
+        "launches_in": "phase 7b, the long_amplicon panel on the default "
+                       "streaming path (every window dense)",
+        "launches_single_shot": single["kernel_launches"][kind],
+        "launches_single_shot_in": "phase 4d, the deep panel with "
+                                   "--windows 1",
+        "launches_cases": cases["kernel_launches"][kind],
+        "launches_cases_in": cases_in,
+        "max_abs_err": max(t["max_abs_err"], dense["max_abs_err"]),
+        "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "share_of_bound": t["share_of_bound"], "library_ms": None,
+        "shape": f"phase 7b, the run's largest call: {t['rows']} rows, "
+                 f"L={t['L']}, {t['modes']}",
+        "phase_2f": [{k: r[k] for k in ("rows", "L", "ms", "call_ms",
+                                        "plain_ms", "bound_ms",
+                                        "share_of_bound") if k in r}
+                     for r in dense[kind] if "ms" in r]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2446,6 +2842,7 @@ def main() -> int:
     vk = phase_vote_kernel(torch, np)
     win_err = phase_window_kernel(torch, np)
     ups = phase_upload_score(torch, np)
+    dense = phase_dense(torch, np)
     piles = phase_deep_piles(torch, np)
     full = phase_full_kernel(torch, np)
     phase_small(torch)
@@ -2453,10 +2850,15 @@ def main() -> int:
     bam, fa, golden, launches, largest = phase_full(torch, np)
     shard_runs = phase_shards(torch, bam, fa, golden)
     mem_runs = phase_in_memory(torch, bam, fa, golden)
+    single = phase_single_shot(torch, bam, fa, golden)
     rep = phase_replay(torch, np, largest)
     ud, ud_wl = phase_ultradeep(torch, np)
-    phase_busy(torch, np, [("deep_panel", bam, fa, golden),
-                           ("ultradeep", *ud_wl)])
+    lr, lr_wl = phase_long_reads(torch)
+    phase_busy(torch, np, [
+        ("deep_panel", bam, fa, golden, [], True),
+        ("deep_panel_windows1", bam, fa, golden, ["--windows", "1"], False),
+        ("ultradeep", *ud_wl, [], True),
+        ("long_amplicon", *lr_wl, [], True)])
     mesh_res = phase_mesh(torch, np)
     t9 = time.perf_counter()
     cases = phase_cases(torch, np)
@@ -2594,7 +2996,9 @@ def main() -> int:
          "bound_by": ud["refbase_largest"]["bound_by"], "library_ms": None,
          "shape": f"phase 7, the ultra-deep run's refbase assembly of the "
                   f"most jobs: J={ud['refbase_largest']['J']}, "
-                  f"L={ud['refbase_largest']['L']}"}],
+                  f"L={ud['refbase_largest']['L']}"},
+        *[_dense_line(kind, lr, single, cases, cases_in, dense)
+          for kind in ("upload_unpack", "score_map")]],
         "seconds": time.perf_counter() - t_start,
         "seconds_phases_9_to_11": t_new})
     print(card, flush=True)

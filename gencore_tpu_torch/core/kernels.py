@@ -1,13 +1,22 @@
 """Overlap scoring and the [J, K, L] vote (port of
 gencore_tpu/core/kernels.py).
 
-* `score_map_kernel` — Pair::computeScore (pair.cpp:88-172) as a per-row
-  map: every read row looks up its mate row and computes its own scores
-  and rewritten quals. An XLA program in the JAX package (no Pallas
-  kernel), so plain tensor code here. The mate shift is a direct index
+* `score_map_kernel`, `score_map_kernel_packed` — Pair::computeScore
+  (pair.cpp:88-172) as a per-row map (K5): every read row looks up its
+  mate row and computes its own scores and rewritten quals, the geometry
+  in seven per-row arrays or packed into one word per row. XLA programs in
+  the JAX package (no Pallas kernel). On CUDA tensors both launch
+  `csrc/upload_dense.cu`'s gc_score_map (`score_map`), the dense staging
+  route's score map; on CPU tensors their plain twins `score_map_plain`
+  and `score_map_packed_plain` run. The mate shift is a direct index
   gather; the JAX version's log2(L) lane-roll ladder existed only because
   a per-element gather scalarizes on a TPU. The gather index
   (j + shift) mod L is exactly what that roll ladder computed.
+* `upload_unpack` — `csrc/upload_dense.cu`'s gc_upload_unpack (K12): the
+  dense staging unpacked into the resident matrices, for
+  engine._upload_unpack_fn on CUDA tensors (its twin
+  engine._upload_unpack_plain); `pinned_parts` sends host arrays up in
+  one pinned copy.
 * `fused_vote_kernel` / `_vote_core` — Group::makeConsensus over members
   gathered from the device matrices with per-member lenDiff shifts, with
   all 16 nt16 bins (`full_bins=True`, data with codes outside =ACGTN) or
@@ -37,8 +46,11 @@ from gencore_tpu_torch.core import vote
 
 I32 = torch.int32
 
-# launches of csrc/upload_score.cu (`upload_score`), CUDA tensors only
+# launches of csrc/upload_score.cu (`upload_score`) and of
+# csrc/upload_dense.cu (`upload_unpack`, `score_map`), CUDA tensors only
 UPLOAD_SCORE_LAUNCHES = 0
+UPLOAD_UNPACK_LAUNCHES = 0
+SCORE_MAP_LAUNCHES = 0
 
 
 def ratio_fraction(score_percent_req: float) -> tuple[int, int]:
@@ -66,7 +78,28 @@ def score_map_kernel(seq_all, qual_all, mate_row, my_start, mate_start,
     seq_all/qual_all u8 [N, L]; per-row mate_row, my_start, mate_start,
     cmp_len, my_len (int), is_left, scored (bool) [N]. Returns
     (score_all i8 [N, L], qual_all' u8 [N, L]) exactly as the JAX
-    score_map_kernel."""
+    score_map_kernel. CPU tensors run the plain twin `score_map_plain`;
+    CUDA tensors launch the kernel (`score_map`: int32 geometry, u8 or
+    bool flags)."""
+    kw = dict(hi=hi, mod=mod, lo=lo, s_hi=s_hi, s_mod=s_mod, s_lo=s_lo,
+              s_bad=s_bad)
+    dev = seq_all.device
+    if dev.type == "cuda":
+        return score_map(seq_all, qual_all, mate_row, my_len,
+                         my_start=my_start, mate_start=mate_start,
+                         cmp_len=cmp_len, is_left=is_left, scored=scored,
+                         **kw)
+    if dev.type != "cpu":
+        raise ValueError(f"score_map_kernel: unsupported device {dev}")
+    return score_map_plain(seq_all, qual_all, mate_row, my_start, mate_start,
+                           cmp_len, my_len, is_left, scored, **kw)
+
+
+def score_map_plain(seq_all, qual_all, mate_row, my_start, mate_start,
+                    cmp_len, my_len, is_left, scored, *, hi, mod, lo, s_hi,
+                    s_mod, s_lo, s_bad):
+    """score_map_kernel in plain PyTorch on any device: the twin of
+    csrc/upload_dense.cu's gc_score_map."""
     N, L = seq_all.shape
     dev = seq_all.device
     j = torch.arange(L, dtype=I32, device=dev)[None, :]
@@ -100,13 +133,189 @@ def score_map_kernel_packed(seq_all, qual_all, lens_dev, mate_row, meta, *,
                             hi, mod, lo, s_hi, s_mod, s_lo, s_bad):
     """score_map_kernel with the per-row geometry packed into one integer
     (my_start 8b | mate_start 8b | cmp_len 9b | is_left 1b | scored 1b)
-    and the lengths taken from the device lens array."""
+    and the lengths taken from the device lens array. CPU tensors run the
+    plain twin `score_map_packed_plain`; CUDA tensors launch the kernel
+    (`score_map` with meta: int32 lens, mate rows and meta)."""
+    kw = dict(hi=hi, mod=mod, lo=lo, s_hi=s_hi, s_mod=s_mod, s_lo=s_lo,
+              s_bad=s_bad)
+    dev = seq_all.device
+    if dev.type == "cuda":
+        return score_map(seq_all, qual_all, mate_row, lens_dev, meta=meta,
+                         **kw)
+    if dev.type != "cpu":
+        raise ValueError(f"score_map_kernel_packed: unsupported device {dev}")
+    return score_map_packed_plain(seq_all, qual_all, lens_dev, mate_row, meta,
+                                  **kw)
+
+
+def score_map_packed_plain(seq_all, qual_all, lens_dev, mate_row, meta, *,
+                           hi, mod, lo, s_hi, s_mod, s_lo, s_bad):
+    """score_map_kernel_packed in plain PyTorch on any device: the twin of
+    gc_score_map's packed form."""
     meta = meta.to(torch.int64)
-    return score_map_kernel(
+    return score_map_plain(
         seq_all, qual_all, mate_row, meta & 0xFF, (meta >> 8) & 0xFF,
         (meta >> 16) & 0x1FF, lens_dev, ((meta >> 25) & 1).bool(),
         ((meta >> 26) & 1).bool(), hi=hi, mod=mod, lo=lo, s_hi=s_hi,
         s_mod=s_mod, s_lo=s_lo, s_bad=s_bad)
+
+
+def _dense_checks(fn, dev, specs):
+    """Each tensor of specs ({name: (tensor, dtypes, shape)}) on `dev`,
+    contiguous, of one of the dtypes and the shape; raises otherwise."""
+    for name, (t, dtypes, shape) in specs.items():
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"{fn}: {name} must be a tensor on {dev}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, expected one of "
+                            f"{[str(d) for d in dtypes]}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
+def score_map(seq_all, qual_all, mate_row, my_len, *, meta=None,
+              my_start=None, mate_start=None, cmp_len=None, is_left=None,
+              scored=None, hi, mod, lo, s_hi, s_mod, s_lo, s_bad):
+    """csrc/upload_dense.cu's gc_score_map on CUDA tensors: with `meta`
+    the packed form (score_map_kernel_packed; my_len the lengths), else
+    the int32 form (score_map_kernel). seq_all/qual_all u8 [N, L], L a
+    multiple of 16, 16-byte aligned; mate_row, my_len, meta, my_start,
+    mate_start, cmp_len int32 [N]; is_left, scored u8 or bool [N]. Returns
+    new (score i8 [N, L], qual u8 [N, L]), equal byte for byte to the
+    plain twin's."""
+    dev = seq_all.device
+    if dev.type != "cuda":
+        raise ValueError(f"score_map: needs CUDA tensors, got {dev}")
+    if seq_all.dim() != 2:
+        raise ValueError("score_map: seq_all must be [N, L]")
+    N, L = seq_all.shape
+    if L == 0 or L % 16:
+        raise ValueError(f"score_map: L={L} must be a positive multiple "
+                         "of 16")
+    i32, flag = (torch.int32,), (torch.uint8, torch.bool)
+    specs = {"seq_all": (seq_all, (torch.uint8,), (N, L)),
+             "qual_all": (qual_all, (torch.uint8,), (N, L)),
+             "mate_row": (mate_row, i32, (N,)), "my_len": (my_len, i32, (N,))}
+    packed = meta is not None
+    if packed:
+        specs["meta"] = (meta, i32, (N,))
+    else:
+        specs.update(my_start=(my_start, i32, (N,)),
+                     mate_start=(mate_start, i32, (N,)),
+                     cmp_len=(cmp_len, i32, (N,)),
+                     is_left=(is_left, flag, (N,)),
+                     scored=(scored, flag, (N,)))
+    _dense_checks("score_map", dev, specs)
+    if seq_all.data_ptr() % 16 or qual_all.data_ptr() % 16:
+        raise ValueError("score_map: seq_all and qual_all must start at "
+                         "16-byte aligned addresses (the kernel loads 16 "
+                         "bytes at a time)")
+    if N * (L // 16) >= 2**31:
+        raise ValueError(f"score_map: [{N}, {L}] does not fit the kernel's "
+                         "grid")
+    score = torch.empty((N, L), dtype=torch.int8, device=dev)
+    qual = torch.empty((N, L), dtype=torch.uint8, device=dev)
+    if N == 0:
+        return score, qual
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = vote.build_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gc_score_map(
+            seq_all.data_ptr(), qual_all.data_ptr(), mate_row.data_ptr(),
+            ptr(meta), ptr(my_start), ptr(mate_start), ptr(cmp_len),
+            my_len.data_ptr(), ptr(is_left), ptr(scored), score.data_ptr(),
+            qual.data_ptr(), N, L, int(packed), hi, mod, lo, s_hi, s_mod,
+            s_lo, s_bad, stream)
+    if err != 0:
+        raise RuntimeError(f"gc_score_map launch failed: cudaError_t {err}")
+    global SCORE_MAP_LAUNCHES
+    SCORE_MAP_LAUNCHES += 1
+    return score, qual
+
+
+# the dense staging's modes: positions per byte, and gc_upload_unpack's
+# mode bits
+SEQ_MODES = {"2bit": (4, 1), "4bit": (2, 0)}
+QUAL_MODES = {"2bit": (4, 2), "4bit": (2, 4), "raw": (1, 0)}
+
+
+def upload_unpack(seq_up, qual_up, lens, qtable, *, w, L, seq_mode,
+                  qual_mode):
+    """csrc/upload_dense.cu's gc_upload_unpack on CUDA tensors: the dense
+    staging (seq_up u8 [n, sw] 2-bit or 4-bit, qual_up u8 [n, qw] 2-bit
+    or 4-bit indices or raw [n, w], lens int32 [n], qtable u8 [16]) to
+    the resident (seq u8 [n, L], qual u8 [n, L], lens int32 [n]), equal
+    byte for byte to engine._upload_unpack_plain's. L is a multiple of
+    16; w <= L any width the staging holds."""
+    dev = seq_up.device
+    if dev.type != "cuda":
+        raise ValueError(f"upload_unpack: needs CUDA tensors, got {dev}")
+    if seq_mode not in SEQ_MODES or qual_mode not in QUAL_MODES:
+        raise ValueError(f"upload_unpack: unknown modes {seq_mode!r}, "
+                         f"{qual_mode!r}")
+    if seq_up.dim() != 2 or qual_up.dim() != 2:
+        raise ValueError("upload_unpack: seq_up and qual_up must be 2-D")
+    n, sw = seq_up.shape
+    qw = qual_up.shape[1]
+    u8 = (torch.uint8,)
+    _dense_checks("upload_unpack", dev, {
+        "seq_up": (seq_up, u8, (n, sw)), "qual_up": (qual_up, u8, (n, qw)),
+        "lens": (lens, (torch.int32,), (n,)),
+        "qtable": (qtable, u8, (16,))})
+    s_per, s_bit = SEQ_MODES[seq_mode]
+    q_per, q_bit = QUAL_MODES[qual_mode]
+    if not 0 < w <= L or L % 16:
+        raise ValueError(f"upload_unpack: needs 0 < w={w} <= L={L}, L a "
+                         "multiple of 16")
+    if s_per * sw < w or q_per * qw < w or (qual_mode == "raw" and qw != w):
+        raise ValueError(f"upload_unpack: rows of {sw} and {qw} bytes do "
+                         f"not hold {w} {seq_mode} bases and {qual_mode} "
+                         "quals")
+    if n * (L // 16) >= 2**31:
+        raise ValueError(f"upload_unpack: [{n}, {L}] does not fit the "
+                         "kernel's grid")
+    seq = torch.empty((n, L), dtype=torch.uint8, device=dev)
+    qual = torch.empty((n, L), dtype=torch.uint8, device=dev)
+    lens_out = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return seq, qual, lens_out
+    lib = vote.build_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gc_upload_unpack(
+            seq_up.data_ptr(), qual_up.data_ptr(), lens.data_ptr(),
+            qtable.data_ptr(), seq.data_ptr(), qual.data_ptr(),
+            lens_out.data_ptr(), n, w, L, sw, qw, s_bit | q_bit, stream)
+    if err != 0:
+        raise RuntimeError(f"gc_upload_unpack launch failed: cudaError_t "
+                           f"{err}")
+    global UPLOAD_UNPACK_LAUNCHES
+    UPLOAD_UNPACK_LAUNCHES += 1
+    return seq, qual, lens_out
+
+
+def pinned_parts(arrays, dev):
+    """Host arrays to `dev` (a CUDA device) in one pinned non-blocking
+    copy, each at a multiple of 16 bytes in its own dtype; returns a
+    contiguous tensor view of each on `dev`."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offs = np.cumsum([0] + [-(-a.nbytes // 16) * 16 for a in arrays])
+    size = max(int(offs[-1]), 16)
+
+    def fill(alloc):
+        buf = alloc(size)
+        for a, o in zip(arrays, offs):
+            buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        return buf, {"size": size}
+
+    up, _ = vote.pinned_upload(fill, dev)
+    return [up[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .reshape(a.shape) for a, o in zip(arrays, offs)]
 
 
 NT16_BINS = tuple(range(16))

@@ -186,6 +186,10 @@ def build_library() -> ctypes.CDLL:
         lib.gc_upload_score.restype = ctypes.c_int
         lib.gc_refbase.argtypes = [P] * 6 + [I] * 4 + [P]
         lib.gc_refbase.restype = ctypes.c_int
+        lib.gc_upload_unpack.argtypes = [P] * 7 + [I] * 6 + [P]
+        lib.gc_upload_unpack.restype = ctypes.c_int
+        lib.gc_score_map.argtypes = [P] * 12 + [I] * 10 + [P]
+        lib.gc_score_map.restype = ctypes.c_int
         _lib = lib
         return lib
 

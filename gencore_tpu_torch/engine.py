@@ -11,9 +11,11 @@ unchanged (copied, as the port imports nothing of `gencore_tpu`):
   4. template election: segment reductions over CIGAR equivalence classes
      (core.cigartable) with a python fallback for mixed-cigar groups
   5. two device launches per window on `device`: the fused upload
-     reconstruction + overlap scoring (plain torch, core.kernels), and the
-     whole-window vote (core.vote: the fused CUDA kernel of vote, rollback
-     and sparse encoding); the host downloads one flat wire buffer
+     reconstruction + overlap scoring (core.kernels: csrc/upload_score.cu
+     for a sparse staging; a dense staging takes two, the unpack and the
+     score map of csrc/upload_dense.cu), and the whole-window vote
+     (core.vote: the fused CUDA kernel of vote, rollback and sparse
+     encoding); the host downloads one flat wire buffer
   6. shared per-cluster duplex/threshold flow (core.postmerge)
   7. ordered output assembly + post-stats
 
@@ -767,7 +769,9 @@ class VectorEngine:
             # sparse uploads (rows of at most 256 bases, what the
             # upload-and-score kernel takes) defer to the fused
             # upload+score program at any row count (dispatched at the
-            # score stage, after election); dense ones upload here
+            # score stage, after election); dense ones upload here, and
+            # on the card csrc/upload_dense.cu unpacks them and, at the
+            # score stage, scores them (kernels.score_map)
             if work.upload_mode == "sparse":
                 seq_dev = qual_dev = lens_dev = None
             else:
@@ -2823,11 +2827,32 @@ def _table_decode(idx, qtable, n_codes):
 
 @_functools.cache
 def _upload_unpack_fn(w_host: int, L: int, qual_mode: str, seq_mode: str):
-    """Dense upload path: packed seq + packed/indexed quals arrive on the
-    device, which unpacks, decodes, masks beyond each read length, and
-    zero-pads to the kernel width L. seq_mode: '2bit' (pure ACGT data —
-    code = 1<<idx) or '4bit' (BAM nibbles). qual_mode: '2bit' (<=3
-    distinct values), '4bit' (<=15), or 'raw'."""
+    """Dense upload path (K12): packed seq + packed/indexed quals arrive
+    on the device, which unpacks, decodes, masks beyond each read length,
+    and zero-pads to the kernel width L. seq_mode: '2bit' (pure ACGT data
+    — code = 1<<idx) or '4bit' (BAM nibbles). qual_mode: '2bit' (<=3
+    distinct values), '4bit' (<=15), or 'raw'. On CUDA tensors
+    csrc/upload_dense.cu unpacks in one launch (kernels.upload_unpack); on
+    CPU tensors its plain twin _upload_unpack_plain runs."""
+
+    def up(seq_up, qual_up, lens, qtable):
+        dev = seq_up.device
+        if dev.type == "cuda":
+            return kernels.upload_unpack(seq_up, qual_up, lens, qtable,
+                                         w=w_host, L=L, seq_mode=seq_mode,
+                                         qual_mode=qual_mode)
+        if dev.type != "cpu":
+            raise ValueError(f"dense upload: unsupported device {dev}")
+        return _upload_unpack_plain(w_host, L, qual_mode, seq_mode)(
+            seq_up, qual_up, lens, qtable)
+
+    return up
+
+
+def _upload_unpack_plain(w_host: int, L: int, qual_mode: str,
+                         seq_mode: str):
+    """_upload_unpack_fn in plain PyTorch, on tensors of any device: the
+    twin of csrc/upload_dense.cu's gc_upload_unpack."""
 
     def up(seq_up, qual_up, lens, qtable):
         if seq_mode == "2bit":
@@ -3007,7 +3032,7 @@ def _upload_score_plain(w: int, L: int, mode2: bool, has_sedit: bool,
             score = torch.where(bits[:, None], sc,
                                 torch.full_like(sc, s_mod)).to(torch.int8)
             return seq, qual, score
-        score, qual2 = kernels.score_map_kernel_packed(
+        score, qual2 = kernels.score_map_packed_plain(
             seq, qual, lens, mate, meta, hi=hi, mod=mod, lo=lo,
             s_hi=s_hi, s_mod=s_mod, s_lo=s_lo, s_bad=s_bad)
         return seq, qual2, score
@@ -3631,12 +3656,17 @@ class _WorkArrays:
         """Upload the dense staging to `device` and rebuild the resident
         (seq_dev, qual_dev, lens_dev): [n_pad, L] uint8 matrices plus the
         int32 per-row lengths (consumed by the packed score kernel so the
-        lengths never ship twice). The sparse staging goes up with the
-        upload-and-score program instead (_upload_score_fn)."""
+        lengths never ship twice). On a CUDA device the four staging
+        arrays go up in one pinned copy and csrc/upload_dense.cu unpacks
+        them (_upload_unpack_fn); on the CPU its plain twin runs. The
+        sparse staging goes up with the upload-and-score program instead
+        (_upload_score_fn)."""
         if self.upload_mode != "dense":
             raise ValueError("upload: the sparse staging goes up through "
                              "_upload_score_fn")
+        arrays = (self.seq_up, self.qual_up, self.lens, self.qtable16)
+        dev = torch.device(device)
+        staged = (kernels.pinned_parts(arrays, dev) if dev.type == "cuda"
+                  else [to_device(a, dev) for a in arrays])
         return _upload_unpack_fn(
-            self.w_host, self.L, self.qual_mode, self.seq_mode)(
-            *[to_device(a, device) for a in (
-                self.seq_up, self.qual_up, self.lens, self.qtable16)])
+            self.w_host, self.L, self.qual_mode, self.seq_mode)(*staged)

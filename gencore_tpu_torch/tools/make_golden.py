@@ -20,7 +20,9 @@ its `command` line, and the CLI arguments. Workloads (`WORKLOADS`):
   * ultradeep — bench.make_ultradeep_workload's recipe, 40 loci x 1,500
     pairs, run with UMI grouping off (`-u ''`): ultradeep.json;
   * full_bins — workloads.full_bins_panel, reads with IUPAC codes:
-    full_bins_panel.json.
+    full_bins_panel.json;
+  * long_amplicon — workloads.long_amplicon, a 2x300 UMI amplicon panel
+    (every window stages dense, L = 320): long_amplicon.json.
 
 `--case NAME` (repeatable) or `--cases` (all) does the same for the CLI
 cases of tools/golden_compare.py at their full size: the JAX CLI's own
@@ -60,6 +62,10 @@ WORKLOADS = {
     "full_bins": ("full_bins_panel.json", [],
                   "workloads.full_bins_panel() (seed 31, 100 loci, IUPAC "
                   "codes, duplex UMIs, shifted right reads)"),
+    "long_amplicon": ("long_amplicon.json", [],
+                      "workloads.long_amplicon() (seed 31, 2x300 reads, 240 "
+                      "amplicons of 400-560 bp x 80 UMI molecules of 1-4 "
+                      "copies, quals 2-41 per read)"),
 }
 
 
@@ -72,7 +78,8 @@ def make_workload(name: str, out_dir: str = WORKLOAD_DIR):
     from gencore_tpu_torch.tools import workloads
     return {"deep_panel": workloads.deep_panel,
             "ultradeep": workloads.ultradeep,
-            "full_bins": workloads.full_bins_panel}[name](out_dir)
+            "full_bins": workloads.full_bins_panel,
+            "long_amplicon": workloads.long_amplicon}[name](out_dir)
 
 
 def digest_records(path: str) -> tuple[int, str]:

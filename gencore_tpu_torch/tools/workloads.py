@@ -17,12 +17,19 @@ build on it:
   * `full_bins_panel` — a few hundred pairs of which some reads carry
     IUPAC codes (nt16 codes outside =ACGTN), with duplex UMIs and
     lenDiff-shifted right reads, so the full-bins vote runs.
+  * `long_amplicon` — a MiSeq-style 2x300 UMI amplicon panel (seed 31,
+    2 contigs, 240 amplicons of 400-560 bp, so mates overlap by 40-200
+    bases; 80 molecules per amplicon with random 8+8 UMIs and 1-4 copies
+    each, ~96k reads; 0-2 errors per read; each read's quality drawn
+    from 2-41, so quals ship raw): reads longer than 256 bases, so every
+    window stages dense and votes at L = 320.
 
 Each writes `<out_dir>/{name}.bam` and `<out_dir>/{name}_ref.fa`.
 
 `upload_staging` makes random inputs of the upload-and-score program
 (engine._upload_score_fn) with its edges, for the tests and the on-card
-check of csrc/upload_score.cu.
+check of csrc/upload_score.cu; `dense_staging` and `score_geometry` those
+of the dense route's unpack and score map (csrc/upload_dense.cu).
 """
 
 from __future__ import annotations
@@ -333,6 +340,49 @@ def full_bins_panel(out_dir: str):
     return bam_path, fa_path
 
 
+LONG_READ_LEN = 300
+
+
+def long_amplicon_bam(n_amplicons: int = 240, molecules: int = 80,
+                      contig_len: int = 1_200_000,
+                      seed: int = 31) -> SyntheticBam:
+    """The long_amplicon recipe: n_amplicons amplicons spread over 2
+    contigs, each read pair spanning a 400-560 bp amplicon with 300-base
+    reads, `molecules` UMI molecules per amplicon (8+8 random bases) of
+    1-4 copies each; 0-2 errors per read and a quality per read from
+    2-41."""
+    rng = np.random.default_rng(seed)
+    sb = SyntheticBam(seed=seed, contig_len=contig_len, n_contigs=2)
+    per_contig = -(-n_amplicons // 2)
+    step = (contig_len - 2000) // per_contig
+    rl = LONG_READ_LEN
+    for a in range(n_amplicons):
+        pos1 = 1000 + step * (a // 2)
+        pos2 = pos1 + int(rng.integers(400, 561)) - rl
+        for _ in range(molecules):
+            umi = "_".join("".join(BASES[i] for i in rng.integers(0, 4, 8))
+                           for _ in range(2))
+            for _ in range(int(rng.integers(1, 5))):
+                sb.add_pair(a % 2, pos1, pos2, read_len=rl, umi=umi,
+                            n_errors=int(rng.integers(0, 3)),
+                            qual=int(rng.integers(2, 42)),
+                            qual2=int(rng.integers(2, 42)))
+    return sb
+
+
+def long_amplicon(out_dir: str):
+    """The long_amplicon panel at full size; reuses the files when both
+    exist. Returns (bam_path, fasta_path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    bam_path = os.path.join(out_dir, "long_amplicon.bam")
+    fa_path = os.path.join(out_dir, "long_amplicon_ref.fa")
+    if not (os.path.exists(bam_path) and os.path.exists(fa_path)):
+        sb = long_amplicon_bam()
+        sb.write_bam(bam_path)
+        sb.write_fasta(fa_path)
+    return bam_path, fa_path
+
+
 def upload_staging(rng: np.random.Generator, n: int, w: int, L: int, *,
                    pair_edges: bool = False, **flags):
     """Random sparse upload staging of n rows of width w (L the padded
@@ -446,3 +496,72 @@ def upload_staging(rng: np.random.Generator, n: int, w: int, L: int, *,
             mate[a[0]] = min(n + 3, np.iinfo(mdt).max)   # past the rows
     return (sd, src, scnt, epos, ecode, base, q_src, qd, qcnt, qpos, qval,
             lens16, mate, meta, genome, gsl)
+
+
+def dense_staging(rng: np.random.Generator, n: int, w: int, seq_mode: str,
+                  qual_mode: str):
+    """Random dense upload staging (engine._upload_unpack_fn's inputs) as
+    _WorkArrays ships it: n rows of w bases 2-bit or 4-bit packed, quals
+    as 2-bit or 4-bit indices or raw [n, w] bytes, int32 lengths with 0,
+    odd values, w and past w among them, and a qual table whose entry 0
+    (never decoded) is not 0. Returns (seq_up, qual_up, lens, qtable)."""
+    pw = (w + 1) // 2
+    ow = (pw + 1) // 2
+    seq_up = rng.integers(0, 256, size=(n, ow if seq_mode == "2bit" else pw),
+                          dtype=np.uint8)
+    qw = {"2bit": ow, "4bit": pw, "raw": w}[qual_mode]
+    qual_up = rng.integers(0, 42 if qual_mode == "raw" else 256,
+                           size=(n, qw), dtype=np.uint8)
+    lens = rng.integers(0, w + 1, size=n).astype(np.int32)
+    lens[::7] = w
+    lens[1::11] = 0
+    lens[2::13] |= 1
+    lens[3::97] = w + 5
+    qtable = np.zeros(16, dtype=np.uint8)
+    qtable[1:] = rng.integers(2, 42, size=15)
+    qtable[0] = 77
+    return seq_up, qual_up, lens, qtable
+
+
+def score_geometry(rng: np.random.Generator, N: int, L: int, packed: bool):
+    """Random inputs of the overlap score map as the dense route gives
+    them: seq and qual [N, L] (=ACGTN codes, quals of seven values so that
+    ties are common, zero at and beyond each length), mate pairs, self
+    mates, mate rows past the matrix (clamped), unscored rows, mate starts
+    on both sides of the row's own. Packed: (seq, qual, lengths, mate rows,
+    meta) with meta's u32 bits as int32 (kernels.score_map_kernel_packed);
+    else (seq, qual, mate_row, my_start, mate_start, cmp_len (some
+    negative), my_len, is_left, scored), int32 and u8 flags
+    (kernels.score_map_kernel)."""
+    codes = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
+    seq = codes[rng.integers(0, 5, size=(N, L))]
+    qual = rng.choice(np.array([2, 12, 18, 25, 30, 36, 41], np.uint8),
+                      size=(N, L))
+    my_len = rng.integers(0, L + 1, size=N).astype(np.int32)
+    my_len[::5] = L
+    beyond = np.arange(L)[None, :] >= my_len[:, None]
+    seq[beyond] = 0
+    qual[beyond] = 0
+    perm = rng.permutation(N)
+    a, b = perm[:N // 5 * 4].reshape(2, -1)
+    mate = np.arange(N, dtype=np.int64)
+    mate[a] = b
+    mate[b] = a
+    mate[perm[-(N // 50 + 1):]] = N + 7
+    lim = min(L, 256)
+    ms = rng.integers(0, lim, size=N)
+    ts = rng.integers(0, lim, size=N)
+    is_left = rng.random(N) < 0.5
+    scored = rng.random(N) < 0.9
+    if packed:
+        cl = rng.integers(0, 512, size=N)
+        meta = (ms | ts << 8 | cl << 16 | is_left.astype(np.int64) << 25
+                | scored.astype(np.int64) << 26)
+        return (seq, qual, my_len, mate.astype(np.int32),
+                meta.astype(np.int32))
+    mate[perm[:N // 100 + 1]] = -3
+    cl = rng.integers(-8, L, size=N)
+    i32 = np.int32
+    return (seq, qual, mate.astype(i32), ms.astype(i32), ts.astype(i32),
+            cl.astype(i32), my_len, is_left.astype(np.uint8),
+            scored.astype(np.uint8))

@@ -143,3 +143,29 @@ def test_port_cli_pipes_stream(tmp_path):
     assert b"[stage] index" in pp.stderr
     with open(out_file, "rb") as f:
         assert pp.stdout == f.read()
+
+
+def test_port_cli_long_amplicon_matches_golden(tmp_path):
+    """The long_amplicon panel (2x300 reads: every window stages dense at
+    L = 320) through the port's CLI on the CPU, its default streaming
+    path: the generated input and the output records and report equal the
+    golden digests that the JAX CLI made (testdata/long_amplicon.json),
+    as chip_smoke.py's phase 7b holds the card to them."""
+    import json
+
+    from gencore_tpu_torch.tools.make_golden import (digest_records,
+                                                     digest_report,
+                                                     golden_path,
+                                                     make_workload)
+    with open(golden_path("long_amplicon")) as f:
+        golden = json.load(f)
+    bam_path, fa_path = make_workload("long_amplicon", str(tmp_path))
+    assert digest_records(bam_path) == (golden["input"]["records"],
+                                        golden["input"]["sha256"])
+    out, js = str(tmp_path / "out.bam"), str(tmp_path / "out.json")
+    assert port_cli.main(["-i", bam_path, "-o", out, "-r", fa_path, "-j", js,
+                          "--html", str(tmp_path / "out.html"),
+                          "--device", "cpu"]) == 0
+    assert digest_records(out) == (golden["output"]["records"],
+                                   golden["output"]["sha256"])
+    assert digest_report(js) == golden["report_stats_sha256"]

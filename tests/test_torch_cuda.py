@@ -11,8 +11,10 @@ vote_gathered_plain; its vote alone to vote_core_plain; its Bins16
 instantiation to kernels.fused_vote_plain; csrc/vote_window.cu, refbase
 rows included, to vote_window_plain, byte for byte), and the engine on
 CUDA to the oracle. The upload-and-score kernel (csrc/upload_score.cu) is
-held to its twin engine._upload_score_plain on the CPU, and the refbase
-kernel (csrc/refbase.cu) to vote.refbase_combine, byte for byte."""
+held to its twin engine._upload_score_plain on the CPU, the refbase
+kernel (csrc/refbase.cu) to vote.refbase_combine, and the dense route's
+unpack and score map (csrc/upload_dense.cu) to engine._upload_unpack_plain
+and kernels.score_map_plain / score_map_packed_plain, byte for byte."""
 
 import importlib.util
 import pathlib
@@ -794,3 +796,91 @@ def test_refbase_kernel_matches_twin(cuda, J, L, nh):
     again = engine._refbase_combine_fn(L)(g_dev, gp, hr, hm, jp)
     assert vote.REFBASE_LAUNCHES == n0 + 2
     assert torch.equal(again, got)
+
+
+DENSE_MODES = [(sm, qm) for sm in ("2bit", "4bit")
+               for qm in ("2bit", "4bit", "raw")]
+
+
+@pytest.mark.parametrize("seq_mode,qual_mode", DENSE_MODES)
+@pytest.mark.parametrize("n,w,L", [(1, 8, 32), (777, 34, 64),
+                                   (3000, 152, 160), (2000, 304, 320),
+                                   (500, 600, 608)])
+def test_upload_unpack_kernel_matches_twin(cuda, n, w, L, seq_mode,
+                                           qual_mode):
+    """csrc/upload_dense.cu's unpack through the engine's entry on CUDA
+    tensors against engine._upload_unpack_plain on the CPU: every mode
+    pair, widths past 256 bases, lengths 0, odd, w and past w; every
+    byte and length equal, one launch."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.tools import workloads
+    host = workloads.dense_staging(np.random.default_rng(n + w), n, w,
+                                   seq_mode, qual_mode)
+    gpu = [torch.from_numpy(a).to(cuda) for a in host]
+    n0 = kernels.UPLOAD_UNPACK_LAUNCHES
+    got = engine._upload_unpack_fn(w, L, qual_mode, seq_mode)(*gpu)
+    torch.cuda.synchronize(cuda)
+    assert kernels.UPLOAD_UNPACK_LAUNCHES == n0 + 1
+    want = engine._upload_unpack_plain(w, L, qual_mode, seq_mode)(
+        *[torch.from_numpy(a) for a in host])
+    _same_bytes(got, want)
+
+
+# tiers whose scores wrap when cast to int8 (s_hi + 4 > 127, s_mod - 3 <
+# -128 on a won mismatch of a moderate difference)
+WRAP_KW = dict(hi=30, mod=20, lo=15, s_hi=126, s_mod=-127, s_lo=127,
+               s_bad=-3)
+
+
+@pytest.mark.parametrize("tiers", ["default", "wrap"])
+@pytest.mark.parametrize("N,L,packed", [(1, 32, True), (1, 32, False),
+                                        (5000, 160, True),
+                                        (5000, 320, False),
+                                        (70001, 32, False),
+                                        (3000, 256, True)])
+def test_score_map_kernel_matches_twin(cuda, N, L, packed, tiers):
+    """csrc/upload_dense.cu's score map through score_map_kernel_packed
+    and score_map_kernel on CUDA tensors against the same entry on the
+    CPU (the plain twins): mate pairs, self, clamped and negative mate
+    rows, negative cmp_len, ties, unscored rows; every byte equal."""
+    from gencore_tpu_torch.tools import workloads
+    kw = SCORE_KW if tiers == "default" else WRAP_KW
+    host = workloads.score_geometry(np.random.default_rng(N + L), N, L,
+                                    packed)
+    cpu = [torch.from_numpy(a) for a in host]
+    gpu = [t.to(cuda) for t in cpu]
+    fn = (kernels.score_map_kernel_packed if packed
+          else kernels.score_map_kernel)
+    n0 = kernels.SCORE_MAP_LAUNCHES
+    got = fn(*gpu, **kw)
+    torch.cuda.synchronize(cuda)
+    assert kernels.SCORE_MAP_LAUNCHES == n0 + 1
+    _same_bytes(got, fn(*cpu, **kw))
+
+
+def test_dense_kernels_reject_bad_inputs(cuda):
+    """Wrong dtypes, shapes and widths and misaligned rows raise before
+    any launch; no plain fallback."""
+    from gencore_tpu_torch.tools import workloads
+    rng = np.random.default_rng(2)
+    stag = [torch.from_numpy(a).to(cuda) for a in
+            workloads.dense_staging(rng, 40, 48, "2bit", "raw")]
+    geo = [torch.from_numpy(a).to(cuda) for a in
+           workloads.score_geometry(rng, 40, 64, True)]
+    n0 = (kernels.UPLOAD_UNPACK_LAUNCHES, kernels.SCORE_MAP_LAUNCHES)
+    kw = dict(w=48, L=64, seq_mode="2bit", qual_mode="raw")
+    with pytest.raises(TypeError, match="lens is torch.int64"):
+        kernels.upload_unpack(*stag[:2], stag[2].long(), stag[3], **kw)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kernels.upload_unpack(*stag, **dict(kw, L=72))
+    with pytest.raises(ValueError, match="do not hold"):
+        kernels.upload_unpack(*stag, **dict(kw, w=60))
+    seq, qual, ml, mate, meta = geo
+    with pytest.raises(TypeError, match="meta is torch.int64"):
+        kernels.score_map(seq, qual, mate, ml, meta=meta.long(), **SCORE_KW)
+    buf = torch.zeros(40 * 64 + 16, dtype=torch.uint8, device=cuda)
+    bad = buf[1:1 + 40 * 64].view(40, 64)
+    bad.copy_(seq)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.score_map(bad, qual, mate, ml, meta=meta, **SCORE_KW)
+    assert (kernels.UPLOAD_UNPACK_LAUNCHES, kernels.SCORE_MAP_LAUNCHES) == n0

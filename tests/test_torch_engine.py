@@ -204,6 +204,30 @@ def test_port_engine_window_past_u16_rows(tmp_path, monkeypatch):
     assert standalone == []
 
 
+def test_port_engine_long_reads(tmp_path, monkeypatch):
+    """~300 pairs of 300-base reads (workloads.long_amplicon_bam cut to 4
+    amplicons x 30 molecules, mates overlapping by 40-200 bases): reads
+    past 256 bases stage dense, so the port unpacks and scores through
+    the dense route (on the CPU the twins of csrc/upload_dense.cu, the
+    int32 score map at w = 304) and votes at L = 320; records equal to the
+    oracle's and to the JAX engine's on its Pallas path."""
+    from gencore_tpu_torch import engine as teng_mod
+    from gencore_tpu_torch.core import kernels as tk
+    calls = []
+    for mod, name in ((teng_mod, "_upload_unpack_plain"),
+                      (tk, "score_map_plain")):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name, **k: (
+            calls.append((_n, a[:2] if _n[0] == "_" else a[0].shape)),
+            _o(*a, **k))[1])
+    teng = run_three(workloads.long_amplicon_bam(
+        n_amplicons=4, molecules=30, contig_len=60_000), tmp_path, monkeypatch)
+    assert teng.work.upload_mode == "dense" and teng.work.L == 320
+    assert ("_upload_unpack_plain", (304, 320)) in calls
+    assert any(n == "score_map_plain" and shape[1] == 320
+               for n, shape in calls)
+
+
 def test_port_engine_default_device_needs_cuda():
     """The default device is CUDA; without one the engine raises rather
     than running on the CPU."""

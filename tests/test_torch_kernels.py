@@ -41,10 +41,12 @@ def _score_rows(rng, N, L):
     return seq, qual
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_score_map_kernel_matches_jax(seed):
+@pytest.mark.parametrize("seed,N,L", [(0, 48, 64), (1, 48, 64),
+                                      (2, 300, 320), (3, 70_001, 32)])
+def test_score_map_kernel_matches_jax(seed, N, L):
+    """The int32 form at the engine's small shape, at L = 320 (reads past
+    256 bases) and past 65,536 rows at a narrow L."""
     rng = np.random.default_rng(seed)
-    N, L = 48, 64
     seq, qual = _score_rows(rng, N, L)
     mate_row = rng.integers(0, N, size=N).astype(np.int32)
     my_start = rng.integers(0, L, size=N).astype(np.int32)
@@ -77,9 +79,9 @@ def _geometry(rng, N, L):
     return mate16, meta
 
 
-def test_score_map_kernel_packed_matches_jax():
-    rng = np.random.default_rng(3)
-    N, L = 40, 96
+@pytest.mark.parametrize("N,L", [(40, 96), (300, 320)])
+def test_score_map_kernel_packed_matches_jax(N, L):
+    rng = np.random.default_rng(3 + L)
     seq, qual = _score_rows(rng, N, L)
     lens = rng.integers(1, L + 1, size=N).astype(np.int32)
     mate16, meta = _geometry(rng, N, L)
@@ -251,9 +253,9 @@ def test_upload_score_u32_mates_match_jax_nondeferred(case):
 
 @pytest.mark.parametrize("seq_mode,qual_mode", [
     ("2bit", "2bit"), ("4bit", "4bit"), ("4bit", "raw"), ("2bit", "raw")])
-def test_upload_unpack_fn_matches_jax(seq_mode, qual_mode):
-    rng = np.random.default_rng(len(seq_mode + qual_mode))
-    w, L, n = 34, 64, 20
+@pytest.mark.parametrize("w,L,n", [(34, 64, 20), (304, 320, 40)])
+def test_upload_unpack_fn_matches_jax(seq_mode, qual_mode, w, L, n):
+    rng = np.random.default_rng(len(seq_mode + qual_mode) + w)
     pw = w // 2
     ow = (pw + 1) // 2
     seq_up = rng.integers(0, 256, size=(n, ow if seq_mode == "2bit" else pw)
@@ -271,6 +273,101 @@ def test_upload_unpack_fn_matches_jax(seq_mode, qual_mode):
     got = teng._upload_unpack_fn(w, L, qual_mode, seq_mode)(*_dev(*args))
     for a, b in zip(got, want):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("seq_mode,qual_mode", [("2bit", "raw"),
+                                                ("4bit", "4bit")])
+def test_dense_staging_unpack_matches_jax(seq_mode, qual_mode):
+    """workloads.dense_staging's edges (lengths 0, odd, w and past w; a
+    qual table entry 0 that is never decoded) at the 2x300 width."""
+    w, L = 304, 320
+    args = workloads.dense_staging(np.random.default_rng(9), 300, w,
+                                   seq_mode, qual_mode)
+    want = jeng._upload_unpack_fn(w, L, qual_mode, seq_mode)(*args)
+    got = teng._upload_unpack_fn(w, L, qual_mode, seq_mode)(*_dev(*args))
+    for a, b in zip(got, want):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_score_geometry_matches_jax(packed):
+    """workloads.score_geometry's edges (self, clamped and negative mate
+    rows, negative cmp_len, ties) through both packages' score maps."""
+    N, L = 500, 320
+    args = workloads.score_geometry(np.random.default_rng(10), N, L, packed)
+    if packed:
+        jargs = (*args[:4], args[4].astype(np.uint32))
+        want = jk.score_map_kernel_packed(*jargs, **SCORE_KW)
+        got = tk.score_map_kernel_packed(*_dev(*args), **SCORE_KW)
+    else:
+        # negative mate rows: the port clamps them to row 0 (as the
+        # kernel does), where JAX's gather would count from the end
+        jargs = list(args)
+        jargs[2] = np.maximum(args[2], 0)
+        jargs[7:9] = [a.astype(bool) for a in args[7:9]]
+        want = jk.score_map_kernel(*jargs, **SCORE_KW)
+        got = tk.score_map_kernel(*_dev(*args), **SCORE_KW)
+    for a, b in zip(got, want):
+        _eq(a, b)
+
+
+def test_dense_entries_cpu_use_twins(monkeypatch):
+    """On CPU tensors the dense route's entry points run their plain
+    twins and never reach a kernel wrapper; the wrappers refuse CPU
+    tensors with nothing launched."""
+    def no_kernel(*a, **k):
+        raise AssertionError("a kernel wrapper ran on CPU tensors")
+
+    calls = []
+    for mod, name in ((teng, "_upload_unpack_plain"),
+                      (tk, "score_map_plain"),
+                      (tk, "score_map_packed_plain")):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name, **k: (
+            calls.append(_n), _o(*a, **k))[1])
+    monkeypatch.setattr(tk, "upload_unpack", no_kernel)
+    monkeypatch.setattr(tk, "score_map", no_kernel)
+    rng = np.random.default_rng(4)
+    stag = workloads.dense_staging(rng, 30, 40, "2bit", "raw")
+    teng._upload_unpack_fn(40, 64, "raw", "2bit")(*_dev(*stag))
+    packed = workloads.score_geometry(rng, 30, 64, True)
+    tk.score_map_kernel_packed(*_dev(*packed), **SCORE_KW)
+    geo = workloads.score_geometry(rng, 30, 64, False)
+    tk.score_map_kernel(*_dev(*geo), **SCORE_KW)
+    assert calls == ["_upload_unpack_plain", "score_map_packed_plain",
+                     "score_map_plain", "score_map_plain"]
+    monkeypatch.undo()
+    n0 = (tk.UPLOAD_UNPACK_LAUNCHES, tk.SCORE_MAP_LAUNCHES)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tk.upload_unpack(*_dev(*stag), w=40, L=64, seq_mode="2bit",
+                         qual_mode="raw")
+    s, q, ml, mate, meta = _dev(*packed)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tk.score_map(s, q, mate, ml, meta=meta, **SCORE_KW)
+    assert (tk.UPLOAD_UNPACK_LAUNCHES, tk.SCORE_MAP_LAUNCHES) == n0
+
+
+def test_upload_score_plain_never_reaches_kernel_entries(monkeypatch):
+    """engine._upload_score_plain, csrc/upload_score.cu's twin, scores
+    through the plain score map: neither the dispatching entry points nor
+    the kernel wrapper of csrc/upload_dense.cu take part, so the twin the
+    kernel is held to stays plain on the card too."""
+    def no_entry(*a, **k):
+        raise AssertionError("the twin reached a kernel entry point")
+
+    for name in ("score_map_kernel_packed", "score_map_kernel", "score_map"):
+        monkeypatch.setattr(tk, name, no_entry)
+    rng = np.random.default_rng(12)
+    n, w, L = 200, 40, 64
+    flags = dict(zip(tk.UPLOAD_FLAGS, (True, True, False, True, False,
+                                       False, False, False)))
+    *staging, mate, meta, genome, gsl = workloads.upload_staging(
+        rng, n, w, L, **flags)
+    static = (w, L, True, True, False, True, False, *SCORE_KW.values(),
+              False, False, False)
+    seq, qual, score = teng._upload_score_plain(*static)(
+        *_dev(*staging, mate, meta, np.zeros(1, np.uint8), gsl))
+    assert score.shape == (n, L) and score.dtype == torch.int8
 
 
 def test_refbase_combine_matches_jax():
