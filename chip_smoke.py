@@ -41,16 +41,24 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
          no_overlap); gc_refbase (csrc/refbase.cu, K11)
          against refbase_combine, starts negative, past the end and in
          range, host-row indices clamped;
-      2f the dense staging route's kernels (csrc/upload_dense.cu):
-         gc_upload_unpack (K12) against engine._upload_unpack_plain for
-         all 6 seq and qual mode pairs at the deep panel's single-shot
-         shape (239,499 rows, w = 152, L = 160) and a 2x300 window
-         (48,000 rows, w = 304, L = 320), lengths 0, odd, w and past w;
-         gc_score_map (K5) against kernels.score_map_packed_plain (packed,
-         48,000 rows) and kernels.score_map_plain (int32 geometry,
-         239,499 rows at L = 160 and 48,000 at L = 320) with negative
-         cmp_len, mate starts on both sides, ties, self and clamped mates
-         and unscored rows;
+      2f the dense staging route's kernels (csrc/upload_dense.cu; both
+         read their inputs in aligned words, 16 positions of a row per
+         task, 16-byte stores): gc_upload_unpack (K12, staging bytes
+         decoded through shared tables) against
+         engine._upload_unpack_plain for all 6 seq and qual mode pairs at
+         the deep panel's single-shot shape (239,499 rows, w = 152, L =
+         160) and a 2x300 window (48,000 rows, w = 304, L = 320), lengths
+         0, odd, w and past w, and untimed at w = 8, 34 and 152 (rows
+         off a word) with 1,001 rows; gc_score_map (K5, a warp per batch
+         of rows, a mate pair taken once by the warp of its lower row,
+         four positions per word) against kernels.score_map_packed_plain
+         (packed, 48,000 rows) and kernels.score_map_plain (int32
+         geometry, 239,499 rows at L = 160 and 48,000 at L = 320) with
+         negative cmp_len, mate starts on both sides, ties, self, clamped
+         and third-row mates, pairs whose geometry does not mirror, pairs
+         with one row unscored, pairs across a warp's and a block's batch
+         and unscored rows, then untimed with tiers that wrap the int8
+         cast, reach outside the byte range or are unordered;
     with each kernel's device time (vote_window: torch.profiler; vote.cu:
     CUDA events around each call with the stream kept busy ahead of them)
     and its wrapper's time per call, its plain version's time per call on
@@ -167,7 +175,8 @@ and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: the bytes each input is read once and each output written once
-over 3.35 TB/s, and ~10 int32 operations per (valid member, position) of
+(the dense score map's seq only where its rows' overlaps need it) over
+3.35 TB/s, and ~10 int32 operations per (valid member, position) of
 a vote (16 per (row, position) of the upload-and-score program, 8 of the
 dense unpack, 12 of the dense score map) over 16.7 T op/s (132 SMs x 64
 INT32 lanes x 1.98 GHz); the larger one binds.
@@ -218,6 +227,21 @@ OPS_PER_UPLOAD_POS = 16
 # panel's three qual values ship 2-bit, unbinned MiSeq quals raw)
 DENSE_SHAPES = ((239_499, 152, 160), (48_000, 304, 320))
 DENSE_TIMED_MODES = (("2bit", "2bit"), ("2bit", "raw"))
+# the score map's timed shapes (rows, L, packed geometry)
+DENSE_SCORE_SHAPES = ((48_000, 160, True), (239_499, 160, False),
+                      (48_000, 320, False))
+# 2f's edges, untimed: unpack widths whose 2-bit rows are not 4-byte
+# multiples at a row count that is no multiple of a block's tasks; tiers
+# that wrap the int8 cast, reach outside the byte range or are unordered,
+# at row counts that are no multiple of a warp's or a block's batch
+DENSE_EDGE_WIDTHS = (8, 34, 152)
+DENSE_EDGE_ROWS = 1_001
+SCORE_EDGE_TIERS = (
+    dict(hi=30, mod=20, lo=15, s_hi=126, s_mod=-127, s_lo=127, s_bad=-3),
+    dict(hi=300, mod=0, lo=-4, s_hi=9, s_mod=1000, s_lo=-200, s_bad=5),
+    dict(hi=15, mod=30, lo=20, s_hi=3, s_mod=-9, s_lo=7, s_bad=255))
+SCORE_EDGE_SHAPES = ((5_003, 160, True), (5_003, 160, False),
+                     (4_999, 320, False))
 # integer operations per (row, position): csrc/upload_dense.cu's unpack
 # (the length test, the decode, the table, two byte inserts) and score map
 # (the overlap test, the mate's column, the compare, the tier chain, the
@@ -1154,19 +1178,45 @@ def _unpack_bound(args, kw):
     return n_bytes, OPS_PER_UNPACK_POS * n * L
 
 
+def _score_seq_need(args, kw):
+    """How many seq bytes a score map's data needs: the (row, column) of
+    each position in a scored row's overlap, and of its mate's column
+    there, counted once (the function reads no other seq byte)."""
+    import torch
+    seq, _qual, mate, my_len = args
+    N, L = seq.shape
+    i32 = torch.int32
+    if kw.get("meta") is not None:
+        m = kw["meta"].to(torch.int64)
+        ms, ts, cl = ((m >> s) & b for s, b in ((0, 0xFF), (8, 0xFF),
+                                                  (16, 0x1FF)))
+        ms, ts, cl = ms.to(i32), ts.to(i32), cl.to(i32)
+        scored = ((m >> 26) & 1).bool()
+    else:
+        ms, ts, cl = (kw[k].to(i32) for k in ("my_start", "mate_start",
+                                               "cmp_len"))
+        scored = kw["scored"].bool()
+    j = torch.arange(L, dtype=i32, device=seq.device)[None, :]
+    need = ((j >= ms[:, None]) & (j < (ms + cl)[:, None])
+            & (j < my_len.to(i32)[:, None]) & scored[:, None])
+    rows, cols = need.nonzero(as_tuple=True)
+    delta = torch.remainder(ts - ms, L).to(torch.int64)
+    mr = mate.to(torch.int64).clamp(0, N - 1)
+    mates = mr[rows] * L + torch.remainder(cols + delta[rows], L)
+    hit = need.reshape(-1).clone()
+    hit[mates] = True
+    return int(hit.sum())
+
+
 def _score_bound(args, kw):
-    """(bytes, int ops) of one score map: qual [N, L] read once, seq only
-    for scored rows (the kernel reads no seq of an unscored row), the
-    geometry once, score and qual [N, L] written once."""
+    """(bytes, int ops) of one score map: qual [N, L] read once, seq once
+    where the data needs it (_score_seq_need), the geometry once, score
+    and qual [N, L] written once."""
     seq = args[0]
     N, L = seq.shape
-    if kw.get("meta") is not None:
-        n_scored = int(((kw["meta"] >> 26) & 1).sum())
-    else:
-        n_scored = int((kw["scored"] != 0).sum())
     geo = [args[2], args[3]] + [t for t in kw.values()
                                 if hasattr(t, "element_size")]
-    n_bytes = (N * L + n_scored * L + 2 * N * L
+    n_bytes = (N * L + _score_seq_need(args, kw) + 2 * N * L
                + sum(t.numel() * t.element_size() for t in geo))
     return n_bytes, OPS_PER_SCORE_POS * N * L
 
@@ -1185,7 +1235,7 @@ def _dense_check(torch, kind, args, kw, phase, timed=True):
         def plain():
             return engine._upload_unpack_plain(
                 kw["w"], kw["L"], kw["qual_mode"], kw["seq_mode"])(*args)
-        n_bytes, n_ops = _unpack_bound(args, kw)
+        bounds = _unpack_bound
     else:
         twin = _score_map_plain(kernels)
 
@@ -1194,7 +1244,7 @@ def _dense_check(torch, kind, args, kw, phase, timed=True):
 
         def plain():
             return twin(*args, **kw)
-        n_bytes, n_ops = _score_bound(args, kw)
+        bounds = _score_bound
     mism, err = _upload_compare(kern(), plain())
     torch.cuda.synchronize()
     if mism:
@@ -1205,6 +1255,7 @@ def _dense_check(torch, kind, args, kw, phase, timed=True):
         return {"rows": int(args[0].shape[0]), "mismatches": mism,
                 "max_abs_err": err}
     t = _timings(torch, plain, kern, f"{kind}_kernel", 5, 20)
+    n_bytes, n_ops = bounds(args, kw)
     b_ms, b_by = bound(n_bytes, n_ops)
     return {"rows": int(args[0].shape[0]), "mismatches": mism,
             "max_abs_err": err, **t, "bytes": n_bytes, "int_ops": n_ops,
@@ -1216,10 +1267,17 @@ def phase_dense(torch, np):
     """2f: csrc/upload_dense.cu against its plain twins on the card,
     exact: gc_upload_unpack against engine._upload_unpack_plain for the 6
     seq and qual mode pairs at each of DENSE_SHAPES, timed with the
-    route's modes (DENSE_TIMED_MODES); gc_score_map against
+    route's modes (DENSE_TIMED_MODES), and untimed at DENSE_EDGE_WIDTHS
+    (2-bit rows of 2, 9 and 38 bytes, so most rows start off a word) with
+    DENSE_EDGE_ROWS rows; gc_score_map against
     kernels.score_map_packed_plain (packed, 48,000 rows, L = 160) and
     kernels.score_map_plain (int32, 239,499 rows at L = 160 and 48,000
-    rows at L = 320), each timed."""
+    rows at L = 320), each timed, then untimed at SCORE_EDGE_SHAPES with
+    each of SCORE_EDGE_TIERS. workloads.score_geometry's rows hold the
+    edges of the kernel's mate pairs: pairs whose geometry does not
+    mirror, pairs with one row unscored, mates that name a third row,
+    self and clamped mates, and pairs across a warp's and a block's
+    batch of rows."""
     from gencore_tpu_torch.tools import workloads
     dev = torch.device("cuda", 0)
     unpack = []
@@ -1238,31 +1296,53 @@ def phase_dense(torch, np):
             unpack.append({"w": w, "L": L, "seq_mode": modes[0],
                            "qual_mode": modes[1], **r})
             del args
-    score = []
-    for si, (N, L, packed) in enumerate(((48_000, 160, True),
-                                         (239_499, 160, False),
-                                         (48_000, 320, False))):
-        host = workloads.score_geometry(np.random.default_rng(5000 + si), N,
-                                        L, packed)
-        t = [torch.from_numpy(a).to(dev) for a in host]
+    edges = []
+    for wi, w in enumerate(DENSE_EDGE_WIDTHS):
+        L = -(-w // 32) * 32
+        for mi, modes in enumerate((sm, qm) for sm in ("2bit", "4bit")
+                                   for qm in ("2bit", "4bit", "raw")):
+            rng = np.random.default_rng(4500 + 10 * wi + mi)
+            args = [torch.from_numpy(a).to(dev) for a in
+                    workloads.dense_staging(rng, DENSE_EDGE_ROWS, w, *modes)]
+            kw = dict(w=w, L=L, seq_mode=modes[0], qual_mode=modes[1])
+            r = _dense_check(torch, "upload_unpack", args, kw, "2f",
+                             timed=False)
+            worst = max(worst, r["max_abs_err"])
+            edges.append({"entry": "upload_unpack", **kw,
+                          "mismatches": r["mismatches"]})
+
+    def geometry(seed, N, L, packed):
+        t = [torch.from_numpy(a).to(dev) for a in workloads.score_geometry(
+            np.random.default_rng(seed), N, L, packed)]
         if packed:
             seq, qual, my_len, mate, meta = t
-            args, kw = (seq, qual, mate, my_len), dict(meta=meta)
-        else:
-            seq, qual, mate, ms, ts, cl, my_len, left, sc = t
-            args = (seq, qual, mate, my_len)
-            kw = dict(my_start=ms, mate_start=ts, cmp_len=cl, is_left=left,
-                      scored=sc)
+            return (seq, qual, mate, my_len), dict(meta=meta)
+        seq, qual, mate, ms, ts, cl, my_len, left, sc = t
+        return (seq, qual, mate, my_len), dict(
+            my_start=ms, mate_start=ts, cmp_len=cl, is_left=left, scored=sc)
+
+    score = []
+    for si, (N, L, packed) in enumerate(DENSE_SCORE_SHAPES):
+        args, kw = geometry(5000 + si, N, L, packed)
         r = _dense_check(torch, "score_map", args, {**kw, **SCORE_KW}, "2f")
         worst = max(worst, r["max_abs_err"])
         score.append({"L": L, "packed": packed, **r})
-        del t, args, kw
+        del args, kw
+    for si, (N, L, packed) in enumerate(SCORE_EDGE_SHAPES):
+        args, kw = geometry(5500 + si, N, L, packed)
+        for tiers in SCORE_EDGE_TIERS:
+            r = _dense_check(torch, "score_map", args, {**kw, **tiers},
+                             "2f", timed=False)
+            worst = max(worst, r["max_abs_err"])
+            edges.append({"entry": "score_map", "rows": N, "L": L,
+                          "packed": packed, "tiers": tiers,
+                          "mismatches": r["mismatches"]})
     emit({"phase": "2f", "name": "gc_upload_unpack vs "
                                  "engine._upload_unpack_plain, gc_score_map "
                                  "vs kernels.score_map_plain / "
                                  "score_map_packed_plain", "ok": True,
           "tolerance": "exact (0 mismatching bytes)",
-          "upload_unpack": unpack, "score_map": score,
+          "upload_unpack": unpack, "score_map": score, "edges": edges,
           "max_abs_err": worst})
     return {"upload_unpack": unpack, "score_map": score,
             "max_abs_err": worst}
@@ -2807,6 +2887,16 @@ def _dense_line(kind, lr, single, cases, cases_in, dense):
             "score_map": "score_map_kernel and :373 "
                          "score_map_kernel_packed, the XLA program K5 of "
                          "the dense staging route; no Pallas kernel"}[kind],
+        "redesigned": True,
+        "design": {
+            "upload_unpack": "a thread per four tasks of 16 positions, "
+                             "the staging read in aligned words and "
+                             "decoded a byte at a time through shared "
+                             "tables, 16-byte stores",
+            "score_map": "a warp per batch of rows, a mate pair taken "
+                         "once by the warp of its lower row, the mate's "
+                         "granules shifted into place, four positions "
+                         "per word, 16-byte stores"}[kind],
         "launches": lr["kernel_launches"][kind],
         "launches_in": "phase 7b, the long_amplicon panel on the default "
                        "streaming path (every window dense)",

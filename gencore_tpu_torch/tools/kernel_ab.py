@@ -1,8 +1,8 @@
 """On-card A/B of kernel source variants of csrc/vote.cu,
-csrc/vote_window.cu and csrc/upload_score.cu.
+csrc/vote_window.cu, csrc/upload_score.cu and csrc/upload_dense.cu.
 
     python3 -m gencore_tpu_torch.tools.kernel_ab DIR_A DIR_B [...]
-        [--window | --upload] [--profile] [--reps N]
+        [--window | --upload | --dense] [--profile] [--reps N]
 
 Each DIR is a copy of gencore_tpu_torch/csrc with one change, or the csrc
 directory of another checkout of the package (a `git archive` of another
@@ -66,6 +66,26 @@ instrumented with clock64()) adds a `split` line per shape: the cycles of
 one launch summed per part; one that exports gc_upload_score_grid adds
 the grid it launches and its blocks per SM to its build line.
 
+Shapes with --dense: the dense staging route's two entries,
+kernels.upload_unpack and kernels.score_map (csrc/upload_dense.cu), each
+variant through the core/kernels.py beside its DIR as with --upload, at
+(1) chip_smoke.py phase 2f's timed shapes (`dense_shapes`: the unpack at
+each of DENSE_SHAPES with its DENSE_TIMED_MODES, the score map at each of
+DENSE_SCORE_SHAPES, packed and int32) and (2) the long_amplicon panel's
+largest unpack and score map, recorded from one CLI run of it on the card
+(chip_smoke.py phase 7b replays the same). Turns and rounds as with
+--upload; a shape's line gives each variant's device ms per turn (CUDA
+events around each call, the stream kept busy ahead of it, median of
+--reps; `ms`), its time per call back to back (`call_ms`), the bytes and
+bound (chip_smoke's _unpack_bound / _score_bound), each variant's share
+of the bound at its median, and the mismatching bytes against the first
+variant (a variant that differs, an ablation say, is timed all the same,
+and the exit code is 1). A last line times the recorded unpack and score
+map back to back, as a window runs them (`_window_pair`). A variant's
+library that exports gc_dense_split (a copy instrumented with clock64())
+adds a `split` line per shape: its 16 counters after one launch, named
+per part (`DENSE_SPLIT_PARTS`).
+
 Needs a card. Device printf output of a variant (a scratch copy
 instrumented with clock64(), say) goes to standard output.
 """
@@ -96,6 +116,14 @@ UPLOAD_SHAPES = (("2e", 48_000, False), ("mate32", 72_000, True))
 UPLOAD_W, UPLOAD_L = 150, 160
 # the deep panel's flags (kernels.UPLOAD_FLAGS order, without mate32)
 UPLOAD_DEEP_FLAGS = (True, True, False, True, True, True, False)
+# gc_dense_split's counters: summed cycles per part, and threads
+DENSE_SPLIT_PARTS = {
+    "upload_unpack": {0: "index_math", 1: "lens_and_rows",
+                      2: "staging_loads", 3: "arithmetic", 4: "stores",
+                      7: "threads"},
+    "score_map": {8: "index_math", 9: "geometry_and_qual_loads",
+                  10: "seq_len_mate_loads", 11: "mate_byte_loads",
+                  12: "arithmetic", 13: "stores", 15: "threads"}}
 
 
 def _kernel_medians(torch, cs, fn, reps=10):
@@ -466,6 +494,176 @@ def _upload(torch, np, cs, mods, dirs, opts, dev):
     return 0
 
 
+def dense_shapes(cs):
+    """[(entry, name, spec)] of the generated --dense shapes, from
+    chip_smoke (`cs`): the unpack at each of DENSE_SHAPES with its timed
+    modes, then the score map at each of DENSE_SCORE_SHAPES."""
+    return ([("upload_unpack", "2f", dict(n=n, w=w, L=L, seq_mode=sm,
+                                          qual_mode=qm))
+             for (n, w, L), (sm, qm) in zip(cs.DENSE_SHAPES,
+                                            cs.DENSE_TIMED_MODES)]
+            + [("score_map", "2f", dict(N=N, L=L, packed=packed))
+               for N, L, packed in cs.DENSE_SCORE_SHAPES])
+
+
+def _dense_inputs(torch, np, cs, kind, spec, seed, dev):
+    """(args, kw) of one generated --dense shape, on `dev`, as phase 2f
+    makes them."""
+    from gencore_tpu_torch.tools import workloads
+    rng = np.random.default_rng(seed)
+    if kind == "upload_unpack":
+        args = [torch.from_numpy(a).to(dev) for a in workloads.dense_staging(
+            rng, spec["n"], spec["w"], spec["seq_mode"], spec["qual_mode"])]
+        return args, {k: spec[k] for k in ("w", "L", "seq_mode",
+                                           "qual_mode")}
+    t = [torch.from_numpy(a).to(dev) for a in workloads.score_geometry(
+        rng, spec["N"], spec["L"], spec["packed"])]
+    if spec["packed"]:
+        seq, qual, my_len, mate, meta = t
+        return [seq, qual, mate, my_len], dict(meta=meta, **cs.SCORE_KW)
+    seq, qual, mate, ms, ts, cl, my_len, left, sc = t
+    return [seq, qual, mate, my_len], dict(
+        my_start=ms, mate_start=ts, cmp_len=cl, is_left=left, scored=sc,
+        **cs.SCORE_KW)
+
+
+def _long_amplicon_dense(torch, cs):
+    """The long_amplicon panel's largest unpack and score map, recorded
+    from one CLI run on the card (chip_smoke.py phase 7b):
+    {entry: (args, kw)}."""
+    from gencore_tpu_torch.core import kernels
+    from gencore_tpu_torch.tools import workloads
+    bam, fa = workloads.long_amplicon(os.path.join(cs.WORK, "workloads"))
+    largest = {}
+    d = os.path.join(cs.WORK, "kernel_ab_run")
+    os.makedirs(d, exist_ok=True)
+    u_rec, s_rec = cs._dense_recorder(torch, largest)
+    with cs._patched(kernels, "upload_unpack", u_rec), \
+            cs._patched(kernels, "score_map", s_rec):
+        rc, err = cs._cli(["-i", bam, "-o", os.path.join(d, "out.bam"),
+                           "-r", fa, "--device", "cuda"])
+    if rc:
+        raise RuntimeError(f"long_amplicon run failed: {err[-2000:]}")
+    return {k: (largest[k]["args"], largest[k]["kw"])
+            for k in ("upload_unpack", "score_map")}
+
+
+def _dense_split(torch, lib, kind, fn):
+    """One launch of fn under a library instrumented with clock64(): the
+    cycles per part it summed ({part: cycles}, gc_dense_split copying out
+    and zeroing 16 counters), or None for a library without it."""
+    if not hasattr(lib, "gc_dense_split"):
+        return None
+    import ctypes
+    buf = (ctypes.c_ulonglong * 16)()
+    lib.gc_dense_split.argtypes = [ctypes.c_void_p]
+    lib.gc_dense_split.restype = ctypes.c_int
+    torch.cuda.synchronize()
+    if lib.gc_dense_split(buf):       # zeroes what earlier calls summed
+        raise RuntimeError("gc_dense_split failed")
+    fn()
+    torch.cuda.synchronize()
+    if lib.gc_dense_split(buf):
+        raise RuntimeError("gc_dense_split failed")
+    return {name: int(buf[i]) for i, name in DENSE_SPLIT_PARTS[kind].items()}
+
+
+def _window_pair(torch, cs, kmods, dirs, opts, recorded):
+    """The long_amplicon panel's largest unpack and score map back to
+    back, the score map on the unpack's outputs, as a dense window runs
+    them (a kernel timed alone in turns finds the previous call's dirty
+    lines in L2): device ms of each and of the pair per variant and turn
+    (CUDA events, the stream kept busy ahead), as called and after a
+    128 MiB write that flushes L2."""
+    from statistics import median
+    (ua, ukw), (sa, skw) = recorded["upload_unpack"], recorded["score_map"]
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=ua[0].device)
+    line = {"entry": "upload_unpack + score_map", "shape": "7b",
+            "rows": int(ua[0].shape[0])}
+    for cold in (False, True):
+        ms = {}
+        for d in (dirs + dirs[::-1]) * opts.rounds:
+            k, times = kmods[d], []
+            for _ in range(opts.reps):
+                if cold:
+                    flush.fill_(1)
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                torch.cuda._sleep(2_000_000)
+                ev[0].record()
+                seq, qual, _lens = k.upload_unpack(*ua, **ukw)
+                ev[1].record()
+                k.score_map(seq, qual, *sa[2:], **skw)
+                ev[2].record()
+                ev[2].synchronize()
+                times.append([ev[0].elapsed_time(ev[1]),
+                              ev[1].elapsed_time(ev[2]),
+                              ev[0].elapsed_time(ev[2])])
+            ms.setdefault(d, []).append([median(t[i] for t in times)
+                                         for i in range(3)])
+        line["after_l2_flush" if cold else "as_called"] = {
+            d: {"unpack_ms": [x[0] for x in v], "score_map_ms": [x[1] for x in v],
+                "pair_ms": [x[2] for x in v]} for d, v in ms.items()}
+    print(json.dumps(line), flush=True)
+
+
+def _dense(torch, np, cs, mods, dirs, opts, dev):
+    from statistics import median
+
+    from gencore_tpu_torch.core import kernels
+    kmods = {d: _kernels_module(d, mods[d], kernels) for d in dirs}
+    shapes = dense_shapes(cs)
+    recorded = _long_amplicon_dense(torch, cs)
+    shapes += [(k, "7b", None) for k in ("upload_unpack", "score_map")]
+    bad = 0
+    for i, (kind, name, spec) in enumerate(shapes):
+        if spec is None:
+            args, kw = recorded[kind]
+        else:
+            args, kw = _dense_inputs(torch, np, cs, kind, spec, 6000 + i,
+                                     dev)
+        outs, ms, calls, splits = {}, {}, {}, {}
+        for d in (dirs + dirs[::-1]) * opts.rounds:
+            def call(fn=getattr(kmods[d], kind)):
+                return fn(*args, **kw)
+            try:
+                outs[d] = call()
+                torch.cuda.synchronize()
+            except Exception:
+                print(f"kernel_ab: {d} failed at {kind} {name}",
+                      file=sys.stderr, flush=True)
+                raise
+            if d not in splits:
+                splits[d] = _dense_split(torch, mods[d].build_library(),
+                                         kind, call)
+            ms.setdefault(d, []).append(cs._kernel_ms(torch, call,
+                                                      opts.reps))
+            calls.setdefault(d, []).append(cs._time_ms(torch, call,
+                                                       opts.reps))
+        ref = outs[dirs[0]]
+        mism = {d: cs._upload_compare(o, ref)[0] for d, o in outs.items()}
+        n_bytes, n_ops = (cs._unpack_bound if kind == "upload_unpack"
+                          else cs._score_bound)(args, kw)
+        b_ms, b_by = cs.bound(n_bytes, n_ops)
+        static = {k: v for k, v in kw.items() if isinstance(v, (int, str))}
+        print(json.dumps({
+            "entry": kind, "shape": name, "rows": int(args[0].shape[0]),
+            "L": int(args[0].shape[1]) if kind == "score_map" else kw["L"],
+            "static": static, "bytes": n_bytes, "bound_ms": b_ms,
+            "bound_by": b_by, "mismatching_bytes": mism, "ms": ms,
+            "call_ms": calls,
+            "share_of_bound": {d: b_ms / median(v) for d, v in ms.items()}}),
+            flush=True)
+        for d, sp in splits.items():
+            if sp is not None:
+                print(json.dumps({"entry": kind, "shape": name,
+                                  "variant": d, "split": sp}), flush=True)
+        del args, kw, outs
+        bad += any(mism.values())
+    _window_pair(torch, cs, kmods, dirs, opts, recorded)
+    return 1 if bad else 0
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
@@ -475,10 +673,14 @@ def parse_args(argv=None):
     kind.add_argument("--upload", action="store_true",
                       help="time the upload-and-score entry "
                            "(csrc/upload_score.cu)")
+    kind.add_argument("--dense", action="store_true",
+                      help="time the dense staging route's unpack and "
+                           "score map (csrc/upload_dense.cu)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--rounds", type=int, default=1,
-                    help="--upload: rounds of turns (A, B, ..., B, A)")
+                    help="--upload, --dense: rounds of turns (A, B, "
+                         "..., B, A)")
     return ap.parse_args(argv)
 
 
@@ -498,7 +700,8 @@ def main(argv=None) -> int:
     mods = _build(opts.dirs, vote)
     for d in opts.dirs:
         print(json.dumps(_build_report(torch, d, mods[d])), flush=True)
-    run = _window if opts.window else _upload if opts.upload else _gathered
+    run = (_window if opts.window else _upload if opts.upload
+           else _dense if opts.dense else _gathered)
     rc = run(torch, np, cs, mods, list(opts.dirs), opts, dev)
     print(cs.nvidia_smi_line())
     return rc

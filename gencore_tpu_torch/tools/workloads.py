@@ -526,13 +526,16 @@ def dense_staging(rng: np.random.Generator, n: int, w: int, seq_mode: str,
 def score_geometry(rng: np.random.Generator, N: int, L: int, packed: bool):
     """Random inputs of the overlap score map as the dense route gives
     them: seq and qual [N, L] (=ACGTN codes, quals of seven values so that
-    ties are common, zero at and beyond each length), mate pairs, self
-    mates, mate rows past the matrix (clamped), unscored rows, mate starts
-    on both sides of the row's own. Packed: (seq, qual, lengths, mate rows,
-    meta) with meta's u32 bits as int32 (kernels.score_map_kernel_packed);
-    else (seq, qual, mate_row, my_start, mate_start, cmp_len (some
-    negative), my_len, is_left, scored), int32 and u8 flags
-    (kernels.score_map_kernel)."""
+    ties are common, zero at and beyond each length), mate pairs whose
+    geometry does not mirror and some that do, self mates, mate rows past
+    the matrix (clamped), unscored rows, mate starts on both sides of the
+    row's own, and the edges of a kernel that takes a mate pair once
+    (_pair_edges): pairs with one row unscored, mates that name a third
+    row, pairs across each 16th and 128th row. Packed: (seq, qual,
+    lengths, mate rows, meta) with meta's u32 bits as int32
+    (kernels.score_map_kernel_packed); else (seq, qual, mate_row,
+    my_start, mate_start, cmp_len (some negative), my_len, is_left,
+    scored), int32 and u8 flags (kernels.score_map_kernel)."""
     codes = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
     seq = codes[rng.integers(0, 5, size=(N, L))]
     qual = rng.choice(np.array([2, 12, 18, 25, 30, 36, 41], np.uint8),
@@ -555,13 +558,37 @@ def score_geometry(rng: np.random.Generator, N: int, L: int, packed: bool):
     scored = rng.random(N) < 0.9
     if packed:
         cl = rng.integers(0, 512, size=N)
+    else:
+        mate[perm[:N // 100 + 1]] = -3
+        cl = rng.integers(-8, L, size=N)
+    _pair_edges(N, perm, a, b, mate, ms, ts, cl, is_left, scored)
+    if packed:
         meta = (ms | ts << 8 | cl << 16 | is_left.astype(np.int64) << 25
                 | scored.astype(np.int64) << 26)
         return (seq, qual, my_len, mate.astype(np.int32),
                 meta.astype(np.int32))
-    mate[perm[:N // 100 + 1]] = -3
-    cl = rng.integers(-8, L, size=N)
     i32 = np.int32
     return (seq, qual, mate.astype(i32), ms.astype(i32), ts.astype(i32),
             cl.astype(i32), my_len, is_left.astype(np.uint8),
             scored.astype(np.uint8))
+
+
+def _pair_edges(N, perm, a, b, mate, ms, ts, cl, is_left, scored):
+    """score_geometry's mate-pair edges, in place and without drawing:
+    every 5th pair (a, b) mirrored as the engine pairs mates (each row's
+    mate start the other's start, one cmp_len, the left flag on a), every
+    7th with one row unscored, rows past the pairs naming a paired row
+    (a mate that names a third row), and rows (k - 1, k) paired across
+    each 16th and 128th row (a warp takes 4-16 rows of the score kernel,
+    a block 8 warps; their former mates are left naming a third row)."""
+    m = a[1::5], b[1::5]
+    ms[m[1]], ts[m[1]] = ts[m[0]], ms[m[0]]
+    cl[m[1]] = cl[m[0]]
+    is_left[m[0]], is_left[m[1]] = True, False
+    scored[a[::7]], scored[b[::7]] = False, True
+    third = perm[len(a) * 2:len(a) * 2 + N // 40]
+    mate[third] = a[:len(third)]
+    scored[third] = True
+    for step, count in ((16, 40), (128, 40)):
+        for k in range(step, min(N, step * (count + 1)), step):
+            mate[k - 1], mate[k] = k, k - 1

@@ -14,7 +14,9 @@ CUDA to the oracle. The upload-and-score kernel (csrc/upload_score.cu) is
 held to its twin engine._upload_score_plain on the CPU, the refbase
 kernel (csrc/refbase.cu) to vote.refbase_combine, and the dense route's
 unpack and score map (csrc/upload_dense.cu) to engine._upload_unpack_plain
-and kernels.score_map_plain / score_map_packed_plain, byte for byte."""
+and kernels.score_map_plain / score_map_packed_plain, byte for byte, with
+the edges of their designs: mate pairs taken once, third-row and clamped
+mates, tiers outside the byte range, rows off a word or a granule."""
 
 import importlib.util
 import pathlib
@@ -856,6 +858,113 @@ def test_score_map_kernel_matches_twin(cuda, N, L, packed, tiers):
     torch.cuda.synchronize(cuda)
     assert kernels.SCORE_MAP_LAUNCHES == n0 + 1
     _same_bytes(got, fn(*cpu, **kw))
+
+
+# tiers that reach outside the byte range (a threshold above 255 never
+# reached, one at or below 0 always) and unordered ones, beside WRAP_KW
+EDGE_TIERS = [WRAP_KW,
+              dict(hi=300, mod=0, lo=-4, s_hi=9, s_mod=1000, s_lo=-200,
+                   s_bad=5),
+              dict(hi=15, mod=30, lo=20, s_hi=3, s_mod=-9, s_lo=7,
+                   s_bad=255),
+              dict(hi=256, mod=255, lo=1, s_hi=1, s_mod=2, s_lo=3, s_bad=4)]
+
+
+@pytest.mark.parametrize("tiers", range(len(EDGE_TIERS)))
+@pytest.mark.parametrize("N,L,packed", [(5003, 160, True),
+                                        (5003, 160, False),
+                                        (4999, 320, False), (129, 32, True)])
+def test_score_map_kernel_edge_tiers(cuda, N, L, packed, tiers):
+    """The score map with tiers outside the byte range or unordered, at
+    row counts that are no multiple of a warp's (4-16 rows, by the
+    grid's size) or a block's (8 warps) batch, on
+    workloads.score_geometry's mate-pair edges."""
+    from gencore_tpu_torch.tools import workloads
+    kw = EDGE_TIERS[tiers]
+    host = workloads.score_geometry(np.random.default_rng(N + tiers), N, L,
+                                    packed)
+    cpu = [torch.from_numpy(a) for a in host]
+    fn = (kernels.score_map_kernel_packed if packed
+          else kernels.score_map_kernel)
+    got = fn(*[t.to(cuda) for t in cpu], **kw)
+    torch.cuda.synchronize(cuda)
+    _same_bytes(got, fn(*cpu, **kw))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_score_map_kernel_pair_edges(cuda, packed):
+    """Mate pairs the kernel takes once, by the warp of the lower row, and
+    rows it must not pair: a pair whose geometry does not mirror, a pair
+    with one row unscored, pairs across a warp's (rows 15, 16; a warp
+    takes 4-16 rows) and a block's (127, 128) batch, a pair made by
+    clamping (row 21 names a row
+    past the matrix, the last row names 21), mates that name a third row
+    (rows 20 and 22, one of them through a negative index), self mates;
+    every byte equal to the twin's."""
+    N, L = 300, 64
+    rng = np.random.default_rng(11)
+    codes = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
+    seq = codes[rng.integers(0, 5, size=(N, L))]
+    qual = rng.choice(np.array([2, 12, 18, 25, 30, 36], np.uint8),
+                      size=(N, L))
+    my_len = rng.integers(L // 2, L + 1, size=N).astype(np.int32)
+    mate = np.arange(N, dtype=np.int32)
+    for x, y in ((0, 5), (7, 8), (15, 16), (127, 128), (200, 3)):
+        mate[x], mate[y] = y, x
+    mate[21], mate[N - 1] = N + 40, 21
+    mate[20], mate[22] = 0, -5
+    ms = rng.integers(0, L // 2, size=N)
+    ts = rng.integers(0, L // 2, size=N)
+    cl = rng.integers(1, L, size=N)
+    is_left = rng.random(N) < 0.5
+    scored = np.ones(N, dtype=bool)
+    scored[8] = False
+    scored[rng.integers(0, N, size=20)] = False
+    scored[[0, 5, 15, 16, 127, 128, 20, 21, 22, N - 1]] = True
+    if packed:
+        meta = (ms | ts << 8 | cl << 16 | is_left.astype(np.int64) << 25
+                | scored.astype(np.int64) << 26).astype(np.int32)
+        host = (seq, qual, my_len, mate, meta)
+        fn = kernels.score_map_kernel_packed
+    else:
+        i32 = np.int32
+        host = (seq, qual, mate, ms.astype(i32), ts.astype(i32),
+                cl.astype(i32), my_len, is_left.astype(np.uint8),
+                scored.astype(np.uint8))
+        fn = kernels.score_map_kernel
+    cpu = [torch.from_numpy(a) for a in host]
+    for kw in (SCORE_KW, WRAP_KW):
+        got = fn(*[t.to(cuda) for t in cpu], **kw)
+        torch.cuda.synchronize(cuda)
+        _same_bytes(got, fn(*cpu, **kw))
+
+
+@pytest.mark.parametrize("seq_mode,qual_mode", DENSE_MODES)
+@pytest.mark.parametrize("w", [8, 34, 152])
+def test_upload_unpack_kernel_edge_widths(cuda, w, seq_mode, qual_mode):
+    """Widths whose 2-bit rows (2, 9 and 38 bytes) are no multiple of a
+    word, so that most rows start off one, at 1,001 rows (no multiple of
+    a block's tasks), and the staging at offsets 1, 3 and 7 bytes off a
+    16-byte boundary: every byte equal to the twin's."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.tools import workloads
+    L = -(-w // 32) * 32
+    host = workloads.dense_staging(np.random.default_rng(w), 1001, w,
+                                   seq_mode, qual_mode)
+    want = engine._upload_unpack_plain(w, L, qual_mode, seq_mode)(
+        *[torch.from_numpy(a) for a in host])
+    for off in (0, 1, 3, 7):
+        gpu = [torch.from_numpy(a).to(cuda) for a in host]
+        for i in (0, 1):     # seq_up and qual_up at `off` bytes
+            buf = torch.zeros(gpu[i].numel() + 16, dtype=torch.uint8,
+                              device=cuda)
+            view = buf[off:off + gpu[i].numel()].view(gpu[i].shape)
+            view.copy_(gpu[i])
+            gpu[i] = view
+        got = kernels.upload_unpack(*gpu, w=w, L=L, seq_mode=seq_mode,
+                                    qual_mode=qual_mode)
+        torch.cuda.synchronize(cuda)
+        _same_bytes(got, want)
 
 
 def test_dense_kernels_reject_bad_inputs(cuda):

@@ -70,3 +70,48 @@ def test_upload_shapes_leave_out_variants_without_mate32(tmp_path):
         ("2e", 48_000, False), ("mate32", 72_000, True)]
     assert shapes[0][3] == ["old", "new"] and shapes[1][3] == ["new"]
     assert all(n > 1 << 16 for _, n, m32, _ in shapes if m32)
+
+
+def _chip_smoke_constants(*names):
+    """Module-level constants of chip_smoke.py, read without importing it
+    (its import blocks JAX for the whole process)."""
+    import ast
+    import types
+    tree = ast.parse((pathlib.Path(__file__).parent.parent
+                      / "chip_smoke.py").read_text())
+    found = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and getattr(node.targets[0], "id", None) in names:
+            found[node.targets[0].id] = ast.literal_eval(node.value)
+    assert set(found) == set(names)
+    return types.SimpleNamespace(**found)
+
+
+def test_dense_arguments():
+    opts = kernel_ab.parse_args(["A", "B", "--dense", "--rounds", "2"])
+    assert opts.dense and not opts.upload and not opts.window
+    assert opts.rounds == 2
+    assert not kernel_ab.parse_args(["A"]).dense
+    for other in ("--upload", "--window"):
+        with pytest.raises(SystemExit):   # one entry at a time
+            kernel_ab.parse_args(["A", "--dense", other])
+
+
+def test_dense_shapes_are_phase_2f():
+    """--dense's generated shapes: phase 2f's timed unpacks (each of
+    DENSE_SHAPES with its mode pair) and its timed score maps, packed and
+    int32 (the long_amplicon panel's recorded calls follow them)."""
+    cs = _chip_smoke_constants("DENSE_SHAPES", "DENSE_TIMED_MODES",
+                               "DENSE_SCORE_SHAPES")
+    shapes = kernel_ab.dense_shapes(cs)
+    assert shapes == [
+        ("upload_unpack", "2f", dict(n=239_499, w=152, L=160,
+                                     seq_mode="2bit", qual_mode="2bit")),
+        ("upload_unpack", "2f", dict(n=48_000, w=304, L=320,
+                                     seq_mode="2bit", qual_mode="raw")),
+        ("score_map", "2f", dict(N=48_000, L=160, packed=True)),
+        ("score_map", "2f", dict(N=239_499, L=160, packed=False)),
+        ("score_map", "2f", dict(N=48_000, L=320, packed=False))]
+    assert set(kernel_ab.DENSE_SPLIT_PARTS) == {"upload_unpack",
+                                                "score_map"}

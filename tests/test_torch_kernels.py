@@ -483,3 +483,51 @@ def test_vote_core_matches_jax(seed, full_bins):
     got = tk._vote_core(*_dev(*args), *th, full_bins)
     for a, b in zip(got, want):
         _eq(a, b)
+
+
+# tiers that wrap the int8 cast, reach outside the byte range (a threshold
+# above 255 never reached, one at or below 0 always) or are unordered
+EDGE_TIERS = [
+    dict(hi=30, mod=20, lo=15, s_hi=126, s_mod=-127, s_lo=127, s_bad=-3),
+    dict(hi=300, mod=0, lo=-4, s_hi=9, s_mod=1000, s_lo=-200, s_bad=5),
+    dict(hi=15, mod=30, lo=20, s_hi=3, s_mod=-9, s_lo=7, s_bad=255)]
+
+
+@pytest.mark.parametrize("tiers", range(len(EDGE_TIERS)))
+@pytest.mark.parametrize("packed", [True, False])
+def test_score_geometry_tiers_match_jax(packed, tiers):
+    """The twins against the JAX score maps with the edge tiers, on
+    workloads.score_geometry's mate-pair edges at a row count that is no
+    multiple of a warp's or a block's batch."""
+    kw = EDGE_TIERS[tiers]
+    N, L = 301, 160
+    args = workloads.score_geometry(np.random.default_rng(20 + tiers), N,
+                                    L, packed)
+    if packed:
+        jargs = (*args[:4], args[4].astype(np.uint32))
+        want = jk.score_map_kernel_packed(*jargs, **kw)
+        got = tk.score_map_kernel_packed(*_dev(*args), **kw)
+    else:
+        jargs = list(args)
+        jargs[2] = np.maximum(args[2], 0)
+        jargs[7:9] = [a.astype(bool) for a in args[7:9]]
+        want = jk.score_map_kernel(*jargs, **kw)
+        got = tk.score_map_kernel(*_dev(*args), **kw)
+    for a, b in zip(got, want):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("seq_mode,qual_mode", [
+    ("2bit", "2bit"), ("2bit", "4bit"), ("4bit", "raw")])
+@pytest.mark.parametrize("w", [8, 34, 152])
+def test_dense_staging_edge_widths_match_jax(w, seq_mode, qual_mode):
+    """workloads.dense_staging at widths whose 2-bit rows (2, 9 and 38
+    bytes) are no multiple of a word, so that most rows start off one, at
+    a row count that is no multiple of a block's tasks."""
+    L = -(-w // 32) * 32
+    args = workloads.dense_staging(np.random.default_rng(30 + w), 1001, w,
+                                   seq_mode, qual_mode)
+    want = jeng._upload_unpack_fn(w, L, qual_mode, seq_mode)(*args)
+    got = teng._upload_unpack_fn(w, L, qual_mode, seq_mode)(*_dev(*args))
+    for a, b in zip(got, want):
+        _eq(a, b)
