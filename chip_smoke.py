@@ -17,7 +17,7 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
          _epilogue_core) at J=4096, L=160, N=40960 for every k-class K in
          {4, 16, 32, 64, 128, 256}, dense, sparse and sparse with a qual
          table;
-      2b gc_vote_window (csrc/vote_window.cu, the refbase rows built in the
+      2b gc_vote_window (csrc/vote_window.cu, the refbase rows read in the
          kernel from the genome and host rows) against vote_window_plain
          at the same shapes, member counts 0..K, job lengths <= L, out_len
          = L and 136, with and without a qual table;
@@ -25,7 +25,10 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
          {512, 2048, 4096}, L=160 (disjoint member groups, K/2 < count <=
          K), with the CTAs per job (split) each launch used, against the
          composition it replaced (csrc/vote.cu's vote alone, gc_vote, then
-         the plain _epilogue_core): both device and call times;
+         the plain _epilogue_core): both device and call times; and each
+         job's refbase row read by index where it lies (the window's
+         sources) beside the rows given ready-made, equal and timed in
+         turns;
       2d gc_vote_full (csrc/vote.cu, Bins16: kernels.fused_vote_kernel on
          CUDA tensors) against kernels.fused_vote_plain on the card, all 16
          nt16 codes, lenDiff shifts, job lengths <= L;
@@ -38,9 +41,11 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
          program's edges (workloads.upload_staging), then mate pairs it
          must not take as pairs at both widths (pair_edges), then timed
          with the deep panel's flags (at 72,000 rows also with
-         no_overlap); gc_refbase (csrc/refbase.cu, K11)
-         against refbase_combine, starts negative, past the end and in
-         range, host-row indices clamped;
+         no_overlap); K11's counterpart, gc_vote_epilogue reading each
+         job's refbase row where it lies (genome starts negative, past the
+         end and in range, host-row indices and ridx clamped), in the
+         source and rows forms against refbase_combine, the row gather and
+         the plain vote, at J = 1, 28 and 16,064 jobs;
       2f the dense staging route's kernels (csrc/upload_dense.cu; both
          read their inputs in aligned words, 16 positions of a row per
          task, 16-byte stores): gc_upload_unpack (K12, staging bytes
@@ -68,7 +73,8 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
   3 a ~3k-read workload (duplex UMIs, deep clusters, lenDiff-shifted right
     reads) through the port's CLI on cuda, against the scalar oracle:
     records and report stats equal, and both kernels launched (the window
-    path and the gathered paths);
+    path and the gathered paths); its shifted call of the most jobs
+    (pallas_vote) replayed against its plain twin and timed;
   3b the full-bins panel (workloads.full_bins_panel: IUPAC codes, duplex
     UMIs, shifted right reads) through the CLI on cuda, against the port's
     --oracle and the golden digests; the 16-bin launches counted beside
@@ -86,6 +92,9 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     counterparts (pallas_vote_window, pallas_vote_gathered, pallas_vote),
     and anywhere the plain upload rebuild and upload-and-score program,
     the plain dense unpack, both plain score maps and refbase_combine;
+  phases 7 and 7b also count the engine's gathered votes handed
+    ready-made refbase rows (a refbase gather or a standalone assembly
+    ahead of them): there must be none;
     each phase also needs the counterparts and (where its windows stage
     sparse) the upload-and-score program to have run;
   4b the same input with `--shards 4 --checkpoint_dir D`, then again after
@@ -112,24 +121,24 @@ Phases (one JSON line each; any failure exits non-zero with no `ok` line):
     long-read panel (torch.profiler) before, with the compositions the
     port's kernels replaced put back for those runs only (the plain
     upload-and-score program after 16 copies up; the plain refbase
-    assembly after four; the dense route's plain unpack after four and
-    its plain score maps), and after; all but the single-shot run must
+    assembly and row gather ahead of each gathered vote; the dense route's
+    plain unpack after four and its plain score maps), and after; all but the single-shot run must
     take the streaming path; a run whose trace lost kernel records is
     profiled again, up to three times;
   7 the ultra-deep pile (workloads.ultradeep: 40 loci x 1,500 pairs, UMI
     grouping off) through the CLI on cuda, which must take the streaming
-    path, against its golden digests, its leftover buckets' refbase rows
-    built by gc_refbase: wall seconds and reads/s, then a recorded run
-    with each gathered vote launch's (K, J), split, device time and share
-    of its bound, and its largest refbase assembly replayed against
-    refbase_combine and timed;
+    path, against its golden digests, its 3 gathered votes reading each
+    job's refbase row from the window's sources: wall seconds and
+    reads/s, then a recorded run with each gathered vote launch's (K, J),
+    split, device time in the source and rows forms and share of its
+    bound, the launch of the most jobs also against its plain twin;
   7b the long_amplicon panel (workloads.long_amplicon: 2x300 reads, so
     every window stages dense and votes at L = 320 through the gathered
     entry) through the CLI's default streaming path against its golden
-    digests: the dense unpack and score map, the gathered vote at L = 320
-    and the refbase assembly must launch; wall seconds and reads/s, then
-    the run's largest unpack and score map replayed against their twins
-    and timed;
+    digests: the dense unpack and score map and 6 gathered votes at L =
+    320 reading the window's refbase sources must launch; wall seconds
+    and reads/s, then the run's largest unpack, score map and gathered
+    vote replayed against their twins and timed;
   8 parallel/mesh.py with one rank on the card (a torch.distributed NCCL
     group of one process, and a one-device mesh): sharded_consensus_step
     (the Bins16 kernel through kernels.consensus_kernel) against the plain
@@ -212,10 +221,18 @@ DEEP_SHAPES = tuple((J, K) for J in (8, 32, 128) for K in (512, 2048, 4096))
 DEEP_TIMED = (32, 2048)   # the ultradeep run's gathered buckets: K=2048
 # kernels timed by their profiler records: their wrappers also copy the
 # kernel's inputs up, which CUDA events around a call would count
-PROFILED = ("vote_window_kernel", "upload_score_kernel", "refbase_kernel")
+PROFILED = ("vote_window_kernel", "upload_score_kernel")
 # the deep panel's windows: ~48k read rows of 150 bases padded to L = 160
 N_UPLOAD, W_UPLOAD, L_UPLOAD = 48_000, 150, 160
 N_UPLOAD32 = 72_000     # past 65,536 rows: u32 mate rows
+# (J, K, L) of phase 2e's buckets whose refbase rows the gathered entry
+# reads by index: one job at L = 32, the ultra-deep run's 28 jobs, the
+# deep panel's largest window of 16,064 jobs
+REFSRC_SHAPES = ((1, 4, 32), (28, 512, 160), (16_064, 4, 160))
+# gathered launches per run, all reading their refbase rows from the
+# window's sources: the ultra-deep pile (phase 7), the long_amplicon
+# panel (7b)
+ULTRADEEP_GATHERED, LONG_AMPLICON_GATHERED = 3, 6
 SCORE_KW = dict(hi=30, mod=20, lo=15, s_hi=12, s_mod=8, s_lo=6, s_bad=4)
 # integer operations csrc/upload_score.cu does per (row, position): the
 # decode, the qual's source, the mask, the overlap test, the mate compare,
@@ -316,12 +333,14 @@ def phase_build():
         out = re.search(r"OutE(\d)E", fn)   # vote.cu's Out: 0 the vote alone
         name = ("vote_window" if "vote_window" in fn else
                 "upload_score" if "upload_score" in fn else
-                "refbase" if "refbase_kernel" in fn else
                 "upload_unpack" if "upload_unpack" in fn else
                 ("score_map (packed)" if "ILb1E" in fn else "score_map")
                 if "score_map" in fn else
                 "vote (16 bins)" if "Bins16" in fn else
                 "vote alone" if out and out.group(1) == "0" else "vote")
+        form = re.search(r"RefE(\d)E", fn)  # vote.cu's refbase form
+        if form and form.group(1) != "0":
+            name += " (sources)"
         if "decide_kernel" in fn:   # vote.cu's second pass (split > 1)
             name += ", decide"
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
@@ -619,15 +638,20 @@ def phase_deep_piles(torch, np):
     twin (on the card), with its device and call times, bound and share,
     beside the composition it replaced (the vote alone, then the plain
     epilogue): that composition's call time and its vote kernel's device
-    time. Sparse with a qual table, as the engine runs a deep pile."""
+    time. Sparse with a qual table, as the engine runs a deep pile. Each
+    job's refbase row is named by index in a window of 2J + 5 rows
+    (_with_refsrc): the gathered entry also reads it where it lies, from
+    the window's sources, equal to the rows form (the rows given
+    ready-made) and timed beside it in turns (rows, sources, sources,
+    rows)."""
     from gencore_tpu_torch.core import vote
     dev = torch.device("cuda", 0)
     per_shape = []
     for J, K in DEEP_SHAPES:
         arrs = _pile_inputs(np, K, J, L_PHASE2, J + K)
         args, kw = _gathered_args(np, arrs, J + K, "sparse_qtable")
-        gpu = [None if a is None else torch.from_numpy(a).to(dev)
-               for a in args]
+        gpu, src = _with_refsrc(torch, np, args, J + K + 2, dev, 2 * J + 5)
+        forms = _forms(vote, gpu, src, kw)
 
         def kern():
             return vote.vote_gathered(*gpu, **kw)
@@ -641,9 +665,11 @@ def phase_deep_piles(torch, np):
         torch.cuda.synchronize(dev)
         mism, err = _compare(got, want)
         mism_old, _ = _compare(old, want)
-        if mism or mism_old:
-            fail("2c", f"gathered kernel ({mism}) or the composition before "
-                       f"({mism_old}) != plain twin at J={J}, K={K}")
+        mism_src = _compare(forms["sources"](), want)[0]
+        if mism or mism_old or mism_src:
+            fail("2c", f"gathered kernel ({mism}; source form {mism_src}) "
+                       f"or the composition before ({mism_old}) != plain "
+                       f"twin at J={J}, K={K}")
         if (J, K) == DEEP_TIMED:   # the ultradeep run's shape: with plain
             t = _timings(torch, lambda: vote.vote_gathered_plain(*gpu, **kw),
                          kern, "vote_kernel", 1, 5, profile_plain=False)
@@ -655,7 +681,10 @@ def phase_deep_piles(torch, np):
         # in turns: before, after, after, before
         b1, k1, k2, b2 = (_time_ms(torch, f, 5)
                           for f in (before, kern, kern, before))
-        t.update(vote_only_ms=_kernel_ms(
+        turns = _turns(torch, forms)
+        t.update(forms_ms_in_turns={f: sum(v) / 2 for f, v in turns.items()},
+                 forms_ms_turns=turns,
+                 vote_only_ms=_kernel_ms(
                      torch, lambda: vote.vote_core(*vote_args, **th)),
                  composition_call_ms=(b1 + b2) / 2,
                  composition_call_ms_runs=[b1, b2],
@@ -670,7 +699,7 @@ def phase_deep_piles(torch, np):
                           "bytes": n_bytes, "int_ops": n_ops,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "share_of_bound": b_ms / ms})
-        del gpu, got, want, old
+        del gpu, got, want, old, forms, src
     emit({"phase": "2c", "name": "gc_vote_epilogue at deep-pile shapes vs "
                                  "vote_gathered_plain, beside the vote alone "
                                  "+ plain epilogue", "ok": True,
@@ -805,19 +834,21 @@ def _window_bound(np, class_args, classes, N, L, srcs, out_len, qtable):
     """(bytes, int ops) the fused window kernel must move and do on these
     inputs: every member row and template row of an empty job read once,
     the refbase sources (gp, hm, jp; each genome slice up to its length,
-    each host row used) once, the job table and qual table once; the
-    window's refbase rows, the wire buffer and the dense fallback written
-    once; 10 ops per (member, position)."""
+    each host row used) of the rows its jobs name once, the job table and
+    qual table once; the wire buffer and the dense fallback written once;
+    10 ops per (member, position)."""
     from gencore_tpu_torch.core import vote
     gp, hr, hm, jp = (np.asarray(a) for a in srcs[1:])
     Jw = len(gp)
+    named = np.zeros(Jw, dtype=bool)
     member = np.zeros(N, dtype=bool)
     tmpl = np.zeros(N, dtype=bool)
     n_members = 0
     Jt = 0
     for ci, (K, J) in enumerate(classes):
-        base, counts, _jl, _ridx = (np.asarray(a).astype(np.int64) for a in
-                                    class_args[4 * ci:4 * ci + 4])
+        base, counts, _jl, ridx = (np.asarray(a).astype(np.int64) for a in
+                                   class_args[4 * ci:4 * ci + 4])
+        named[np.clip(ridx, 0, Jw - 1)] = True
         cnt = np.clip(counts, 0, K)
         n_members += int(cnt.sum())
         off = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
@@ -825,21 +856,23 @@ def _window_bound(np, class_args, classes, N, L, srcs, out_len, qtable):
         tmpl[np.clip(base[cnt == 0], 0, N - 1)] = True
         Jt += J
     ol = min(out_len, L)
-    hm = hm.astype(np.int64)
-    ref_bytes = (12 * Jw + int(np.minimum(jp[hm < 0], L).sum())
+    hm, jp = hm.astype(np.int64)[named], jp.astype(np.int64)[named]
+    ref_bytes = (12 * int(named.sum()) + int(np.minimum(jp[hm < 0], L).sum())
                  + len(np.unique(np.clip(hm[hm >= 0], 0, len(hr) - 1))) * L)
     n_bytes = (int(member.sum()) * 3 * L + int((tmpl & ~member).sum()) * 2 * L
-               + ref_bytes + Jw * L + 24 * Jt
+               + ref_bytes + 24 * Jt
                + (16 if qtable is not None else 0)
                + vote.wire_size(Jt, len(classes), qtable) + Jt * (ol // 2 + ol))
     return n_bytes, OPS_PER_MEMBER_POS * n_members * L, n_members
 
 
 def _compare_window(got, want):
-    """(mismatching bytes, max abs difference) of two (flat, refbase_dev,
-    dense)."""
-    pairs = [(got[0], want[0]), (got[1], want[1])] + [
-        (g, w) for gd, wd in zip(got[2], want[2]) for g, w in zip(gd, wd)]
+    """(mismatching bytes, max abs difference) of two window results: the
+    flat wire buffer first and the dense fallbacks last (flat, dense), or
+    (flat, refbase_dev, dense) from a checkout whose window kernel also
+    wrote the refbase rows."""
+    pairs = [(got[0], want[0])] + [
+        (g, w) for gd, wd in zip(got[-1], want[-1]) for g, w in zip(gd, wd)]
     mism = 0
     err = 0
     for g, w in pairs:
@@ -903,8 +936,7 @@ def phase_window_kernel(torch, np):
                       "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
                       "bound_by": b_by, "share_of_bound": b_ms / t["ms"]})
     emit({"phase": "2b", "name": "gc_vote_window vs vote_window_plain",
-          "ok": True, "tolerance": "exact (0 mismatching bytes, refbase "
-                                   "rows included)",
+          "ok": True, "tolerance": "exact (0 mismatching bytes)",
           "plain": "vote_window_plain on CUDA tensors (refbase_combine, "
                    "vote_core_plain, _epilogue_core and concat_sparse)",
           "per_k": per_k})
@@ -1016,52 +1048,109 @@ def _refbase_inputs(np, rng, J, L, G0=1 << 20, nh=64):
     return genome, gp, hr, hm, jp
 
 
-def _refbase_bound(np, gp, hr, hm, jp, L):
-    """Bytes of one refbase assembly: 12 bytes of sources per row, each
-    genome row's bases up to its length, each host row used, the rows
-    written once."""
-    hm = np.asarray(hm).astype(np.int64)
-    jp = np.asarray(jp).astype(np.int64)
-    J = len(hm)
-    used = len(np.unique(np.clip(hm[hm >= 0], 0, len(hr) - 1)))
-    return 12 * J + int(np.minimum(jp[hm < 0], L).sum()) + used * L + J * L
+def _refsrc_bytes(np, ref, L):
+    """Bytes the gathered entry reads to find its jobs' refbase rows by
+    index, each source read once: ridx (4 B per job) and, per distinct row
+    named, its 12 bytes of sources and its bases (a genome slice up to its
+    length, a host row once per host row)."""
+    ridx = np.asarray(ref["ridx"]).astype(np.int64)
+    hm = np.asarray(ref["hm"]).astype(np.int64)
+    jp = np.asarray(ref["jp"]).astype(np.int64)
+    r = np.unique(np.clip(ridx, 0, len(hm) - 1))
+    g = r[hm[r] < 0]
+    used = len(np.unique(np.clip(hm[r][hm[r] >= 0], 0, ref["nh"] - 1)))
+    return (4 * len(ridx) + 12 * len(r)
+            + int(np.clip(jp[g], 0, L).sum()) + used * L)
 
 
-def _refbase_timed(torch, np, dev, genome, gp, hr, hm, jp, L, phase):
-    """gc_refbase against refbase_combine on the card (exact), its device
-    ms (profiler), host ms per call, and the plain version's (its four
-    copies up included) in turns; bound and share."""
+def _refsrc_host(refsrc):
+    """The host copies of a source form's arrays that _refsrc_bytes reads."""
+    ridx = refsrc[-1].cpu().numpy()
+    _g, _gp, hm, jp, hr, _r = refsrc
+    return {"ridx": ridx, "hm": hm.cpu().numpy(), "jp": jp.cpu().numpy(),
+            "nh": hr.shape[0]}
+
+
+def _with_refsrc(torch, np, args, seed, dev, Jw):
+    """The gathered entry's arguments (_gathered_args') on the card with
+    their refbase rows named by index in a window of Jw rows: the window's
+    sources (_refbase_inputs: starts negative and past the end, host-row
+    indices past the rows) sent up by vote.window_refsrc, and a bucket's
+    ridx (unsorted, some repeated, some past the window's rows: they
+    clamp). Returns (the arguments on the card with refbase the rows
+    these name, the source form)."""
     from gencore_tpu_torch.core import vote
-    from gencore_tpu_torch.core.vote import to_device
-    g_dev = genome if isinstance(genome, torch.Tensor) else \
-        torch.from_numpy(np.ascontiguousarray(genome)).to(dev)
-    I32 = torch.int32
+    J, L = args[7].shape
+    rng = np.random.default_rng(seed)
+    genome, gp, hr, hm, jp = _refbase_inputs(np, rng, Jw, L,
+                                             nh=min(64, Jw))
+    ridx = rng.permutation(Jw)[:J].astype(np.int32)
+    ridx[1::5] = ridx[0]
+    ridx[2::17] = Jw + 3
+    src = vote.window_refsrc(torch.from_numpy(genome).to(dev), gp, hm, jp, hr)
+    ridx = torch.from_numpy(ridx).to(dev)
+    gpu = [None if a is None else torch.from_numpy(a).to(dev) for a in args]
+    gpu[7] = vote.refbase_rows((*src, ridx), L)
+    return gpu, (*src, ridx)
 
-    def kern():
-        return vote.refbase(g_dev, gp, hr, hm, jp, L)
 
-    def plain():
-        return vote.refbase_combine(
-            g_dev, to_device(gp, dev, I32), to_device(hr, dev),
-            to_device(hm, dev, I32), to_device(jp, dev, I32), L)
+def _forms(vote, gpu, src, kw):
+    """The gathered entry of `vote` (a vote module) on the same arguments
+    in its two refbase forms: the rows given ([J, L], gpu[7]) and read
+    from the window's sources (`src`)."""
+    return {"rows": lambda: vote.vote_gathered(*gpu, **kw),
+            "sources": lambda: vote.vote_gathered(*gpu[:7], None, gpu[8],
+                                                  refsrc=src, **kw)}
 
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    if got.shape != want.shape:
-        fail(phase, f"refbase kernel gave {tuple(got.shape)}, refbase_combine "
-                    f"{tuple(want.shape)}")
-    mism = int((got != want).sum())
-    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-    if mism:
-        fail(phase, f"refbase kernel != refbase_combine at J={len(gp)}, "
-                    f"L={L}: {mism} mismatching bytes")
-    t = _timings(torch, plain, kern, "refbase_kernel", 5, 20)
+
+def _turns(torch, forms):
+    """Each form's device ms (_kernel_ms) in turns: rows, sources,
+    sources, rows."""
+    turns = {f: [] for f in forms}
+    for f in ("rows", "sources", "sources", "rows"):
+        turns[f].append(_kernel_ms(torch, forms[f]))
+    return turns
+
+
+def _refsrc_timed(torch, np, dev, J, K, L, phase, Jw=None):
+    """The gathered entry reading its refbase rows where they lie, at a
+    bucket of J jobs of K members (_pile_inputs) whose rows a window of
+    Jw rows names (_with_refsrc): the source form and the rows form
+    against the plain twin on the card (refbase_combine, the row gather
+    and the plain vote), exact; the source form's device ms, host and
+    call ms, the plain twin's and each form's device ms in turns (rows,
+    sources, sources, rows); bound and share of the source form."""
+    from gencore_tpu_torch.core import vote
+    Jw = Jw or J + J // 4 + 1
+    arrs = _pile_inputs(np, K, J, L, J + K + L)
+    args, kw = _gathered_args(np, arrs, J + K, "sparse_qtable")
+    gpu, src = _with_refsrc(torch, np, args, J + K + 1, dev, Jw)
+    forms = _forms(vote, gpu, src, kw)
+    want = vote.vote_gathered_plain(*gpu[:7], None, gpu[8], refsrc=src, **kw)
+    mism = err = 0
+    for name, fn in forms.items():
+        m, e = _compare(fn(), want)
+        torch.cuda.synchronize()
+        if m:
+            fail(phase, f"gathered entry ({name} form) != its plain twin at "
+                        f"J={J}, K={K}, L={L}: {m} mismatches")
+        mism, err = mism + m, max(err, e)
+    turns = _turns(torch, forms)
+    kern = forms["sources"]
+    t = _timings(torch, lambda: vote.vote_gathered_plain(
+        *gpu[:7], None, gpu[8], refsrc=src, **kw), kern, "vote_kernel", 1, 5,
+        profile_plain=False)
     t["host_ms"] = _host_ms(torch, kern, 50)
-    n_bytes = _refbase_bound(np, gp, hr, hm, jp, L)
-    b_ms, b_by = bound(n_bytes, 0)
-    return {"J": len(gp), "L": L, "host_rows": len(hr), "mismatches": mism,
-            "max_abs_err": err, **t, "bytes": n_bytes, "bound_ms": b_ms,
-            "bound_by": b_by, "share_of_bound": b_ms / t["ms"]}
+    host = [None if a is None else a.cpu().numpy() for a in gpu]
+    n_bytes, n_ops = _gathered_bound(np, host, kw)
+    n_bytes += _refsrc_bytes(np, _refsrc_host(src), L) - J * L
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return {"J": J, "K": K, "L": L, "Jw": Jw, "split": vote.split_size(K, J),
+            "mismatches": mism, "max_abs_err": err, **t,
+            "ms_in_turns": {k: sum(v) / len(v) for k, v in turns.items()},
+            "ms_turns": turns, "bytes": n_bytes, "int_ops": n_ops,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / t["ms"]}
 
 
 def phase_upload_score(torch, np):
@@ -1072,7 +1161,9 @@ def phase_upload_score(torch, np):
     with u32 mate rows; then, at both widths, mate pairs the kernel must
     not take as pairs (`pair_edges`) with the deep panel's flags; timed
     with the flags the deep panel takes (and at N_UPLOAD32 also with
-    no_overlap); then csrc/refbase.cu against refbase_combine."""
+    no_overlap); then the gathered entry's refbase read (K11's
+    counterpart) in each form against refbase_combine, the row gather and
+    the plain vote (_refsrc_timed) at REFSRC_SHAPES."""
     from gencore_tpu_torch.core import kernels
     from gencore_tpu_torch.tools import workloads
     dev = torch.device("cuda", 0)
@@ -1116,14 +1207,16 @@ def phase_upload_score(torch, np):
     timed32 = [_upload_timed_shape(torch, np, N_UPLOAD32,
                                    deep[:6] + (no_ov, True), dev)
                for no_ov in (False, True)]
-    ref = []
-    for J, L_r, nh in ((1, 32, 1), (16064, 160, 64), (96, 160, 8)):
-        genome, gp, hr, hm, jp = _refbase_inputs(
-            np, np.random.default_rng(J + L_r), J, L_r, nh=nh)
-        ref.append(_refbase_timed(torch, np, dev, genome, gp, hr, hm, jp,
-                                  L_r, "2e"))
+    # K11's counterpart: the gathered entry reading each job's refbase row
+    # where it lies, at the ultra-deep run's bucket (28 jobs; K = 512 so
+    # that the plain twin stays under a second) and at the deep panel's
+    # largest window (16,064 jobs)
+    ref = [_refsrc_timed(torch, np, dev, J, K, L_r, "2e")
+           for J, K, L_r in REFSRC_SHAPES]
     emit({"phase": "2e", "name": "gc_upload_score vs engine._upload_score_plain"
-                                 ", gc_refbase vs refbase_combine",
+                                 ", gc_vote_epilogue reading refbase rows "
+                                 "where they lie vs refbase_combine + the "
+                                 "plain vote",
           "ok": True, "tolerance": "exact (0 mismatching bytes)",
           "upload_score": {"n": [N_UPLOAD, N_UPLOAD32], "w": w, "L": L,
                            "flag_combinations": {
@@ -1516,7 +1609,7 @@ def _patched(module, name, fn):
         setattr(module, name, orig)
 
 
-def phase_small(torch):
+def phase_small(torch, np):
     from gencore_tpu_torch.core import vote
     from gencore_tpu_torch.tools import workloads
     from gencore_tpu_torch.tools.make_golden import (digest_records,
@@ -1526,10 +1619,15 @@ def phase_small(torch):
     calls = {"pallas_vote_window": 0, "pallas_vote_gathered": 0,
              "pallas_vote": 0}
     originals = {k: getattr(vote, k) for k in calls}
+    shifted = []    # the lenDiff-shifted call of the most jobs
 
     def counted(name):
         def f(*a, **k):
             calls[name] += 1
+            if name == "pallas_vote" and (
+                    not shifted or a[0].shape[1] > shifted[0][0][0].shape[1]):
+                shifted[:] = [([None if x is None else np.array(x)
+                                for x in a[:6]], dict(k))]
             return originals[name](*a, **k)
         return f
 
@@ -1555,14 +1653,68 @@ def phase_small(torch):
               == digest_report(os.path.join(d, "oracle.json")))
     ok = (p == o and rep_eq and all(launches.values())
           and all(calls.values()))
-    emit({"phase": 3, "name": "small end to end vs oracle", "ok": ok,
-          "reads_in": n_reads, "records_out": p[0],
-          "records_equal": p == o, "report_stats_equal": rep_eq,
-          "kernel_launches": launches, "entry_calls": calls})
+    res = {"phase": 3, "name": "small end to end vs oracle", "ok": ok,
+           "reads_in": n_reads, "records_out": p[0],
+           "records_equal": p == o, "report_stats_equal": rep_eq,
+           "kernel_launches": launches, "entry_calls": calls}
     if not ok:
+        emit(res)
         fail(3, "port output differs from the oracle, or a vote kernel or "
                 "entry point did not run")
-    return launches
+    res["shifted_call"] = _replay_shifted(torch, np, *shifted[0])
+    emit(res)
+    return res
+
+
+def _replay_shifted(torch, np, arrays, kw):
+    """The run's lenDiff-shifted call of the most jobs (vote.pallas_vote:
+    members the host gathered, [K, S, L]), replayed on the card through
+    the gathered entry over its [K*S, L] view against the plain twin,
+    exact, with device and call ms, the plain twin's, bound and share.
+    A call that named its refbase rows in the window's sources (refsrc)
+    replays so, and given the rows (the rows form) too, both exact."""
+    from gencore_tpu_torch.core import vote
+    dev = torch.device("cuda", 0)
+    seq, qual, score, valid, job_len, refbase = arrays
+    K, S, L = seq.shape
+    kw = {k: v for k, v in kw.items() if k != "device"}
+    ref = kw.get("refsrc")
+
+    def up(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    rows = torch.arange(K * S, dtype=torch.int32, device=dev).view(K, S)
+    args = [up(seq.reshape(K * S, L), torch.uint8),
+            up(qual.reshape(K * S, L), torch.uint8),
+            up(score.reshape(K * S, L), torch.int8), rows, rows[0].clone(),
+            up(valid, torch.uint8), up(job_len, torch.int32),
+            None if refbase is None else up(refbase, torch.uint8), None]
+    rows_args, rows_kw = args, kw
+    if ref is not None:
+        ref = (*ref[:-1], up(ref[-1], torch.int32))
+        kw = dict(kw, refsrc=ref)
+        rows_args = args[:7] + [vote.refbase_rows(ref, L), None]
+        rows_kw = {k: v for k, v in kw.items() if k != "refsrc"}
+    want = vote.vote_gathered_plain(*args, **kw)
+    mism, err = _compare(vote.vote_gathered(*args, **kw), want)
+    mism_rows, err_rows = _compare(vote.vote_gathered(*rows_args, **rows_kw),
+                                   want)
+    if mism or mism_rows:
+        fail(3, f"the shifted call's gathered launch (source form "
+                f"{ref is not None}: {mism}; rows form: {mism_rows}) != its "
+                f"plain twin")
+    t = _timings(torch, lambda: vote.vote_gathered_plain(*args, **kw),
+                 lambda: vote.vote_gathered(*args, **kw), "vote_kernel", 2,
+                 20, profile_plain=False)
+    host = [None if a is None else a.cpu().numpy() for a in rows_args]
+    n_bytes, n_ops = _gathered_bound(np, host, {"sparse": False, **rows_kw})
+    if ref is not None:
+        n_bytes += _refsrc_bytes(np, _refsrc_host(ref), L) - S * L
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return {"K": K, "S": S, "L": L, "split": vote.split_size(K, S),
+            "refsrc": ref is not None, "mismatches": mism + mism_rows,
+            "max_abs_err": max(err, err_rows), **t, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / t["ms"]}
 
 
 def _deep_panel_run(torch, bam, fa, d, golden, extra=()):
@@ -1636,7 +1788,31 @@ def _counters(vote):
             "upload_score": kernels.UPLOAD_SCORE_LAUNCHES,
             "upload_unpack": kernels.UPLOAD_UNPACK_LAUNCHES,
             "score_map": kernels.SCORE_MAP_LAUNCHES,
-            "refbase": vote.REFBASE_LAUNCHES}
+            "refsrc": vote.REFSRC_LAUNCHES}
+
+
+@contextlib.contextmanager
+def _refbase_reads():
+    """Counts, for the run inside, the engine's gathered votes
+    (vote.pallas_vote_gathered, and vote.pallas_vote for lenDiff-shifted
+    jobs) handed ready-made refbase rows ("rows": a gather of refbase rows
+    or a standalone assembly ahead of them) or the rows' indices with the
+    window's sources ("sources"); yields the counts."""
+    from gencore_tpu_torch.core import vote
+    seen = {"rows": 0, "sources": 0}
+    origs = {name: getattr(vote, name)
+             for name in ("pallas_vote_gathered", "pallas_vote")}
+
+    def counted(name):
+        def f(*a, refsrc=None, **k):
+            seen["rows" if refsrc is None else "sources"] += 1
+            return origs[name](*a, refsrc=refsrc, **k)
+        return f
+
+    with _patched(vote, "pallas_vote_gathered",
+                  counted("pallas_vote_gathered")), \
+            _patched(vote, "pallas_vote", counted("pallas_vote")):
+        yield seen
 
 
 def _zero_counters(vote):
@@ -1645,7 +1821,7 @@ def _zero_counters(vote):
     vote.FULL_LAUNCHES = 0
     vote.WINDOW_LAUNCHES = 0
     vote.VOTE_ONLY_LAUNCHES = 0
-    vote.REFBASE_LAUNCHES = 0
+    vote.REFSRC_LAUNCHES = 0
     kernels.UPLOAD_SCORE_LAUNCHES = 0
     kernels.UPLOAD_UNPACK_LAUNCHES = 0
     kernels.SCORE_MAP_LAUNCHES = 0
@@ -1690,25 +1866,116 @@ def phase_full_bins(torch):
     return launches
 
 
+def _gathered_recorder(calls):
+    """A stand-in for vote.vote_gathered that calls it and appends copies of
+    its arguments (refbase sources included) to `calls`."""
+    from gencore_tpu_torch.core import vote
+    orig = vote.vote_gathered
+
+    def clone(x):
+        if isinstance(x, tuple):
+            return tuple(clone(t) for t in x)
+        return x.clone() if hasattr(x, "clone") else x
+
+    def recorded(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((clone(args), {k: clone(v) for k, v in kw.items()}))
+        return out
+    return recorded
+
+
+def _replay_gathered(torch, np, args, kw, phase, plain=False):
+    """A recorded gathered launch that read its refbase rows from the
+    window's sources, replayed: against the same launch with the rows
+    ready-made (the rows form, the rows by vote.refbase_rows), exact; both
+    forms' device ms in turns (rows, sources, sources, rows); with `plain`
+    also both forms against the plain twin on the card (refbase_combine,
+    the row gather, the plain vote), exact, the plain twin's call time and
+    the kernel's host and call ms; the source form's bound and share."""
+    from gencore_tpu_torch.core import vote
+    K, J = args[3].shape
+    L = args[0].shape[1]
+    ref = kw["refsrc"]
+    rows_kw = {k: v for k, v in kw.items() if k != "refsrc"}
+    rows_args = list(args)
+    rows_args[7] = vote.refbase_rows(ref, L)
+
+    def src():
+        return vote.vote_gathered(*args, **kw)
+
+    def rows():
+        return vote.vote_gathered(*rows_args, **rows_kw)
+
+    mism, err = _compare(src(), rows())
+    torch.cuda.synchronize()
+    if mism:
+        fail(phase, f"gathered entry reading its refbase rows where they lie "
+                    f"!= the same launch given the rows (K={K}, J={J}, "
+                    f"L={L}): {mism} mismatches")
+    turns = {"rows": [], "sources": []}
+    for name, fn in (("rows", rows), ("sources", src), ("sources", src),
+                     ("rows", rows)):
+        turns[name].append(_kernel_ms(torch, fn))
+    res = {"K": K, "J": J, "L": L, "split": vote.split_size(K, J),
+           "sparse": kw["sparse"], "qtable": args[8] is not None,
+           "mismatches": mism, "max_abs_err": err,
+           "ms": sum(turns["sources"]) / 2,
+           "ms_rows_form": sum(turns["rows"]) / 2, "ms_turns": turns}
+    if plain:
+        want = vote.vote_gathered_plain(*args, **kw)
+        for name, fn in (("sources", src), ("rows", rows)):
+            m, e = _compare(fn(), want)
+            torch.cuda.synchronize()
+            if m:
+                fail(phase, f"gathered entry ({name} form) != its plain "
+                            f"twin on a replayed launch (K={K}, J={J}, "
+                            f"L={L}): {m} mismatches")
+            res["mismatches"] += m
+            res["max_abs_err"] = max(res["max_abs_err"], e)
+        res["plain_compared"] = True
+        del want
+        t = _timings(torch, lambda: vote.vote_gathered_plain(*args, **kw),
+                     src, "vote_kernel", 1, 5, profile_plain=False)
+        res.update(call_ms=t["call_ms"], plain_ms=t["plain_ms"],
+                   plain_ms_runs=t["plain_ms_runs"],
+                   host_ms=_host_ms(torch, src, 50))
+    host = [None if t is None else t.cpu().numpy() for t in args]
+    n_bytes, n_ops = _gathered_bound(np, host, rows_kw)
+    n_bytes += _refsrc_bytes(np, _refsrc_host(ref), L) - J * L
+    b_ms, b_by = bound(n_bytes, n_ops)
+    res.update(members=int(host[5].astype(bool).sum()), bytes=n_bytes,
+               int_ops=n_ops, bound_ms=b_ms, bound_by=b_by,
+               share_of_bound=b_ms / res["ms"])
+    return res
+
+
 def phase_ultradeep(torch, np):
     """7: the ultra-deep amplicon pile (bench.make_ultradeep_workload, 40
     loci x 1,500 pairs, UMI grouping off) through the CLI on cuda against
-    its golden digests, with no plain version inside the Pallas
-    counterparts: wall seconds and reads/s of one run, then a run that
+    its golden digests, with no plain version on the card, no refbase
+    gather and no standalone refbase assembly: its ULTRADEEP_GATHERED
+    gathered launches each read the jobs' refbase rows from the window's
+    sources; wall seconds and reads/s of that run, then a run that
     records each gathered launch's inputs (vote.vote_gathered), replayed
-    for its (K, J), split, device time and share of its bound."""
+    for its (K, J), split, device time in the source form and in the rows
+    form, and share of its bound; the launch of the most jobs also
+    against its plain twin (refbase_combine, the row gather, the plain
+    vote)."""
     from gencore_tpu_torch.core import vote
     bam, fa, golden, n_in, t_gen = _golden_workload("ultradeep", 7)
-    with _no_plain_on_card(torch) as guard:
+    with _no_plain_on_card(torch) as guard, _refbase_reads() as reads:
         _zero_counters(vote)
         rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "ultradeep"), golden)
         launches = _counters(vote)
-    if (rc or not (out_ok and rep_ok) or launches["vote"] == 0
-            or launches["refbase"] == 0):
-        fail(7, f"ultradeep run failed, differs from the golden digests, or "
-                f"launched no gathered vote or refbase assembly (its "
-                f"leftover buckets take K11): rc={rc} {launches} "
+    if (rc or not (out_ok and rep_ok)
+            or launches["vote"] != ULTRADEEP_GATHERED
+            or launches["refsrc"] != launches["vote"]
+            or reads["rows"]):
+        fail(7, f"ultradeep run failed, differs from the golden digests, "
+                f"made other than {ULTRADEEP_GATHERED} gathered launches "
+                f"reading the window's refbase sources, or gathered refbase "
+                f"rows or assembled them apart: rc={rc} {launches} {reads} "
                 f"{err[-1500:]}")
     _guard_ok(7, guard)
     io_lines = _io_lines(err)
@@ -1717,59 +1984,27 @@ def phase_ultradeep(torch, np):
                 f"native core: {io_lines}")
     stages = _stage_seconds(err)
 
-    # a second run records each gathered launch's inputs, replayed after,
-    # and the refbase assembly's of the most jobs
+    # a second run records each gathered launch's inputs, replayed after
     calls = []
-    orig = vote.vote_gathered
-    orig_ref = vote.refbase
-    ref_call = {}
-
-    def recorded(*args, **kw):
-        out = orig(*args, **kw)
-        calls.append(([None if t is None else t.clone() for t in args],
-                      dict(kw)))
-        return out
-
-    def recorded_ref(genome, gpos, host_rows, host_map, jl, L):
-        if len(gpos) > len(ref_call.get("args", ((), ()))[1]):
-            ref_call["args"] = (genome, *[np.array(a) for a in (
-                gpos, host_rows, host_map, jl)], L)
-        return orig_ref(genome, gpos, host_rows, host_map, jl, L)
-
-    with _patched(vote, "vote_gathered", recorded), \
-            _patched(vote, "refbase", recorded_ref):
+    with _patched(vote, "vote_gathered", _gathered_recorder(calls)):
         rc, err, t_rec, _n, out_ok2, rep_ok2 = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "ultradeep_rec"), golden)
     if rc or not (out_ok2 and rep_ok2) or _io_lines(err) != io_lines:
         fail(7, f"recorded ultradeep run failed, differs or took another "
                 f"path: rc={rc} {_io_lines(err)}")
-    per_launch = []
-    for args, kw in calls:
-        K, J = args[3].shape
-        ms = _kernel_ms(torch, lambda: vote.vote_gathered(*args, **kw))
-        host = [None if t is None else t.cpu().numpy() for t in args]
-        b_ms, b_by = bound(*_gathered_bound(np, host, kw))
-        per_launch.append({"K": K, "J": J,
-                           "members": int(host[5].astype(bool).sum()),
-                           "split": vote.split_size(K, J),
-                           "sparse": kw["sparse"],
-                           "qtable": args[8] is not None, "ms": ms,
-                           "bound_ms": b_ms,
-                           "bound_by": b_by, "share_of_bound": b_ms / ms})
+    most = max(range(len(calls)), key=lambda i: calls[i][0][3].shape[1])
+    per_launch = [_replay_gathered(torch, np, args, kw, 7, plain=i == most)
+                  for i, (args, kw) in enumerate(calls)]
     del calls
-    if not ref_call:
-        fail(7, "the recorded ultradeep run made no refbase assembly")
-    refbase_timed = _refbase_timed(torch, np, torch.device("cuda", 0),
-                                   *ref_call["args"], 7)
     res = {"phase": 7, "name": "ultra-deep pile vs golden", "ok": True,
            "workload": golden["workload"], "io_line": io_lines[0],
            "cli_args": golden.get("cli_args", []), "reads_in": n_in,
            "records_out": n_out, "generate_s": t_gen, "run_s": t_run,
            "reads_per_s": n_in / t_run, "run_s_recorded": t_rec,
            "kernel_launches": launches, "plain_guard": guard,
-           "gathered_launches": per_launch,
+           "refbase_reads": reads, "gathered_launches": per_launch,
            "gathered_vote_ms": sum(p["ms"] for p in per_launch),
-           "refbase_largest": refbase_timed,
+           "refsrc_largest": per_launch[most],
            "output_digest_equal": out_ok, "report_stats_equal": rep_ok,
            "stage_seconds": stages}
     emit(res)
@@ -1797,31 +2032,39 @@ def _dense_recorder(torch, largest):
             rec("score_map", kernels.score_map))
 
 
-def phase_long_reads(torch):
+def phase_long_reads(torch, np):
     """7b: the long_amplicon panel (2x300 reads, so every window stages
     dense and votes at L = 320 through csrc/vote.cu's gathered entry)
     through the CLI's default streaming path on cuda against its golden
     digests, with no plain version on the card: the dense unpack and
-    score map, the gathered vote at L = 320 and the refbase assembly
-    (K11) must launch; wall seconds and reads/s of that run, then its
-    largest unpack and score map (recorded in the run) replayed against
-    their twins and timed."""
+    score map and LONG_AMPLICON_GATHERED gathered votes at L = 320, each
+    reading the jobs' refbase rows from the window's sources, must launch,
+    with no refbase gather and no standalone refbase assembly; wall
+    seconds and reads/s of that run, then its largest unpack and score
+    map (recorded in the run) replayed against their twins and timed, and
+    its gathered launch of the most (member, job) slots replayed in the
+    source form and the rows form and against its plain twin."""
     from gencore_tpu_torch.core import kernels, vote
     bam, fa, golden, n_in, t_gen = _golden_workload("long_amplicon", "7b")
     largest = {}
     gathered_L = []
-    orig_g = vote.vote_gathered
+    calls = []
+    rec_g = _gathered_recorder(calls)
 
     def counted_g(*a, **k):
         gathered_L.append(int(a[0].shape[1]))
-        return orig_g(*a, **k)
+        out = rec_g(*a, **k)
+        calls.sort(key=lambda c: -c[0][3].numel())
+        del calls[1:]          # keep the launch of the most slots
+        return out
 
     u_rec, s_rec = _dense_recorder(torch, largest)
     with _patched(kernels, "upload_unpack", u_rec), \
             _patched(kernels, "score_map", s_rec), \
             _patched(vote, "vote_gathered", counted_g), \
             _window_uploads() as windows, \
-            _no_plain_on_card(torch) as guard:
+            _no_plain_on_card(torch) as guard, \
+            _refbase_reads() as reads:
         _zero_counters(vote)
         rc, err, t_run, n_out, out_ok, rep_ok = _deep_panel_run(
             torch, bam, fa, os.path.join(WORK, "long_amplicon"), golden)
@@ -1838,20 +2081,25 @@ def phase_long_reads(torch):
            "run_s": t_run, "reads_per_s": n_in / t_run, "windows": windows,
            "gathered_launch_L": sorted(set(gathered_L)),
            "kernel_launches": launches, "plain_guard": guard,
+           "refbase_reads": reads,
            "output_digest_equal": out_ok, "report_stats_equal": rep_ok,
            "stage_seconds": stages}
     if not (out_ok and rep_ok and io_lines == [_streaming_line()] and windows
             and all(w["mode"] == "dense" and w["L"] == 320 for w in windows)
-            and launches["vote"] > 0 and 320 in gathered_L
-            and launches["refbase"] > 0
+            and launches["vote"] == LONG_AMPLICON_GATHERED
+            and gathered_L == [320] * len(gathered_L)
+            and launches["refsrc"] == launches["vote"]
+            and not reads["rows"]
             and launches["upload_unpack"] == len(windows)
             and launches["score_map"] > 0):
         res["ok"] = False
         emit(res)
         fail("7b", "the long-read panel differs from the golden digests, "
                    "left the streaming path, staged a window sparse or not "
-                   "at L = 320, or did not launch the dense kernels, the "
-                   "gathered vote at L = 320 or the refbase assembly")
+                   "at L = 320, did not launch the dense kernels or "
+                   f"{LONG_AMPLICON_GATHERED} gathered votes at L = 320 "
+                   "reading the window's refbase sources, or gathered "
+                   "refbase rows or assembled them apart")
     for kind in ("upload_unpack", "score_map"):
         rec = largest.pop(kind)
         kw = rec["kw"]
@@ -1862,6 +2110,9 @@ def phase_long_reads(torch):
             "L": int(rec["args"][0].shape[1]) if kind == "score_map"
             else kw["L"],
             **_dense_check(torch, kind, rec["args"], kw, "7b")}
+    res["gathered_largest"] = _replay_gathered(torch, np, *calls[0], "7b",
+                                               plain=True)
+    del calls
     emit(res)
     return res, (bam, fa, golden)
 
@@ -2275,8 +2526,8 @@ def phase_mesh(torch, np):
 
 def _replay_window(torch, largest, phase):
     """A recorded window launch replayed through the fused kernel and its
-    plain twin (on the CPU); fails the phase on any mismatching byte
-    (refbase rows included). Returns (matrices and genome on the card,
+    plain twin (on the CPU); fails the phase on any mismatching byte.
+    Returns (matrices and genome on the card,
     the refbase sources, qual table, class args, kw, mismatches, max abs
     err)."""
     from gencore_tpu_torch.core import vote
@@ -2391,18 +2642,20 @@ def _upload_before(torch):
     return f
 
 
-def _refbase_before(torch):
-    """vote.refbase as the port ran K11 before csrc/refbase.cu: four
-    copies up and the plain refbase_combine (~18 launches)."""
+def _refsrc_before():
+    """vote.vote_gathered as the port ran a bucket before its refbase read
+    moved into csrc/vote.cu: the window's refbase rows assembled and the
+    bucket's rows gathered in plain PyTorch (vote.refbase_rows, ~20
+    launches), then the rows form."""
     from gencore_tpu_torch.core import vote
-    from gencore_tpu_torch.core.vote import to_device
+    orig = vote.vote_gathered
 
-    def f(genome, gpos, host_rows, host_map, jl, L):
-        dev = genome.device
-        I32 = torch.int32
-        return vote.refbase_combine(
-            genome, to_device(gpos, dev, I32), to_device(host_rows, dev),
-            to_device(host_map, dev, I32), to_device(jl, dev, I32), L)
+    def f(*a, refsrc=None, **k):
+        if refsrc is None:
+            return orig(*a, **k)
+        a = list(a)
+        a[7] = vote.refbase_rows(refsrc, a[0].shape[1])
+        return orig(*a, **k)
     return f
 
 
@@ -2426,8 +2679,9 @@ def phase_busy(torch, np, runs):
     golden, extra CLI arguments, whether it must stream)) before, with the
     compositions the port's kernels replaced put back for that run only
     (the plain upload-and-score program after 16 copies, the plain
-    refbase assembly after four, the dense route's plain unpack after four
-    copies and its plain score maps), and after. A run whose trace holds
+    refbase assembly and row gather ahead of each gathered vote, the dense
+    route's plain unpack after four copies and its plain score maps), and
+    after. A run whose trace holds
     fewer kernels than its kernel wrappers launched (the profiler drops
     records now and then) is profiled again, up to three times in all."""
     from torch.profiler import ProfilerActivity, profile
@@ -2449,7 +2703,7 @@ def phase_busy(torch, np, runs):
                         stack.enter_context(_patched(
                             kernels, "upload_score", _upload_before(torch)))
                         stack.enter_context(_patched(
-                            vote, "refbase", _refbase_before(torch)))
+                            vote, "vote_gathered", _refsrc_before()))
                         stack.enter_context(_patched(
                             engine._WorkArrays, "upload",
                             _dense_upload_before()))
@@ -2487,14 +2741,15 @@ def phase_busy(torch, np, runs):
                               "before/after", "ok": True,
           "before": "the plain upload-and-score program "
                     "(engine._upload_score_plain after 16 copies up), "
-                    "the plain refbase assembly of the unfused routes "
-                    "(refbase_combine after four copies up) and the dense "
+                    "the plain refbase assembly and row gather ahead of "
+                    "each gathered vote (vote.refbase_rows) and the dense "
                     "route's plain unpack (engine._upload_unpack_plain "
                     "after four copies up) and score maps "
                     "(kernels.score_map_plain, score_map_packed_plain), "
                     "substituted for that run only",
           "after": "csrc/upload_score.cu (one copy up, one launch per "
-                   "window), csrc/refbase.cu (one copy, one launch) and "
+                   "window), csrc/vote.cu reading each job's refbase row "
+                   "where it lies (the window's sources in one copy) and "
                    "csrc/upload_dense.cu (one copy up, one unpack and one "
                    "score-map launch per dense window)",
           **res})
@@ -2520,7 +2775,7 @@ def phase_cases(torch, np):
     runs = []
     totals = {"vote": 0, "vote_full": 0, "vote_window": 0,
               "upload_score": 0, "upload_unpack": 0, "score_map": 0,
-              "refbase": 0}
+              "refsrc": 0}
     largest = {"sum_counts": -1}
     t0 = time.perf_counter()
     guards = {"counterpart_calls": 0, "upload_score_calls": 0,
@@ -2935,7 +3190,7 @@ def main() -> int:
     dense = phase_dense(torch, np)
     piles = phase_deep_piles(torch, np)
     full = phase_full_kernel(torch, np)
-    phase_small(torch)
+    small = phase_small(torch, np)
     full_bins = phase_full_bins(torch)
     bam, fa, golden, launches, largest = phase_full(torch, np)
     shard_runs = phase_shards(torch, bam, fa, golden)
@@ -2943,7 +3198,7 @@ def main() -> int:
     single = phase_single_shot(torch, bam, fa, golden)
     rep = phase_replay(torch, np, largest)
     ud, ud_wl = phase_ultradeep(torch, np)
-    lr, lr_wl = phase_long_reads(torch)
+    lr, lr_wl = phase_long_reads(torch, np)
     phase_busy(torch, np, [
         ("deep_panel", bam, fa, golden, [], True),
         ("deep_panel_windows1", bam, fa, golden, ["--windows", "1"], False),
@@ -3007,6 +3262,16 @@ def main() -> int:
          "bound_ms": pile["bound_ms"], "bound_by": pile["bound_by"],
          "library_ms": None,
          "vote_alone_ms": pile["vote_only_ms"],
+         "pallas_vote": {
+             "launches": small["kernel_launches"]["vote"],
+             "shifted_calls": small["entry_calls"]["pallas_vote"],
+             "launches_in": "phase 3, the small panel: the gathered "
+                            "launches, of which shifted_calls vote "
+                            "lenDiff-shifted members (pallas_vote, "
+                            "gencore_tpu/core/pallas_vote.py:350)",
+             **{k: small["shifted_call"][k] for k in (
+                 "K", "S", "L", "refsrc", "ms", "call_ms", "plain_ms",
+                 "bound_ms", "bound_by", "share_of_bound")}},
          "replaced_composition_call_ms": pile["composition_call_ms"],
          "shape": f"phase 2c, J={pile['J']}, K={pile['K']}, L={pile['L']}, "
                   f"split {pile['split']}, sparse with a qual table; phase "
@@ -3066,27 +3331,46 @@ def main() -> int:
          "u32_bound_ms": ups["upload_score_u32"][0]["bound_ms"],
          "u32_shape": f"phase 2e, {N_UPLOAD32} rows with u32 mate rows, "
                       "the deep panel's flags"},
-        {"name": "refbase", "route": "cuda",
-         "source": "gencore_tpu_torch/csrc/refbase.cu (refbase_at of "
+        {"name": "refbase (read in vote.cu)", "route": "cuda",
+         "source": "gencore_tpu_torch/csrc/vote.cu (gc_vote_epilogue given "
+                   "the window's refbase sources: JobRef, and row_of of "
                    "csrc/refbase.cuh, shared with vote_window.cu)",
          "replaces": "gencore_tpu/engine.py:3097 (_refbase_combine_fn, the "
-                     "XLA program K11; no Pallas kernel)",
-         "launches": ud["kernel_launches"]["refbase"],
-         "launches_in": "phase 7, the ultra-deep pile (its leftover "
-                        "buckets)",
-         "launches_cases": cases["kernel_launches"]["refbase"],
+                     "XLA program K11, and the row gather of its result, "
+                     "engine.py:1828; no Pallas kernel)",
+         "launches": ud["kernel_launches"]["refsrc"],
+         "launches_in": "phase 7, the ultra-deep pile: its gathered votes "
+                        "reading the window's refbase sources",
+         "launches_long_amplicon": lr["kernel_launches"]["refsrc"],
+         "launches_long_amplicon_in": "phase 7b",
+         "launches_cases": cases["kernel_launches"]["refsrc"],
          "launches_cases_in": cases_in,
          "max_abs_err": max(r["max_abs_err"] for r in
-                            ups["refbase"] + [ud["refbase_largest"]]),
-         "ms": ud["refbase_largest"]["ms"],
-         "host_ms": ud["refbase_largest"]["host_ms"],
-         "call_ms": ud["refbase_largest"]["call_ms"],
-         "plain_ms": ud["refbase_largest"]["plain_ms"],
-         "bound_ms": ud["refbase_largest"]["bound_ms"],
-         "bound_by": ud["refbase_largest"]["bound_by"], "library_ms": None,
-         "shape": f"phase 7, the ultra-deep run's refbase assembly of the "
-                  f"most jobs: J={ud['refbase_largest']['J']}, "
-                  f"L={ud['refbase_largest']['L']}"},
+                            ups["refbase"] + ud["gathered_launches"]
+                            + [lr["gathered_largest"]]),
+         "ms": ud["refsrc_largest"]["ms"],
+         "ms_rows_form": ud["refsrc_largest"]["ms_rows_form"],
+         "host_ms": ud["refsrc_largest"]["host_ms"],
+         "call_ms": ud["refsrc_largest"]["call_ms"],
+         "plain_ms": ud["refsrc_largest"]["plain_ms"],
+         "bound_ms": ud["refsrc_largest"]["bound_ms"],
+         "bound_by": ud["refsrc_largest"]["bound_by"], "library_ms": None,
+         "share_of_bound": ud["refsrc_largest"]["share_of_bound"],
+         "shape": f"phase 7, the ultra-deep run's gathered launch of the "
+                  f"most jobs: K={ud['refsrc_largest']['K']}, "
+                  f"J={ud['refsrc_largest']['J']}, "
+                  f"L={ud['refsrc_largest']['L']}; ms is the whole "
+                  "launch's (vote, epilogue and refbase read), "
+                  "ms_rows_form the same launch given its refbase rows, "
+                  "plain_ms refbase_combine, the row gather and the plain "
+                  "vote",
+         "phase_2e": [{k: r[k] for k in ("J", "K", "L", "ms", "ms_in_turns",
+                                         "call_ms", "host_ms", "plain_ms",
+                                         "bound_ms", "share_of_bound")}
+                      for r in ups["refbase"]],
+         "long_amplicon_largest": {k: lr["gathered_largest"][k] for k in (
+             "K", "J", "L", "split", "ms", "ms_rows_form", "plain_ms",
+             "bound_ms", "share_of_bound")}},
         *[_dense_line(kind, lr, single, cases, cases_in, dense)
           for kind in ("upload_unpack", "score_map")]],
         "seconds": time.perf_counter() - t_start,

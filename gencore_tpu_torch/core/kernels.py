@@ -15,8 +15,8 @@ gencore_tpu/core/kernels.py).
 * `upload_unpack` — `csrc/upload_dense.cu`'s gc_upload_unpack (K12): the
   dense staging unpacked into the resident matrices, for
   engine._upload_unpack_fn on CUDA tensors (its twin
-  engine._upload_unpack_plain); `pinned_parts` sends host arrays up in
-  one pinned copy.
+  engine._upload_unpack_plain); `vote.pinned_parts` sends host arrays up
+  in one pinned copy.
 * `fused_vote_kernel` / `_vote_core` — Group::makeConsensus over members
   gathered from the device matrices with per-member lenDiff shifts, with
   all 16 nt16 bins (`full_bins=True`, data with codes outside =ACGTN) or
@@ -297,25 +297,6 @@ def upload_unpack(seq_up, qual_up, lens, qtable, *, w, L, seq_mode,
     global UPLOAD_UNPACK_LAUNCHES
     UPLOAD_UNPACK_LAUNCHES += 1
     return seq, qual, lens_out
-
-
-def pinned_parts(arrays, dev):
-    """Host arrays to `dev` (a CUDA device) in one pinned non-blocking
-    copy, each at a multiple of 16 bytes in its own dtype; returns a
-    contiguous tensor view of each on `dev`."""
-    arrays = [np.ascontiguousarray(a) for a in arrays]
-    offs = np.cumsum([0] + [-(-a.nbytes // 16) * 16 for a in arrays])
-    size = max(int(offs[-1]), 16)
-
-    def fill(alloc):
-        buf = alloc(size)
-        for a, o in zip(arrays, offs):
-            buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-        return buf, {"size": size}
-
-    up, _ = vote.pinned_upload(fill, dev)
-    return [up[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
-            .reshape(a.shape) for a, o in zip(arrays, offs)]
 
 
 NT16_BINS = tuple(range(16))

@@ -18,7 +18,13 @@ tensors it runs the kernel's plain twin.
   (`vote_gathered`: the Bins6 rules, each job's members split across up
   to 16 CTAs, `split_size`, the epilogue where each job is decided); on
   CPU tensors its plain twin `vote_gathered_plain` (`vote_core_plain`
-  then `_epilogue_core`).
+  then `_epilogue_core`). The gathered entry takes each job's refbase row
+  as a [J, L] tensor or, with `refsrc=`, by its index in the window's
+  rows, read where they lie from the refbase sources (the genome slice
+  or a host row, what the JAX engine's _refbase_combine_fn assembles,
+  K11); `window_refsrc` sends a window's sources up once for all its
+  buckets, and `pallas_vote_gathered` a bucket's host arrays in one
+  pinned copy.
 * `vote_full` — the full-bins vote of kernels.fused_vote_kernel (K9: all
   16 nt16 bins, lenDiff shifts, per-job rollback) through the Bins16
   instantiation of `csrc/vote.cu`; CUDA tensors only (its twin is
@@ -31,11 +37,9 @@ tensors it runs the kernel's plain twin.
 * `_epilogue_core` — per-read rollback (group.cpp:538-566), nibble packing
   and the sparse wire encoding, in plain PyTorch (XLA in the JAX package):
   the plain twins' half of what the kernels fuse.
-* `refbase` — the refbase rows of a window's jobs for the engine's routes
-  that do not fuse the window (engine._refbase_combine_fn, K11): the
-  sources go up in one pinned copy and `csrc/refbase.cu` builds the rows;
-  CUDA only. `refbase_combine` is its plain twin, which the window
-  kernel's twin uses too.
+* `refbase_combine` — the refbase rows of a window's jobs in plain
+  PyTorch: the twin of the rows the window kernel and the gathered entry
+  read where they lie (`refbase_rows` for a source form).
 
 Only the device of the tensors selects between a kernel and its twin.
 The kernel library builds at first use from `gencore_tpu_torch/csrc/*.cu`
@@ -69,14 +73,15 @@ SPARSE_DIFFS = 4
 SPARSE_RUNS = 10
 
 # kernel launches, CUDA tensors only: `vote_gathered` (csrc/vote.cu, Bins6
-# with the epilogue), `vote_full` (csrc/vote.cu, Bins16), `vote_window`
-# (csrc/vote_window.cu), `vote_core` (csrc/vote.cu, the vote alone) and
-# `refbase` (csrc/refbase.cu); a vote.cu launch with a split counts once
+# with the epilogue; REFSRC_LAUNCHES those of them that read the refbase
+# rows from their sources), `vote_full` (csrc/vote.cu, Bins16),
+# `vote_window` (csrc/vote_window.cu) and `vote_core` (csrc/vote.cu, the
+# vote alone); a vote.cu launch with a split counts once
 LAUNCHES = 0
+REFSRC_LAUNCHES = 0
 FULL_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 VOTE_ONLY_LAUNCHES = 0
-REFBASE_LAUNCHES = 0
 
 SMS = 132           # H100 SXM streaming multiprocessors
 MAX_SPLIT = 16      # CTAs per job
@@ -170,13 +175,13 @@ def build_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         P = ctypes.c_void_p
         I = ctypes.c_int
-        lib.gc_vote_epilogue.argtypes = [P] * 22 + [I] * 12 + [P, P]
+        lib.gc_vote_epilogue.argtypes = [P] * 28 + [I] * 15 + [P, P]
         lib.gc_vote_epilogue.restype = ctypes.c_int
         lib.gc_vote.argtypes = [P] * 10 + [I] * 11 + [P, P]
         lib.gc_vote.restype = ctypes.c_int
         lib.gc_vote_full.argtypes = [P] * 12 + [I] * 11 + [P, P]
         lib.gc_vote_full.restype = ctypes.c_int
-        lib.gc_vote_window.argtypes = [P] * 16 + [I] * 15 + [P]
+        lib.gc_vote_window.argtypes = [P] * 14 + [I] * 14 + [P]
         lib.gc_vote_window.restype = ctypes.c_int
         lib.gc_vote_window_grid.argtypes = [I, I]
         lib.gc_vote_window_grid.restype = ctypes.c_int
@@ -184,8 +189,6 @@ def build_library() -> ctypes.CDLL:
         lib.gc_vote_window_stage.restype = ctypes.c_int
         lib.gc_upload_score.argtypes = [P] * 6 + [ctypes.POINTER(I), P]
         lib.gc_upload_score.restype = ctypes.c_int
-        lib.gc_refbase.argtypes = [P] * 6 + [I] * 4 + [P]
-        lib.gc_refbase.restype = ctypes.c_int
         lib.gc_upload_unpack.argtypes = [P] * 7 + [I] * 6 + [P]
         lib.gc_upload_unpack.restype = ctypes.c_int
         lib.gc_score_map.argtypes = [P] * 12 + [I] * 10 + [P]
@@ -265,20 +268,56 @@ def _out_len(fn, out_len, L, sparse):
     return ol
 
 
+def _ref_forms(fn, refbase, refsrc, J, L):
+    """The gathered entry's refbase arguments: (the _check specs, the
+    kernel's pointers refbase, ridx, genome, gp, hm, jp, hr, and Jw, G,
+    nh). Without refsrc, refbase u8 [J, L]; refsrc (genome, gp, hm, jp,
+    hr, ridx): row ridx[j] (i32 [J], clamped to [0, Jw - 1]) of the rows
+    these sources give (refbase_combine), genome u8 [G] (G >= L), gp, hm,
+    jp i32 [Jw], hr u8 [nh, L]."""
+    I32 = torch.int32
+    if refsrc is None:
+        if refbase is None:
+            raise ValueError(f"{fn}: needs refbase or refsrc")
+        return ([("refbase", refbase, torch.uint8, (J, L))],
+                [refbase] + [None] * 6, J, 0, 0)
+    if refbase is not None:
+        raise ValueError(f"{fn}: refbase and refsrc both given")
+    if len(refsrc) != 6:
+        raise ValueError(f"{fn}: refsrc is (genome, gp, hm, jp, hr, ridx), "
+                         f"got {len(refsrc)} parts")
+    genome, gp, hm, jp, hr, ridx = refsrc
+    Jw, G, nh = gp.shape[0], genome.shape[0], hr.shape[0]
+    if G < L or nh == 0:
+        raise ValueError(f"{fn}: needs a genome of at least L={L} bases "
+                         f"({G}) and a host row ({nh})")
+    if Jw == 0 or max(Jw, G, nh) >= 2**31:
+        raise ValueError(f"{fn}: needs 0 < Jw={Jw} < 2**31 refbase rows")
+    return ([("genome", genome, torch.uint8, (G,)), ("gp", gp, I32, (Jw,)),
+             ("hm", hm, I32, (Jw,)), ("jp", jp, I32, (Jw,)),
+             ("hr", hr, torch.uint8, (nh, L)), ("ridx", ridx, I32, (J,))],
+            [None, ridx, genome, gp, hm, jp, hr], Jw, G, nh)
+
+
 def vote_gathered(seq_src, qual_src, score_src, rows, row0, valid, job_len,
                   refbase, qtable=None, *, hi, mod, lo, base_score_req,
-                  ratio_num, ratio_den, out_len=None, sparse=False):
+                  ratio_num, ratio_den, out_len=None, sparse=False,
+                  refsrc=None):
     """csrc/vote.cu's gathered entry: the vote over members seq_src[rows[k,
     j]] (k < K) of each job j with the epilogue fused where the job is
     decided (rollback, nibble packing and, with sparse, the wire encoding;
-    templates seq_src/qual_src[row0[j]]). Arguments and result as
-    vote_gathered_plain's, equal byte for byte; every tensor on the
+    templates seq_src/qual_src[row0[j]]). Job j's refbase row is row j of
+    refbase [J, L] or, with refbase None, the row refsrc names
+    (`_ref_forms`), read by the kernel where it lies. Arguments and result
+    as vote_gathered_plain's, equal byte for byte; every tensor on the
     matrices' device, which must be a CUDA device."""
     th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
     dev = seq_src.device
     I32 = torch.int32
     K, J = rows.shape
     N, L = seq_src.shape
+    ref_specs, ref_ptrs, Jw, G, nh = _ref_forms("vote_gathered", refbase,
+                                                refsrc, J, L)
     _check("vote_gathered", [spec for spec in (
         ("seq_src", seq_src, torch.uint8, (N, L)),
         ("qual_src", qual_src, torch.uint8, (N, L)),
@@ -287,7 +326,7 @@ def vote_gathered(seq_src, qual_src, score_src, rows, row0, valid, job_len,
         ("row0", row0, I32, (J,)),
         ("valid", valid, torch.uint8, (K, J)),
         ("job_len", job_len, I32, (J,)),
-        ("refbase", refbase, torch.uint8, (J, L)),
+        *ref_specs,
         ("qtable", qtable, torch.uint8, (16,))) if spec[1] is not None], dev)
     _check_rows("vote_gathered", seq_src, qual_src, score_src, K, J)
     ol = _out_len("vote_gathered", out_len, L, sparse)
@@ -303,15 +342,20 @@ def vote_gathered(seq_src, qual_src, score_src, rows, row0, valid, job_len,
     if sparse:
         enc = _sparse_fields(J, qtable is not None, dev)
         wire = [t.data_ptr() for t in enc]
+        if J == 0:   # empty fields have no pointer: the kernel sees dense
+            enc[8].zero_()
     _launch("gc_vote_epilogue", lib.gc_vote_epilogue,
             [t.data_ptr() if t is not None else None
              for t in (seq_src, qual_src, score_src, rows, row0, valid,
-                       job_len, refbase, qtable, pseq, new_qual, diff,
+                       job_len, *ref_ptrs, qtable, pseq, new_qual, diff,
                        minc)] + wire,
-            [K, J, L, N, ol, th["hi"], th["mod"], th["lo"], th["bsr"],
-             th["rnum"], th["rden"]], K, J, L, 4 * len(BINS) + 3, dev)
-    global LAUNCHES
+            [K, J, L, N, ol, Jw, G, nh, th["hi"], th["mod"], th["lo"],
+             th["bsr"], th["rnum"], th["rden"]], K, J, L, 4 * len(BINS) + 3,
+            dev)
+    global LAUNCHES, REFSRC_LAUNCHES
     LAUNCHES += 1
+    if refsrc is not None:
+        REFSRC_LAUNCHES += 1
     if not sparse:
         return pseq, new_qual, diff, minc
     return pseq, new_qual, diff, minc, enc
@@ -338,17 +382,32 @@ def _sparse_fields(J, with_qtable, dev):
     return tuple(out)
 
 
+def refbase_rows(refsrc, L):
+    """The refbase rows [J, L] the gathered entry's source form names
+    (`_ref_forms`), in plain PyTorch: refbase_combine over the sources,
+    rows ridx clamped, as the JAX package gathers them."""
+    genome, gp, hm, jp, hr, ridx = refsrc
+    table = refbase_combine(genome, gp, hr, hm, jp, L)
+    return table[_clamp_rows(ridx, table.shape[0])]
+
+
 def vote_gathered_plain(seq_src, qual_src, score_src, rows, row0, valid,
                         job_len, refbase, qtable=None, *, hi, mod, lo,
                         base_score_req, ratio_num, ratio_den, out_len=None,
-                        sparse=False):
+                        sparse=False, refsrc=None):
     """The gathered entry's plain twin, on any device: `vote_core_plain`
     over members seq_src[rows[k, j]] then `_epilogue_core` with templates
     seq_src/qual_src[row0[j]] (rows and row0 clamp to the matrix).
     seq_src/qual_src u8 [N, L], score_src i8 [N, L], rows i32 [K, J], row0
-    i32 [J], valid u8 [K, J], job_len i32 [J], refbase u8 [J, L], qtable
-    u8 [16] or None. Returns (pseq, new_qual, diff, minc[, enc])."""
+    i32 [J], valid u8 [K, J], job_len i32 [J], refbase u8 [J, L] (or None
+    and refsrc, whose rows `refbase_rows` gives), qtable u8 [16] or None.
+    Returns (pseq, new_qual, diff, minc[, enc])."""
     th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
+    if refsrc is not None:
+        if refbase is not None:
+            raise ValueError("vote_gathered_plain: refbase and refsrc both "
+                             "given")
+        refbase = refbase_rows(refsrc, seq_src.shape[1])
     cseq, cqual, chg, minc_pos = vote_core_plain(
         seq_src, qual_src, score_src, rows, valid, refbase, **th)
     r0 = _clamp_rows(row0, seq_src.shape[0])
@@ -684,18 +743,16 @@ def wire_size(n_jobs, n_classes, qtable):
 
 def pallas_vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
                        qtable, class_args, *, classes, L, hi, mod, lo,
-                       base_score_req, ratio_num, ratio_den, out_len,
-                       unref=None):
+                       base_score_req, ratio_num, ratio_den, out_len):
     """EVERY fast vote bucket of one window (port of _pallas_window_all):
     refbase assembly (genome slice-gather + host rows), then per k-class
     (K, J) the vote of each job over its rows base..base+count-1, the
     rollback/sparse-encode epilogue, and the cross-class wire concat.
-    class_args holds (base_row, counts, job_len, refbase row) per class;
-    unref, when given, lists the refbase rows that no job references
-    (unreferenced_rows of the refbase-row arguments, which the engine
-    knows without counting). Returns (flat u8 wire buffer, refbase_dev,
-    [per-class (pseq, qual)
-    dense fallbacks]). CUDA tensors launch the fused kernel
+    class_args holds (base_row, counts, job_len, refbase row) per class.
+    Returns (flat u8 wire buffer, [per-class (pseq, qual) dense
+    fallbacks]): not the JAX function's refbase rows, which no caller of
+    the port reads (the gathered vote reads the window's other rows from
+    their sources). CUDA tensors launch the fused kernel
     (csrc/vote_window.cu, `vote_window`) once; CPU tensors run its plain
     twin `vote_window_plain`."""
     dev = seq_dev.device
@@ -708,20 +765,18 @@ def pallas_vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
     return fn(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
               class_args, classes=classes, L=L, hi=hi, mod=mod, lo=lo,
               base_score_req=base_score_req, ratio_num=ratio_num,
-              ratio_den=ratio_den, out_len=out_len, unref=unref)
+              ratio_den=ratio_den, out_len=out_len)
 
 
 def vote_window_plain(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
                       qtable, class_args, *, classes, L, hi, mod, lo,
-                      base_score_req, ratio_num, ratio_den, out_len,
-                      unref=None):
+                      base_score_req, ratio_num, ratio_den, out_len):
     """The fused window kernel's plain twin, on any device: the refbase
     rows (`refbase_combine`), then per k-class `vote_core_plain` over rows
     base..base+K-1 masked by the member count and `_epilogue_core` with
     the sparse encoding, then `concat_sparse` (the composition the JAX
     package's _pallas_window_all makes). Arguments and result as
-    pallas_vote_window's (it builds every refbase row, so `unref` goes
-    unread)."""
+    pallas_vote_window's."""
     dev = seq_dev.device
     I32 = torch.int32
     refbase_dev = refbase_combine(
@@ -747,7 +802,7 @@ def vote_window_plain(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
                              qtable=qtable)
         encs.append(res[4])
         dense.append((res[0], res[1]))
-    return concat_sparse(encs), refbase_dev, dense
+    return concat_sparse(encs), dense
 
 
 def _host(a):
@@ -792,44 +847,28 @@ def window_job_table(class_args, classes, out=None):
     return tab
 
 
-def window_upload_layout(Jt, Jw, nu, qtable_bytes, hr_bytes):
+def window_upload_layout(Jt, Jw, qtable_bytes, hr_bytes):
     """Byte offsets of the parts of the window kernel's one upload, and its
     size: the job table int32 [6, Jt], the refbase sources gp, hm, jp
-    int32 [Jw], the qual table (16 bytes, or none), at the next multiple
-    of 16 bytes (the kernel copies them 16 bytes at a time) the host rows
-    u8 [nh, L] (none when the kernel reads them from the device), then the
-    nu refbase rows that no job references int32 [nu]."""
+    int32 [Jw], the qual table (16 bytes, or none), then at the next
+    multiple of 16 bytes (the kernel copies them 16 bytes at a time) the
+    host rows u8 [nh, L] (none when the kernel reads them from the
+    device)."""
     lay = {"jobs": 0, "gp": 24 * Jt}
     lay["hm"] = lay["gp"] + 4 * Jw
     lay["jp"] = lay["hm"] + 4 * Jw
     lay["qtable"] = lay["jp"] + 4 * Jw
     lay["hr"] = -(-(lay["qtable"] + qtable_bytes) // 16) * 16
-    lay["unref"] = lay["hr"] + hr_bytes
-    lay["size"] = lay["unref"] + 4 * nu
+    lay["size"] = lay["hr"] + hr_bytes
     return lay
 
 
-def unreferenced_rows(ridx, Jw):
-    """The window's refbase rows [0, Jw) that no job's refbase row
-    (clamped to the rows, as the kernel clamps it) names, ascending, int32:
-    the kernel builds these apart from the jobs'."""
-    r = np.asarray(ridx)
-    if r.dtype != np.int32:
-        r = r.astype(np.int64)
-    hits = np.bincount(np.clip(r, 0, Jw - 1), minlength=Jw)
-    return np.flatnonzero(hits == 0).astype(np.int32)
-
-
 def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
-                  alloc=None, unref=None):
+                  alloc=None):
     """The window kernel's one upload, u8, in window_upload_layout's
     order: window_job_table, the refbase sources gp, hm, jp of every job
-    of the window as int32, the qual table and the host rows when given,
-    then the refbase rows no job references: `unref` where the caller
-    knows them (the engine does), else unreferenced_rows of the table's
-    refbase row. Returns (buffer, layout): the buffer is the first
-    layout["size"] bytes of one of room for every row unreferenced (of
-    exactly the size with `unref`), which comes from alloc(room) when
+    of the window as int32, the qual table and the host rows when given.
+    Returns (buffer, layout); the buffer comes from alloc(size) when
     given."""
     gp, hm, jp = _host(gp), _host(hm), _host(jp)
     Jw = len(gp)
@@ -843,36 +882,27 @@ def window_upload(class_args, classes, gp, hm, jp, qtable=None, hr=None,
     if qt is not None and qt.shape != (16,):
         raise ValueError(f"vote_window: qtable has {qt.size} entries, not 16")
     hrb = None if hr is None else np.ascontiguousarray(hr, dtype=np.uint8)
-    if unref is not None:
-        unref = np.asarray(unref, dtype=np.int32)
-    room = window_upload_layout(Jt, Jw, Jw if unref is None else len(unref),
-                                0 if qt is None else 16,
-                                0 if hrb is None else hrb.nbytes)
-    buf = (np.empty(room["size"], dtype=np.uint8) if alloc is None
-           else alloc(room["size"]))
-    ints = buf[:room["qtable"]].view(np.int32)
-    tab = window_job_table(class_args, classes,
-                           out=ints[:6 * Jt].reshape(6, Jt))
+    lay = window_upload_layout(Jt, Jw, 0 if qt is None else 16,
+                               0 if hrb is None else hrb.nbytes)
+    buf = (np.empty(lay["size"], dtype=np.uint8) if alloc is None
+           else alloc(lay["size"]))
+    ints = buf[:lay["qtable"]].view(np.int32)
+    window_job_table(class_args, classes, out=ints[:6 * Jt].reshape(6, Jt))
     ints[6 * Jt:6 * Jt + Jw] = gp
     ints[6 * Jt + Jw:6 * Jt + 2 * Jw] = hm
     ints[6 * Jt + 2 * Jw:] = jp
-    qt_end = room["qtable"] + (0 if qt is None else 16)
+    qt_end = lay["qtable"] + (0 if qt is None else 16)
     if qt is not None:
-        buf[room["qtable"]:qt_end] = qt
-    buf[qt_end:room["hr"]] = 0  # the padding before the host rows
+        buf[lay["qtable"]:qt_end] = qt
+    buf[qt_end:lay["hr"]] = 0  # the padding before the host rows
     if hrb is not None:
-        buf[room["hr"]:room["unref"]] = hrb.reshape(-1)
-    if unref is None:
-        unref = unreferenced_rows(tab[3], Jw)
-    lay = window_upload_layout(Jt, Jw, len(unref), 0 if qt is None else 16,
-                               0 if hrb is None else hrb.nbytes)
-    buf[lay["unref"]:lay["size"]].view(np.int32)[:] = unref
-    return buf[:lay["size"]], lay
+        buf[lay["hr"]:lay["size"]] = hrb.reshape(-1)
+    return buf, lay
 
 
 def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
                 class_args, *, classes, L, hi, mod, lo, base_score_req,
-                ratio_num, ratio_den, out_len, unref=None):
+                ratio_num, ratio_den, out_len):
     """Launch csrc/vote_window.cu over every class of one window, the
     refbase rows built in the kernel: arguments and result as
     pallas_vote_window's, equal byte for byte to vote_window_plain's. The
@@ -928,30 +958,28 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
     nb = len(classes)
     qt_host = None if qtable is None or qt_dev is not None else qtable
     up, lay = pinned_upload(lambda alloc: window_upload(
-        class_args, classes, gp, hm, jp, qt_host, hr_host, alloc=alloc,
-        unref=unref), dev)
+        class_args, classes, gp, hm, jp, qt_host, hr_host, alloc=alloc),
+        dev)
     at = {k: up.data_ptr() + v for k, v in lay.items()}
     qt_ptr = (qt_dev.data_ptr() if qt_dev is not None
               else None if qt_host is None else at["qtable"])
     hr_ptr = hr_dev.data_ptr() if hr_dev is not None else at["hr"]
     flat = torch.empty(wire_size(Jt, nb, qtable), dtype=torch.uint8,
                        device=dev)
-    refbase_dev = torch.empty((Jw, L), dtype=torch.uint8, device=dev)
     pseq = torch.empty((Jt, ol // 2), dtype=torch.uint8, device=dev)
     qual = torch.empty((Jt, ol), dtype=torch.uint8, device=dev)
     scratch = torch.empty(nb + 2, dtype=torch.int32, device=dev)
     lib = build_library()
     th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
-    nu = (lay["size"] - lay["unref"]) // 4
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gc_vote_window(
             seq_dev.data_ptr(), qual_dev.data_ptr(), score_dev.data_ptr(),
             genome.data_ptr(), at["gp"], at["hm"], at["jp"], hr_ptr,
-            at["unref"], refbase_dev.data_ptr(), at["jobs"], qt_ptr,
-            flat.data_ptr(), pseq.data_ptr(), qual.data_ptr(),
-            scratch.data_ptr(), N, L, G, nh, Jw, nu, Jt, nb, ol, th["hi"],
-            th["mod"], th["lo"], th["bsr"], th["rnum"], th["rden"], stream)
+            at["jobs"], qt_ptr, flat.data_ptr(), pseq.data_ptr(),
+            qual.data_ptr(), scratch.data_ptr(), N, L, G, nh, Jw, Jt, nb, ol,
+            th["hi"], th["mod"], th["lo"], th["bsr"], th["rnum"], th["rden"],
+            stream)
     if err != 0:
         raise RuntimeError(f"gc_vote_window launch failed: cudaError_t {err}")
     global WINDOW_LAUNCHES
@@ -961,7 +989,7 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
     for _K, J in classes:
         dense.append((pseq[off:off + J], qual[off:off + J]))
         off += J
-    return flat, refbase_dev, dense
+    return flat, dense
 
 
 def pinned_upload(fill, dev):
@@ -1000,7 +1028,7 @@ def window_grid(L, Jt, device):
 def refbase_combine(genome, gpos, host_rows, host_map, jl, L):
     """Refbase rows: a genome slice at gpos for contiguous-M jobs
     (host_map < 0; zero at and beyond jl), else host_rows[host_map]
-    (engine._refbase_combine_fn). The slice start goes as in
+    (the JAX engine._refbase_combine_fn). The slice start goes as in
     jax.lax.dynamic_slice: a negative start counts once from the genome's
     end, then clamps to [0, len(genome) - L]."""
     dev = genome.device
@@ -1017,11 +1045,11 @@ def refbase_combine(genome, gpos, host_rows, host_map, jl, L):
 
 
 def refbase_upload(gp, hr, hm, jp, alloc=None):
-    """The refbase kernel's one upload, u8: gp, hm, jp of every job as
-    int32, then at the next multiple of 16 bytes the host rows u8 [nh, L]
-    (window_upload_layout with no job table, qual table or unreferenced
-    rows). Returns (buffer, layout); the buffer comes from alloc(size)
-    when given."""
+    """A window's refbase sources in one buffer, u8: gp, hm, jp of every
+    job as int32, then at the next multiple of 16 bytes the host rows u8
+    [nh, L] (window_upload_layout with no job table or qual table).
+    Returns (buffer, layout); the buffer comes from
+    alloc(size) when given."""
     gp, hm, jp = _host(gp), _host(hm), _host(jp)
     J = len(gp)
     if len(hm) != J or len(jp) != J:
@@ -1030,7 +1058,7 @@ def refbase_upload(gp, hr, hm, jp, alloc=None):
     for name, a in (("gp", gp), ("hm", hm), ("jp", jp)):
         _fits_i32("refbase", name, a)
     hrb = np.ascontiguousarray(hr, dtype=np.uint8)
-    lay = window_upload_layout(0, J, 0, 0, hrb.nbytes)
+    lay = window_upload_layout(0, J, 0, hrb.nbytes)
     buf = (np.empty(lay["size"], dtype=np.uint8) if alloc is None
            else alloc(lay["size"]))
     ints = buf[:lay["qtable"]].view(np.int32)
@@ -1042,43 +1070,64 @@ def refbase_upload(gp, hr, hm, jp, alloc=None):
     return buf, lay
 
 
-def refbase(genome, gpos, host_rows, host_map, jl, L):
-    """csrc/refbase.cu: the refbase rows of refbase_combine, equal byte
-    for byte, for a genome on a CUDA device: the host arrays gpos,
-    host_rows [nh, L], host_map and jl go up in one pinned copy
-    (refbase_upload) and one launch builds the rows. Returns u8 [J, L] on
-    the genome's device."""
+def window_refsrc(genome, gp, hm, jp, hr):
+    """A window's refbase sources on the genome's device, for every
+    gathered bucket of the window to read (`refsrc=` with each bucket's
+    ridx appended): (genome, gp, hm, jp int32 [Jw], hr u8 [nh, L]). On a
+    CUDA device the host arrays go up in one pinned copy
+    (refbase_upload); the views share its buffer, which lives as long as
+    any of them."""
     dev = genome.device
     if dev.type != "cuda":
-        raise ValueError(f"refbase: needs the genome on a CUDA device, got "
-                         f"{dev}")
-    if genome.dtype != torch.uint8 or genome.dim() != 1:
-        raise TypeError("refbase: the genome must be u8 [G]")
-    hr = np.asarray(host_rows)
-    G = genome.shape[0]
-    if hr.ndim != 2 or hr.shape[1] != L or hr.shape[0] == 0:
-        raise ValueError(f"refbase: host rows {hr.shape}, expected (nh >= 1, "
-                         f"{L})")
-    if not 0 < L <= G < 2**31:
-        raise ValueError(f"refbase: needs 0 < L={L} <= G={G} < 2**31")
-    J = len(_host(gpos))
-    out = torch.empty((J, L), dtype=torch.uint8, device=dev)
-    if J == 0:
-        return out
-    up, lay = pinned_upload(lambda alloc: refbase_upload(
-        gpos, hr, host_map, jl, alloc=alloc), dev)
-    at = {k: up.data_ptr() + v for k, v in lay.items()}
-    lib = build_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gc_refbase(genome.data_ptr(), at["gp"], at["hm"], at["jp"],
-                             at["hr"], out.data_ptr(), G, hr.shape[0], J, L,
-                             stream)
-    if err != 0:
-        raise RuntimeError(f"gc_refbase launch failed: cudaError_t {err}")
-    global REFBASE_LAUNCHES
-    REFBASE_LAUNCHES += 1
-    return out
+        I32 = torch.int32
+        return (genome, to_device(gp, dev, I32), to_device(hm, dev, I32),
+                to_device(jp, dev, I32), to_device(hr, dev, torch.uint8))
+    hr = np.asarray(hr)
+    up, lay = pinned_upload(lambda alloc: refbase_upload(gp, hr, hm, jp,
+                                                         alloc=alloc), dev)
+    Jw = len(_host(gp))
+    ints = up[:lay["qtable"]].view(torch.int32)
+    return (genome, ints[:Jw], ints[Jw:2 * Jw], ints[2 * Jw:],
+            up[lay["hr"]:lay["size"]].view(hr.shape))
+
+
+def pack_parts(arrays, alloc=None):
+    """Host arrays in one u8 buffer, each at a multiple of 16 bytes in its
+    own dtype. Returns (buffer, offsets); the buffer comes from
+    alloc(size) when given."""
+    offs = np.cumsum([0] + [-(-a.nbytes // 16) * 16 for a in arrays])
+    size = max(int(offs[-1]), 16)
+    buf = np.zeros(size, dtype=np.uint8) if alloc is None else alloc(size)
+    for a, o in zip(arrays, offs):
+        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    return buf, [int(o) for o in offs[:-1]]
+
+
+def pinned_parts(arrays, dev):
+    """Host arrays to `dev` (a CUDA device) in one pinned non-blocking
+    copy (pack_parts); returns a contiguous tensor view of each on
+    `dev`."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offs = []
+
+    def fill(alloc):
+        buf, o = pack_parts(arrays, alloc)
+        offs.extend(o)
+        return buf, {"size": len(buf)}
+
+    up, _ = pinned_upload(fill, dev)
+    return [up[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .reshape(a.shape) for a, o in zip(arrays, offs)]
+
+
+def _host_as(fn, a, dt):
+    """Host array a as numpy dtype dt; values cast to int32 must fit."""
+    a = np.asarray(a)
+    if a.dtype != dt:
+        if np.dtype(dt).itemsize == 4:
+            _fits_i32(fn, "an array", a)
+        a = a.astype(dt)
+    return a
 
 
 def _gathered(dev):
@@ -1094,34 +1143,51 @@ def _gathered(dev):
 def pallas_vote_gathered(seq_dev, qual_dev, score_dev, rows_t, row0, valid,
                          job_len, refbase, qtable=None, *, hi, mod, lo,
                          base_score_req, ratio_num, ratio_den, out_len=None,
-                         sparse=False):
+                         sparse=False, refsrc=None):
     """Vote over member rows rows_t [K, J] of the device matrices plus the
     epilogue with template rows row0 [J] (port of the JAX function of the
-    same name; host arrays go to the matrices' device). Returns (pseq,
-    new_qual, diff, minc[, enc])."""
+    same name). Job j's refbase row is row j of refbase [J, L] or, with
+    refbase None, the row refsrc names (vote_gathered's source form; its
+    ridx may be a host array). On a CUDA device the host arrays among
+    rows_t, row0, valid, job_len, refbase, ridx and qtable go up in one
+    pinned copy (`pinned_parts`, values cast to int32 must fit); tensors
+    are read where they lie. Returns (pseq, new_qual, diff, minc[,
+    enc])."""
     dev = seq_dev.device
-    I32 = torch.int32
+    parts = [(rows_t, np.int32), (row0, np.int32), (valid, np.uint8),
+             (job_len, np.int32), (refbase, np.uint8),
+             (None if refsrc is None else refsrc[-1], np.int32),
+             (qtable, np.uint8)]
+    host = [i for i, (a, _) in enumerate(parts)
+            if a is not None and not isinstance(a, torch.Tensor)]
+    if dev.type == "cuda" and host:
+        up = pinned_parts([_host_as("pallas_vote_gathered", *parts[i])
+                           for i in host], dev)
+        for i, t in zip(host, up):
+            parts[i] = (t, parts[i][1])
+    rows_t, row0, valid, job_len, refbase, ridx, qtable = (
+        None if a is None else to_device(
+            a, dev, torch.int32 if dt == np.int32 else torch.uint8)
+        .contiguous() for a, dt in parts)
+    if refsrc is not None:
+        refsrc = (*refsrc[:-1], ridx)
     return _gathered(dev)(
-        seq_dev, qual_dev, score_dev,
-        to_device(rows_t, dev, I32).contiguous(),
-        to_device(row0, dev, I32).contiguous(),
-        to_device(valid, dev, torch.uint8).contiguous(),
-        to_device(job_len, dev, I32).contiguous(),
-        to_device(refbase, dev, torch.uint8).contiguous(),
-        None if qtable is None else to_device(qtable, dev, torch.uint8),
-        hi=hi, mod=mod, lo=lo, base_score_req=base_score_req,
+        seq_dev, qual_dev, score_dev, rows_t, row0, valid, job_len, refbase,
+        qtable, hi=hi, mod=mod, lo=lo, base_score_req=base_score_req,
         ratio_num=ratio_num, ratio_den=ratio_den, out_len=out_len,
-        sparse=sparse)
+        sparse=sparse, refsrc=refsrc)
 
 
 def pallas_vote(seq, qual, score, valid, job_len, refbase, *, hi, mod, lo,
                 base_score_req, ratio_num, ratio_den, out_len=None,
-                sparse=False, device=None):
+                sparse=False, device=None, refsrc=None):
     """Vote over members the host has gathered: seq/qual u8 [K, S, L],
-    score i8 [K, S, L], valid [K, S], job_len [S], refbase u8 [S, L] (host
-    arrays or tensors; host arrays go to `device`). The gathered entry
-    reads the [K*S, L] view with rows k*S + j and templates row j (member
-    0's rows). Returns (pseq, new_qual, diff, minc[, enc])."""
+    score i8 [K, S, L], valid [K, S], job_len [S], refbase u8 [S, L] or,
+    with refbase None, the rows refsrc names (vote_gathered's source form,
+    its sources on `device`, its ridx a host array or a tensor); host
+    arrays go to `device`. The gathered entry reads the [K*S, L] view with
+    rows k*S + j and templates row j (member 0's rows). Returns (pseq,
+    new_qual, diff, minc[, enc])."""
     dev = device if device is not None else (
         seq.device if isinstance(seq, torch.Tensor) else torch.device("cpu"))
     seq = to_device(seq, dev, torch.uint8)
@@ -1129,11 +1195,16 @@ def pallas_vote(seq, qual, score, valid, job_len, refbase, *, hi, mod, lo,
     score = to_device(score, dev, torch.int8)
     K, S, L = seq.shape
     rows = torch.arange(K * S, dtype=torch.int32, device=dev).view(K, S)
+    if refbase is not None:
+        refbase = to_device(refbase, dev, torch.uint8).contiguous()
+    if refsrc is not None:
+        refsrc = (*refsrc[:-1],
+                  to_device(refsrc[-1], dev, torch.int32).contiguous())
     return _gathered(dev)(
         seq.reshape(K * S, L).contiguous(), qual.reshape(K * S, L).contiguous(),
         score.reshape(K * S, L).contiguous(), rows, rows[0],
         to_device(valid, dev, torch.uint8).contiguous(),
-        to_device(job_len, dev, torch.int32).contiguous(),
-        to_device(refbase, dev, torch.uint8).contiguous(), None, hi=hi,
-        mod=mod, lo=lo, base_score_req=base_score_req, ratio_num=ratio_num,
-        ratio_den=ratio_den, out_len=out_len, sparse=sparse)
+        to_device(job_len, dev, torch.int32).contiguous(), refbase, None,
+        hi=hi, mod=mod, lo=lo, base_score_req=base_score_req,
+        ratio_num=ratio_num, ratio_den=ratio_den, out_len=out_len,
+        sparse=sparse, refsrc=refsrc)

@@ -1,8 +1,9 @@
 // The refbase row of a job, read where its bytes lie: a slice of the
 // device genome or a host-built row. Shared by the window kernel
-// (vote_window.cu), which builds each row while it votes, and the
-// standalone assembly of the routes that do not fuse the window
-// (refbase.cu).
+// (vote_window.cu), which stages each job's row while it votes, and the
+// gathered vote (vote.cu), which reads each job's row by its index in the
+// window's numbering; they replace the JAX package's refbase assembly,
+// gencore_tpu/engine.py:3097 _refbase_combine_fn.
 
 #pragma once
 
@@ -26,19 +27,29 @@ struct RefSrc {
   int G, nh;
 };
 
+// A refbase row where it lies: byte p is row[p] below len, else 0.
+struct RefRow {
+  const uint8_t* row;
+  int len;
+};
+
 // The genome start of a slice as jax.lax.dynamic_slice takes it: a
 // negative start counts once from the end, then it clamps to [0, G - L].
 __device__ __forceinline__ int genome_start(int g, int G, int L) {
   return clampi(g < 0 ? g + G : g, 0, G - L);
 }
 
-// Refbase row r at position p (vote.refbase_combine), read where it lies.
-__device__ __forceinline__ int refbase_at(const RefSrc& s, int r, int p,
-                                          int L) {
-  const int h = s.hm[r];
-  if (h >= 0) return s.hr[static_cast<size_t>(clampi(h, 0, s.nh - 1)) * L + p];
-  if (p >= s.jp[r]) return 0;
-  return s.genome[static_cast<size_t>(genome_start(s.gp[r], s.G, L)) + p];
+// Where a refbase row lies (vote.refbase_combine), from its fields hm,
+// gp and jp: host row h, or the genome slice at g, zero at and beyond n.
+__device__ __forceinline__ RefRow row_of(const RefSrc& s, int h, int g, int n,
+                                         int L) {
+  if (h >= 0) return {s.hr + static_cast<size_t>(clampi(h, 0, s.nh - 1)) * L, L};
+  return {s.genome + genome_start(g, s.G, L), n};
+}
+
+// Byte p of a refbase row where it lies.
+__device__ __forceinline__ int ref_byte(const RefRow& r, int p) {
+  return p < r.len ? r.row[p] : 0;
 }
 
 }  // namespace gc_refsrc

@@ -13,7 +13,12 @@
 //     with `sparse`, the wire encoding (epilogue.cuh, shared with
 //     vote_window.cu), run where each job is decided. Outputs pseq u8
 //     [J, ol/2], new_qual u8 [J, ol], diff and minc int32 [J] and the
-//     sparse fields.
+//     sparse fields. It also takes the place of the refbase assembly
+//     gencore_tpu/engine.py:3097 _refbase_combine_fn and the row gather
+//     of its result (engine.py:1828): job j's refbase row is row ridx[j]
+//     of the window's, read where its bytes lie (the device genome's
+//     slice or a host-built row, refbase.cuh, as vote_window.cu reads
+//     them); or, without ridx, row j of a [J, L] refbase.
 //   * Bins6 alone (gc_vote) writes the vote's four int32 [J, L] arrays
 //     (cand_seq, cand_qual, changed, minc_pos), what _pallas_core returns;
 //     no path of the port calls it: chip_smoke.py times it as the vote
@@ -55,7 +60,18 @@
 //     members, kStages chunks in flight (staging.cuh, shared with
 //     vote_window.cu);
 //   * one thread per position of a tile of up to 256 positions, the bins
-//     in registers.
+//     in registers;
+//   * a job's refbase row read by index (the gathered entry's kSources
+//     form, `Ref`) costs a chain of dependent loads, ridx ->
+//     (hm, gp, jp) -> the byte, once per job: each step is issued where
+//     the members' loads are in flight (after the first flags, after the
+//     first staging), so it waits behind them. Every CTA of a split job
+//     walks it, since the vote's ref match reads the byte per member.
+//     Each form is an instantiation of its own: one kernel for both
+//     forms cost the [J, L] form 6 registers, a block per SM and 21% at
+//     9,602 jobs of 4 members on an H100 (PERF.md §6). The chain still
+//     costs the source form 1-6% at L = 160 and 9% at those 4-member
+//     jobs, where little staging is in flight to wait behind.
 // Buckets with K <= 64 keep one CTA per job.
 //
 // Bins6 semantics carried over exactly from the Pallas kernel:
@@ -86,6 +102,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "refbase.cuh"
 #include "staging.cuh"
 #include "vote_rules.cuh"
 
@@ -114,13 +131,15 @@ struct Args {
   const int32_t* shifts;   // same layout (Bins16)
   const int32_t* job_len;  // [J] (Bins16, epilogue)
   const int32_t* row0;     // [J] the epilogue's template rows
-  const uint8_t* refbase;  // [J, L]
+  const uint8_t* refbase;  // [J, L], or null: ridx names the rows
+  const int32_t* ridx;     // [J] job j's row of `ref`'s Jw rows, or null
+  gc_refsrc::RefSrc ref;   // where the rows lie, with ridx
   const uint8_t* qtable;   // [16] or null (epilogue)
   void* out[4];
   gc_epilogue::Wire wire;  // epilogue, sparse; wire.qv null when dense
   int* bad;                // epilogue, sparse: the bucket's escape count
   int* part;               // C > 1: partial accumulators [C][J][fields][L]
-  int K, J, L, N, sk, sj, ol;
+  int K, J, L, N, sk, sj, ol, Jw;
   int hi, mod, lo, bsr, rnum, rden;
 };
 
@@ -145,6 +164,43 @@ size_t smem_bytes(int L, int T) {
   return ring_bytes<B>(L, T) + 2 * sizeof(int) * T +
          (kRows<O> ? 4 * static_cast<size_t>(L) : 0);
 }
+
+// Where the gathered entry finds job j's refbase row (gc_vote_epilogue
+// takes the form its arguments give; the other entries kJob):
+//   kJob      row j of refbase [J, L];
+//   kSources  row ridx[j] of the window's Jw rows, where it lies
+//             (refbase.cuh: the genome slice or the host row); the
+//             index clamps to [0, Jw - 1], as JAX clamps a gather.
+enum class Ref { kJob, kSources };
+
+// Job j's refbase row by index, found in steps, each a load that depends
+// on the one before (ridx, then hm/gp/jp, then the byte): the caller
+// issues each where other loads are in flight, so the chain waits behind
+// the members' compaction and staging rather than in front of them. The
+// steps are block-uniform: once per job, and then each position is one
+// coalesced load. kJob needs none of them.
+template <Ref R>
+struct JobRef {
+  int r = 0;                 // the row index (raw until fields())
+  int h = -1, g = 0, n = 0;  // hm, gp, jp of row r
+
+  __device__ __forceinline__ void index(const Args& a, int j) {
+    if (R == Ref::kSources) r = a.ridx[j];
+  }
+  __device__ __forceinline__ void fields(const Args& a) {
+    if (R == Ref::kJob) return;
+    r = clampi(r, 0, a.Jw - 1);
+    h = a.ref.hm[r];
+    g = a.ref.gp[r];
+    n = a.ref.jp[r];
+  }
+  // byte p of the row (after fields()); kJob reads row j where it is
+  __device__ __forceinline__ int byte(const Args& a, size_t jt, int p) const {
+    const int L = a.L;
+    if (R == Ref::kJob) return a.refbase[jt * L + p];
+    return gc_refsrc::ref_byte(gc_refsrc::row_of(a.ref, h, g, n, L), p);
+  }
+};
 
 // Position p's templates: the vote's (base, qual: Bins6 reads the
 // sentinel for an absent member 0; Bins16 member 0's shifted row whether
@@ -233,7 +289,7 @@ __device__ __forceinline__ void finish_job(const Args& a, size_t jt,
 // Grid (C, 1, jobs): CTA `rank` = blockIdx.x votes its slice of the
 // members of job blockIdx.z (+ gridDim.z ...) over every tile; with C = 1
 // it decides, else it writes its partial accumulators for decide_kernel.
-template <class B, Out O>
+template <class B, Out O, Ref R>
 __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
   constexpr bool kFull = B::kBins == 16;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -258,6 +314,13 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
   for (int j = blockIdx.z; j < a.J; j += gridDim.z) {
     const size_t jt = static_cast<size_t>(j);
     const int jl = kRows<O> ? a.job_len[j] : L;
+    // every CTA of the job needs the refbase byte: the vote's ref match
+    // (VoteAcc::add) reads it per member, not only the decision. Read by
+    // index, its index goes in flight here, the row's sources once the
+    // first members' flags are in, its byte behind the first staging.
+    JobRef<R> ref;
+    ref.index(a, j);
+    bool have_fields = R == Ref::kJob;
     int diff = 0, minc = 0;
     for (int tile = 0; tile < ntiles; ++tile) {
       const int p0 = tile * T;
@@ -265,8 +328,13 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
       const bool live = p < L;
       const int seg = kFull ? 0 : p0;  // Bins16 stages whole rows (shifts)
       const int W = kFull ? L : min(T, L - p0);
-      const int rb = live ? a.refbase[jt * L + p] : 0;
-      const bool has_ref = rb != 0;
+      int rb = R == Ref::kJob && live ? ref.byte(a, jt, p) : 0;
+      bool have_rb = R == Ref::kJob;
+      auto refbase_byte = [&]() {
+        if (!have_fields) ref.fields(a);
+        if (!have_rb && live) rb = ref.byte(a, jt, p);
+        have_fields = have_rb = true;
+      };
 
       // the template loads go in flight first
       int out_base = kSentinel, tqual = 0, ts = 0, tq = 0;
@@ -293,6 +361,10 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
           }
           const unsigned bal = __ballot_sync(0xffffffffu, v);
           if ((t & 31) == 0) warp_cnt[t >> 5] = __popc(bal);
+          if (!have_fields) {  // the index is in by now
+            ref.fields(a);
+            have_fields = true;
+          }
           __syncthreads();
           int pre = 0, nv = 0;
           for (int w = 0; w < (T >> 5); ++w) {
@@ -322,6 +394,8 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
           };
 #pragma unroll
           for (int c = 0; c < kStages - 1; ++c) issue(c);
+          refbase_byte();  // its load waits behind the staging's
+          const bool has_ref = rb != 0;
           for (int c = 0; c < nchunks; ++c) {
             issue(c + kStages - 1);  // refills the buffer voted at c - 1
             cp_async_wait<kStages - 1>();
@@ -345,8 +419,9 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
           cp_async_wait<0>();
         }
       }
+      refbase_byte();  // a slice of no members
       // Bins6: absent members read as sentinels (idempotent, so once)
-      if (!kFull && any_absent) acc.add(kSentinel, 0, 0, rb, has_ref, a.hi);
+      if (!kFull && any_absent) acc.add(kSentinel, 0, 0, rb, rb != 0, a.hi);
 
       if (C > 1) {
         if (live)
@@ -368,7 +443,7 @@ __global__ void __launch_bounds__(kMaxThreads) vote_kernel(const Args a) {
 // the C of them and decides: the ranks are read in parallel, where one
 // thread per position reading them one after another took ~21 us per
 // launch at C = 16 on an H100 (PERF.md §6).
-template <class B, Out O>
+template <class B, Out O, Ref R>
 __global__ void __launch_bounds__(32 * 16) decide_kernel(const Args a, int C) {
   constexpr int F = VoteAcc<B>::kFields;
   extern __shared__ __align__(16) uint8_t dsmem[];
@@ -383,6 +458,9 @@ __global__ void __launch_bounds__(32 * 16) decide_kernel(const Args a, int C) {
   for (int j = blockIdx.z; j < a.J; j += gridDim.z) {
     const size_t jt = static_cast<size_t>(j);
     const int jl = kRows<O> ? a.job_len[j] : L;
+    JobRef<R> ref;
+    ref.index(a, j);
+    ref.fields(a);
     int diff = 0, minc = 0;
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int p = ch * 32 + lane;
@@ -396,7 +474,7 @@ __global__ void __launch_bounds__(32 * 16) decide_kernel(const Args a, int C) {
         for (int r = 1; r < C; ++r) acc.merge(xch + r * F * 32 + lane, 32);
         int rb = 0, out_base = kSentinel, tqual = 0, ts = 0, tq = 0;
         if (live) {
-          rb = a.refbase[jt * L + p];
+          rb = ref.byte(a, jt, p);
           load_template<B, O>(a, jt, p, out_base, tqual, ts, tq);
         }
         const int2 d = decide_pos<B, O>(a, acc, jt, p, live, rb, out_base, ts,
@@ -416,7 +494,7 @@ __global__ void __launch_bounds__(32 * 16) decide_kernel(const Args a, int C) {
   }
 }
 
-template <class B, Out O>
+template <class B, Out O, Ref R = Ref::kJob>
 int launch(const Args& a, int split, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -429,6 +507,14 @@ int launch(const Args& a, int split, void* stream) {
   if (a.K <= 0 || a.N <= 0 || (a.L & 15) || split < 1 || split > 16 ||
       (split > 1 && a.part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const gc_refsrc::RefSrc& s = a.ref;
+  if (R == Ref::kJob ? a.refbase == nullptr || a.Jw != a.J
+                     : a.refbase != nullptr || a.ridx == nullptr ||
+                           a.Jw < 1 || s.genome == nullptr ||
+                           s.gp == nullptr || s.hm == nullptr ||
+                           s.jp == nullptr || s.hr == nullptr ||
+                           s.G < a.L || s.nh < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (O == Out::kEpilogue &&
       (a.ol < 2 || a.ol > a.L || (a.ol & 1) ||
        (a.wire.qv != nullptr && a.ol > 256)))
@@ -438,23 +524,23 @@ int launch(const Args& a, int split, void* stream) {
   const int C = split < a.K ? split : a.K;
   const int gz = a.J < 65535 ? a.J : 65535;
   const size_t smem = smem_bytes<B, O>(a.L, T);
-  e = cudaFuncSetAttribute(vote_kernel<B, O>,
+  e = cudaFuncSetAttribute(vote_kernel<B, O, R>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  vote_kernel<B, O><<<dim3(C, 1, gz), T, smem, st>>>(a);
+  vote_kernel<B, O, R><<<dim3(C, 1, gz), T, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || C == 1) return static_cast<int>(e);
   const size_t dsmem = sizeof(int) * C * VoteAcc<B>::kFields * 32 +
                        (kRows<O> ? 4 * static_cast<size_t>(a.L) : 0);
-  e = cudaFuncSetAttribute(decide_kernel<B, O>,
+  e = cudaFuncSetAttribute(decide_kernel<B, O, R>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(dsmem));
   if (e != cudaSuccess) return static_cast<int>(e);
   // a job whose rows are finished here is decided in one block (its
   // rollback needs every position)
   const int gx = kRows<O> ? 1 : (a.L + 31) / 32;
-  decide_kernel<B, O><<<dim3(gx, 1, gz), 32 * C, dsmem, st>>>(a, C);
+  decide_kernel<B, O, R><<<dim3(gx, 1, gz), 32 * C, dsmem, st>>>(a, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,7 +554,11 @@ int launch(const Args& a, int split, void* stream) {
 // The gathered vote with its epilogue: seq/qual u8 [N, L], score i8 [N, L]
 // (16-byte aligned, L % 16 == 0), rows i32 [K, J] (clamped to [0, N-1]),
 // row0 i32 [J] (the templates, clamped), valid u8 [K, J], job_len i32
-// [J], refbase u8 [J, L], qtable u8 [16] or null; outputs pseq u8
+// [J], qtable u8 [16] or null; job j's refbase row is, without ridx, row
+// j of refbase u8 [J, L] (Jw = J), else (refbase null) row
+// clamp(ridx[j], 0, Jw - 1) (ridx i32 [J]) of the window's rows where
+// they lie: genome u8 [G] (G >= L), gp, hm, jp i32 [Jw], hr u8 [nh, L]
+// (nh >= 1; see refbase.cuh); outputs pseq u8
 // [J, ol/2], new_qual u8 [J, ol], diff, minc i32 [J] (2 <= ol <= L, ol
 // even) and, when qv is not null (ol <= 256), the sparse fields qv u8
 // [J, 10] (with a qtable [J, 5]), qs u8 [J, 10], nr u8 [J], sp u8 [J, 4],
@@ -476,10 +566,12 @@ int launch(const Args& a, int split, void* stream) {
 extern "C" int gc_vote_epilogue(
     const void* seq, const void* qual, const void* score, const void* rows,
     const void* row0, const void* valid, const void* job_len,
-    const void* refbase, const void* qtable, void* pseq, void* new_qual,
-    void* diff, void* minc, void* qv, void* qs, void* nr, void* sp, void* sb,
-    void* nd, void* df, void* mc, void* bad, int K, int J, int L, int N,
-    int ol, int hi, int mod, int lo, int bsr, int rnum, int rden, int split,
+    const void* refbase, const void* ridx, const void* genome,
+    const void* gp, const void* hm, const void* jp, const void* hr,
+    const void* qtable, void* pseq, void* new_qual, void* diff, void* minc,
+    void* qv, void* qs, void* nr, void* sp, void* sb, void* nd, void* df,
+    void* mc, void* bad, int K, int J, int L, int N, int ol, int Jw, int G,
+    int nh, int hi, int mod, int lo, int bsr, int rnum, int rden, int split,
     void* part, void* stream) {
   Args a = {};
   a.seq = static_cast<const uint8_t*>(seq);
@@ -490,6 +582,14 @@ extern "C" int gc_vote_epilogue(
   a.valid = static_cast<const uint8_t*>(valid);
   a.job_len = static_cast<const int32_t*>(job_len);
   a.refbase = static_cast<const uint8_t*>(refbase);
+  a.ridx = static_cast<const int32_t*>(ridx);
+  a.ref.genome = static_cast<const uint8_t*>(genome);
+  a.ref.gp = static_cast<const int32_t*>(gp);
+  a.ref.hm = static_cast<const int32_t*>(hm);
+  a.ref.jp = static_cast<const int32_t*>(jp);
+  a.ref.hr = static_cast<const uint8_t*>(hr);
+  a.ref.G = G;
+  a.ref.nh = nh;
   a.qtable = static_cast<const uint8_t*>(qtable);
   a.out[0] = pseq;
   a.out[1] = new_qual;
@@ -506,8 +606,11 @@ extern "C" int gc_vote_epilogue(
   a.bad = static_cast<int*>(bad);
   a.part = static_cast<int*>(part);
   a.K = K; a.J = J; a.L = L; a.N = N; a.sk = J; a.sj = 1; a.ol = ol;
+  a.Jw = Jw;
   a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
-  return launch<Bins6, Out::kEpilogue>(a, split, stream);
+  if (ridx != nullptr)
+    return launch<Bins6, Out::kEpilogue, Ref::kSources>(a, split, stream);
+  return launch<Bins6, Out::kEpilogue, Ref::kJob>(a, split, stream);
 }
 
 // The vote alone, as gc_vote_epilogue without row0, job_len and qtable;
@@ -530,7 +633,7 @@ extern "C" int gc_vote(const void* seq, const void* qual, const void* score,
   a.out[2] = changed;
   a.out[3] = minc;
   a.part = static_cast<int*>(part);
-  a.K = K; a.J = J; a.L = L; a.N = N; a.sk = J; a.sj = 1;
+  a.K = K; a.J = J; a.L = L; a.N = N; a.sk = J; a.sj = 1; a.Jw = J;
   a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
   return launch<Bins6, Out::kVote>(a, split, stream);
 }
@@ -560,7 +663,7 @@ extern "C" int gc_vote_full(const void* seq, const void* qual,
   a.out[2] = diff;
   a.out[3] = minc;
   a.part = static_cast<int*>(part);
-  a.K = K; a.J = J; a.L = L; a.N = N; a.sk = 1; a.sj = K;
+  a.K = K; a.J = J; a.L = L; a.N = N; a.sk = 1; a.sj = K; a.Jw = J;
   a.hi = hi; a.mod = mod; a.lo = lo; a.bsr = bsr; a.rnum = rnum; a.rden = rden;
   return launch<Bins16, Out::kK9>(a, split, stream);
 }

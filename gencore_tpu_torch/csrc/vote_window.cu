@@ -14,8 +14,7 @@
 // Bound. Per (member, position) the kernel must read 3 bytes (seq, qual,
 // score) and do ~10 integer operations (bin match, count, score sum, qual
 // sum, top qual, total, ref match); per job it writes ~27 sparse bytes
-// plus the 1.5 B/position dense fallback, and per job of the window one
-// refbase row. Against the H100's 3.35 TB/s and ~16.7 T int32 op/s (132
+// plus the 1.5 B/position dense fallback. Against the H100's 3.35 TB/s and ~16.7 T int32 op/s (132
 // SMs x 64 lanes x 1.98 GHz), large member counts are bound by integer
 // issue, small ones by the bytes.
 //
@@ -48,10 +47,9 @@
 //     requested one job ahead of its use and one barrier per job waits
 //     for all of it; a job of more than kStage members votes the rest in
 //     chunks through one more buffer;
-//   * each refbase row is built once: a job writes row ridx from the bytes
-//     it votes with (a row two jobs share gets the same bytes twice), and
-//     only the rows that no job references, which the host lists in the
-//     upload, are built apart;
+//   * the refbase rows are read, not written: a job's row lives only in
+//     the shared memory it votes from (the gathered vote, vote.cu, reads
+//     the rows of the window's other jobs from the same sources);
 //   * the loop runs to the job's member count, not to the class size K;
 //     absent members matter only as the sentinel template of an empty job
 //     and through the sentinel ref-match rule, which one extra add()
@@ -93,7 +91,6 @@ namespace {
 using gc_epilogue::kDiffs;
 using gc_epilogue::kRuns;
 using gc_refsrc::genome_start;
-using gc_refsrc::refbase_at;
 using gc_refsrc::RefSrc;
 using gc_staging::clampi;
 using gc_staging::cp_async16;
@@ -137,15 +134,13 @@ struct Args {
   const uint8_t* qual;
   const int8_t* score;
   RefSrc ref;
-  const int32_t* unref;  // refbase rows that no job references
-  uint8_t* refbase_out;
   const int32_t* jobs;   // field f of job g at jobs[f * Jt + g]
   const uint8_t* qtable;
   uint8_t* flat;
   uint8_t* pseq_out;
   uint8_t* qual_out;
   int32_t* scratch;
-  int N, L, Jw, nu, Jt, nb, ol, hi, mod, lo, bsr, rnum, rden;
+  int N, L, Jw, Jt, nb, ol, hi, mod, lo, bsr, rnum, rden;
 };
 
 // 4 blocks of 256 threads per SM at least: at most 64 registers, so that
@@ -276,15 +271,6 @@ __global__ void __launch_bounds__(256, 4) vote_window_kernel(const Args a) {
     }
   }
 
-  // the refbase rows that no job references
-  if (live) {
-    for (int i = blockIdx.x; i < a.nu; i += grid) {
-      const int r = a.unref[i];
-      a.refbase_out[static_cast<size_t>(r) * L + t] =
-          static_cast<uint8_t>(refbase_at(a.ref, r, t, L));
-    }
-  }
-
   if (t == 0) sh.jobidx[3] = pending;
 
   const int qvw = a.qtable != nullptr ? kRuns / 2 : kRuns;
@@ -353,7 +339,7 @@ __global__ void __launch_bounds__(256, 4) vote_window_kernel(const Args a) {
 
     // this job's fields and sources, and what the next jobs' copies need
     const int* f = sh.fields[n & 3];
-    const int base = f[0], cnt = f[1], jl = f[2], ridx = f[3], cls = f[4];
+    const int base = f[0], cnt = f[1], jl = f[2], cls = f[4];
     const int K = f[5];
     const int* s = sh.src[n % 3];
     const int gp = s[0], hm = s[1], jp = s[2];
@@ -374,8 +360,6 @@ __global__ void __launch_bounds__(256, 4) vote_window_kernel(const Args a) {
       rb = (hm < 0 && t >= jp) ? 0 : slot[mem_bytes + goff + t];
       tseq = slot[t];
       tqual = slot[kStage * L + t];
-      a.refbase_out[static_cast<size_t>(clampi(ridx, 0, a.Jw - 1)) * L + t] =
-          static_cast<uint8_t>(rb);
     }
     const bool has_ref = rb != 0;
 
@@ -589,25 +573,24 @@ extern "C" int gc_vote_window_grid(int L, int Jt) {
 // seq/qual u8 [N, L], score i8 [N, L] (16-byte aligned, L % 16 == 0,
 // L <= 256); the refbase sources: genome u8 [G] (G >= L, 16-byte aligned
 // allocation), per job of the window gp, hm, jp i32 [Jw], host rows hr u8
-// [nh, L] (16-byte aligned, nh >= 1), the rows that no job references
-// unref i32 [nu] (ascending, each < Jw); jobs i32 [6, Jt], one row per
+// [nh, L] (16-byte aligned, nh >= 1); jobs i32 [6, Jt], one row per
 // field: base row, member count <= K, job length, refbase row, class
-// index < nb, class size K; qtable u8 [16] or null; outputs: refbase u8
-// [Jw, L], flat u8 (the wire buffer of all Jt jobs and nb classes), pseq
+// index < nb, class size K; qtable u8 [16] or null; outputs: flat u8
+// (the wire buffer of all Jt jobs and nb classes), pseq
 // u8 [Jt, ol/2], qual_out u8 [Jt, ol]; scratch i32 [nb + 2] (zeroed
 // here). 2 <= ol <= L, ol even.
 extern "C" int gc_vote_window(const void* seq, const void* qual,
                               const void* score, const void* genome,
                               const void* gp, const void* hm, const void* jp,
-                              const void* hr, const void* unref, void* refbase,
-                              const void* jobs, const void* qtable, void* flat,
-                              void* pseq, void* qual_out, void* scratch, int N,
-                              int L, int G, int nh, int Jw, int nu, int Jt,
-                              int nb, int ol, int hi, int mod, int lo, int bsr,
-                              int rnum, int rden, void* stream) {
+                              const void* hr, const void* jobs,
+                              const void* qtable, void* flat, void* pseq,
+                              void* qual_out, void* scratch, int N, int L,
+                              int G, int nh, int Jw, int Jt, int nb, int ol,
+                              int hi, int mod, int lo, int bsr, int rnum,
+                              int rden, void* stream) {
   if (Jt <= 0) return 0;
   if (N <= 0 || L <= 0 || L > 256 || (L & 15) || G < L || nh <= 0 ||
-      Jw <= 0 || nu < 0 || nu > Jw || nb <= 0 || ol < 2 || ol > L || (ol & 1))
+      Jw <= 0 || nb <= 0 || ol < 2 || ol > L || (ol & 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(scratch, 0, sizeof(int32_t) * (nb + 2), st);
@@ -625,8 +608,6 @@ extern "C" int gc_vote_window(const void* seq, const void* qual,
   a.ref.hr = static_cast<const uint8_t*>(hr);
   a.ref.G = G;
   a.ref.nh = nh;
-  a.unref = static_cast<const int32_t*>(unref);
-  a.refbase_out = static_cast<uint8_t*>(refbase);
   a.jobs = static_cast<const int32_t*>(jobs);
   a.qtable = static_cast<const uint8_t*>(qtable);
   a.flat = static_cast<uint8_t*>(flat);
@@ -636,7 +617,6 @@ extern "C" int gc_vote_window(const void* seq, const void* qual,
   a.N = N;
   a.L = L;
   a.Jw = Jw;
-  a.nu = nu;
   a.Jt = Jt;
   a.nb = nb;
   a.ol = ol;

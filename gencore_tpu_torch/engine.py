@@ -1565,13 +1565,6 @@ class VectorEngine:
         self._acct_up(gp, hr, hm, jp)
         return gp, hr, hm, jp
 
-    def _refbase_device(self, jobs: list, batch, ct, work):
-        """Standalone dispatch of the refbase assembly; the fused window
-        vote runs the same combine inside its own program instead."""
-        gp, hr, hm, jp = self._refbase_host_args(jobs, batch, ct, work)
-        return _refbase_combine_fn(self.work.L)(self._genome_dev(), gp, hr,
-                                                hm, jp)
-
     def _vote_jobs(self, jobs: list, batch, work, flats, full_bins,
                    seq_dev, qual_dev, score_dev, ct):
         """Dispatch every vote of the window. =ACGTN data: the fused
@@ -1594,22 +1587,19 @@ class VectorEngine:
         # values on the wire); decode side reads the same table
         self._sparse_qtable = (self._vote_qual_table()
                                if self._sparse_dl else None)
-        refbase_all = refbase_dev = None
+        refbase_all = None
         devref_ok = (use_pallas and self._genome is not None
                      and len(self._genome) < 2**31 - _GENOME_PAD
                      and L <= _GENOME_PAD
                      and not os.environ.get("GENCORE_NO_DEVREF"))
-        # the fused window program assembles refbase inside itself; a
-        # standalone dispatch happens lazily only if a leftover bucket
-        # needs it (see below)
+        # the refbase rows are read where they lie, from these sources: by
+        # the fused window program, and by the gathered buckets' votes
         fuse_window = (devref_ok and self._sparse_dl
                        and not os.environ.get("GENCORE_NO_CONTIG_VOTE"))
         refbase_args = None
         with self.timer.stage("vote.refbase"):
-            if fuse_window:
+            if devref_ok:
                 refbase_args = self._refbase_host_args(jobs, batch, ct, work)
-            elif devref_ok:
-                refbase_dev = self._refbase_device(jobs, batch, ct, work)
             else:
                 refbase_all = self._refbase_all(jobs, batch, ct, work)
         nj = len(jobs)
@@ -1692,17 +1682,13 @@ class VectorEngine:
                 handled[jlist] = True
             if classes:
                 gp, hr, hm, jp = refbase_args
-                # the refbase rows (one per job of the window: ridx =
-                # jlist) that no class votes with, which the kernel builds
-                # apart
-                unref = np.flatnonzero(~handled).astype(np.int32)
-                flat_dev, refbase_dev, dense = vote.pallas_vote_window(
+                flat_dev, dense = vote.pallas_vote_window(
                     seq_dev, qual_dev, score_dev, self._genome_dev(),
                     gp, hr, hm, jp, self._sparse_qtable, class_args,
                     classes=tuple(classes), L=work.L, hi=o.high_quality,
                     mod=o.moderate_quality, lo=o.low_quality,
                     base_score_req=o.base_score_req, ratio_num=rnum,
-                    ratio_den=rden, out_len=self.out_len, unref=unref)
+                    ratio_den=rden, out_len=self.out_len)
                 entries = [(jl_, dense[i], r0)
                            for i, (jl_, _, r0) in enumerate(entries)]
                 if _SYNC_STAGES:
@@ -1715,12 +1701,15 @@ class VectorEngine:
                 pending.append(("wflat", _AsyncDownload(flat_dev), entries))
                 wflat_made = True
 
-        if fuse_window and refbase_dev is None and not handled.all():
-            # leftover buckets still need refbase rows
+        # the other buckets' votes read each job's refbase row by its
+        # index in the window's rows, from the window's sources, sent up
+        # once
+        refsrc = None
+        if refbase_args is not None and not handled.all():
             with self.timer.stage("vote.refbase"):
                 gp, hr, hm, jp = refbase_args
-                refbase_dev = _refbase_combine_fn(L)(self._genome_dev(), gp,
-                                                     hr, hm, jp)
+                refsrc = vote.window_refsrc(self._genome_dev(), gp, hm, jp,
+                                            hr)
 
         for kb in np.unique(kb_col[~handled]) if nj else ():
             jlist = np.nonzero(~handled & (kb_col == kb))[0]
@@ -1769,10 +1758,11 @@ class VectorEngine:
                 rows[jrep, krep] = vals
                 valid[jrep, krep] = True
 
-            if refbase_dev is not None:
+            bucket_ref = refbase = None
+            if refsrc is not None:
                 ridx = np.zeros(J2, dtype=np.int32)
                 ridx[:J] = jlist
-                refbase = _gather_one(refbase_dev, self._dev(ridx))
+                bucket_ref = (*refsrc, ridx)
                 self._acct_up(ridx)
             else:
                 refbase = np.zeros((J2, work.L), dtype=np.uint8)
@@ -1784,7 +1774,7 @@ class VectorEngine:
                 outs, overrides = self._vote_pallas(
                     kb, rows, shifts, valid, jl_arr, refbase, shifted_jj,
                     work, batch, seq_dev, qual_dev, score_dev, rnum, rden,
-                    force_dense=wflat_made)
+                    force_dense=wflat_made, refsrc=bucket_ref)
             else:
                 outs = list(kernels.fused_vote_kernel(
                     seq_dev, qual_dev, score_dev, self._dev(rows),
@@ -2058,13 +2048,15 @@ class VectorEngine:
 
     def _vote_pallas(self, kb, rows, shifts, valid, jl_arr, refbase,
                      shifted_jj, work, batch, seq_dev, qual_dev, score_dev,
-                     rnum, rden, force_dense=False):
+                     rnum, rden, force_dense=False, refsrc=None):
         """Per-bucket vote through the kernel: rows are read by index from
         the device matrices; the rare lenDiff-shifted jobs (right-mode
         mixed-length members, group.cpp:339-349) are re-gathered host-side
         with shifts applied and voted in a second small call whose results
-        override the main bucket's rows at collection time. refbase may be
-        a device tensor (genome-gathered rows, see _refbase_device).
+        override the main bucket's rows at collection time. The refbase
+        rows are refbase's (host rows [J2, L]) or, with refbase None, those
+        refsrc names by index (vote.pallas_vote_gathered), the shifted
+        jobs' too.
 
         Returns (_PackedOut, overrides) — overrides maps bucket-local job
         index -> (packed_seq_row, qual_row, diff, minc)."""
@@ -2078,11 +2070,11 @@ class VectorEngine:
         # keeps sparse/dense groups separate
         sparse = bool(getattr(self, "_sparse_dl", False)) and not force_dense
         qtab = getattr(self, "_sparse_qtable", None)
+        # the bucket's host arrays go up in one copy
         res = vote.pallas_vote_gathered(
-            seq_dev, qual_dev, score_dev, self._dev(rows.T), self._dev(row0),
-            self._dev(valid.T), self._dev(jl_arr), self._dev(refbase),
-            None if qtab is None else self._dev(qtab),
-            out_len=self.out_len, sparse=sparse, **kw)
+            seq_dev, qual_dev, score_dev, rows.T, row0, valid.T, jl_arr,
+            refbase, qtab, out_len=self.out_len, sparse=sparse,
+            refsrc=refsrc, **kw)
         if sparse:
             out = _PackedOut(list(res[:4]), enc=res[4], rows0=row0.copy())
         else:
@@ -2123,13 +2115,13 @@ class VectorEngine:
                     hqual[k, si, :L - d] = qrow[d:]
                     hscore[k, si, :L - d] = srow[d:]
                     hvalid[k, si] = True
-            if isinstance(refbase, np.ndarray):
-                rb_sj = refbase[sj]
-            else:  # device refbase: pull the few shifted rows to host
-                rb_sj = _to_host(_gather_one(refbase, self._dev(sj)))
+            # their refbase rows as the bucket's: given, or named by index
             sout = vote.pallas_vote(
-                hseq, hqual, hscore, hvalid, jl_arr[sj], rb_sj,
-                out_len=self.out_len, device=self.device, **kw)
+                hseq, hqual, hscore, hvalid, jl_arr[sj],
+                None if refsrc is not None else refbase[sj],
+                out_len=self.out_len, device=self.device,
+                refsrc=None if refsrc is None else (*refsrc[:-1],
+                                                    refsrc[-1][sj]), **kw)
             sout = [_to_host(x) for x in sout]
             overrides = {int(jj): (sout[0][si], sout[1][si],
                                    int(sout[2][si]), int(sout[3][si]))
@@ -3063,28 +3055,6 @@ _GENOME_PAD = 4096  # device-genome end slack; also caps device-refbase L
 
 
 @_functools.cache
-def _refbase_combine_fn(L: int):
-    """Device refbase assembly: genome slice-gather for contiguous-M jobs
-    (host_map < 0), compact host-built rows for the rest. With the genome
-    on a CUDA device the host sources go up in one copy and
-    csrc/refbase.cu builds the rows (vote.refbase); on the CPU its plain
-    twin vote.refbase_combine runs."""
-
-    def f(genome, gpos, host_rows, host_map, jl):
-        dev = genome.device
-        if dev.type == "cuda":
-            return vote.refbase(genome, gpos, host_rows, host_map, jl, L)
-        if dev.type != "cpu":
-            raise ValueError(f"refbase assembly: unsupported device {dev}")
-        I32 = torch.int32
-        return vote.refbase_combine(
-            genome, to_device(gpos, dev, I32), to_device(host_rows, dev),
-            to_device(host_map, dev, I32), to_device(jl, dev, I32), L)
-
-    return f
-
-
-@_functools.cache
 def _concat_outs_fn(nb: int):
     """One-shot device concat of nb buckets' (dseq, dqual, diff, minc) so
     the host downloads 4 arrays instead of 4*nb."""
@@ -3158,27 +3128,11 @@ def _concat_outs_packed_fn(nb: int):
     return cat
 
 
-@_functools.cache
-def _gather_fns():
-    def g2(qual_dev, score_dev, rows):
-        r = rows.to(torch.int64).clamp(0, qual_dev.shape[0] - 1)
-        return qual_dev[r], score_dev[r]
-
-    def g1(arr, rows):
-        return arr[rows.to(torch.int64).clamp(0, arr.shape[0] - 1)]
-
-    return g2, g1
-
-
-def _gather_one(arr, rows):
-    _, g1 = _gather_fns()
-    return g1(arr, rows)
-
-
 def _pull_rows(qual_dev, score_dev, need_rows):
-    g2, _ = _gather_fns()
-    q, s = g2(qual_dev, score_dev, need_rows)
-    return _to_host(q), _to_host(s)
+    """Rows need_rows (clamped to the matrix) of the device qual and score
+    matrices, on the host."""
+    r = need_rows.to(torch.int64).clamp(0, qual_dev.shape[0] - 1)
+    return _to_host(qual_dev[r]), _to_host(score_dev[r])
 
 
 class _PackedOut:
@@ -3666,7 +3620,7 @@ class _WorkArrays:
                              "_upload_score_fn")
         arrays = (self.seq_up, self.qual_up, self.lens, self.qtable16)
         dev = torch.device(device)
-        staged = (kernels.pinned_parts(arrays, dev) if dev.type == "cuda"
+        staged = (vote.pinned_parts(arrays, dev) if dev.type == "cuda"
                   else [to_device(a, dev) for a in arrays])
         return _upload_unpack_fn(
             self.w_host, self.L, self.qual_mode, self.seq_mode)(*staged)

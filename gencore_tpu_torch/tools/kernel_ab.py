@@ -19,15 +19,13 @@ events around each call, the stream kept busy ahead of them, median of
 a torch.profiler trace (`kernel_ms`), the time per call of --reps calls
 back to back, host work included (`call_ms`), and the host's own time per
 call, from the call to its return, each call made on an idle stream
-(`host_ms`, median of --reps), and two parts of that host time, each the
-median of --reps calls on the host alone: the variant's `window_upload`
-(the job table, the refbase sources and the list of unreferenced refbase
-rows packed into one buffer; `upload_ms`) and, at the deep panel's
-window, this checkout's `unreferenced_rows` over the job table
-(`unreferenced_rows_ms`), the count that the engine's own list replaces.
-A keyword argument of the recorded launch that a variant's vote_window
-does not take (the engine's `unref`, new in this checkout) is left out
-of that variant's calls. First it prints a line per variant
+(`host_ms`, median of --reps), and a part of that host time, the median
+of --reps calls on the host alone: the variant's `window_upload` (the job
+table and the refbase sources packed into one buffer; `upload_ms`). A
+keyword argument of the recorded launch that a variant's vote_window does
+not take is left out of that variant's calls; a variant's window result
+and this checkout's are compared by their wire buffer and dense
+fallbacks (chip_smoke._compare_window). First it prints a line per variant
 with each kernel's registers and spills (ptxas), its SASS instructions
 (`cuobjdump -sass` of the library) and, where the library has
 gc_vote_window_grid, the window kernel's resident blocks per SM at
@@ -36,8 +34,28 @@ L = 160.
 Shapes without --window: the gathered entry vote.vote_gathered (the vote
 with its epilogue, sparse with a qual table, as the engine runs it) at
 the deep piles of chip_smoke.py phase 2c (J in {8, 32, 128}) and the
-k-classes 16, 64 and 256 of phase 2a at J = 4096; with --profile also
-each kernel's median duration by name.
+k-classes 16, 64 and 256 of phase 2a at J = 4096, each job's refbase row
+named by index in a window of 2J + 5 rows (chip_smoke._with_refsrc), and
+at the long_amplicon panel's gathered launch of the most (member, job)
+slots (L = 320), recorded from one CLI run of it on the card as chip_smoke
+phase 7b replays it. Every variant runs the rows form (the refbase rows
+given ready-made, [J, L]); a variant whose vote_gathered takes `refsrc`
+also reads the rows where they lie, from the window's sources
+(`takes_refsrc`). Each shape's line gives the device ms of each
+(variant, form) over the turns A, B, ..., B, A and whether every output
+equals the first variant's rows form; with --profile also each kernel's
+median duration by name. It also gives, per variant, host times (each
+the median of --reps calls from the call to its return on an idle
+stream, in the same turns): `host_ms`, vote_gathered in the rows form on
+tensors on the card; `bucket_host_ms`, one bucket dispatched from host
+arrays as that checkout's engine dispatches a gathered bucket (with
+`refsrc`: pallas_vote_gathered given the host arrays and the bucket's
+refbase row indices into the window's sources, which it sends up in one
+pinned copy; without: the host arrays sent up one by one, the bucket's
+rows gathered from the window's refbase rows on the card, then
+pallas_vote_gathered); and `window_host_ms`, what that engine does once a
+window before its buckets (window_refsrc, the sources sent up; or
+vote.refbase, K11's launch).
 
 Shapes with --window: the window entry vote.vote_window (csrc/vote_window.cu)
 at (1) the deep panel's largest window launch, as chip_smoke.py phase 5
@@ -245,27 +263,143 @@ def _build_report(torch, d, mod):
     return out
 
 
-def _gathered(torch, np, cs, mods, dirs, opts, dev):
+def takes_refsrc(vote_mod) -> bool:
+    """Whether a variant's vote_gathered reads refbase rows by index."""
+    return "refsrc" in inspect.signature(vote_mod.vote_gathered).parameters
+
+
+def _long_amplicon_gathered(torch, cs):
+    """The long_amplicon panel's gathered launch of the most (member, job)
+    slots, recorded from one CLI run on the card with this checkout's
+    vote module: (args, kw), its refbase sources in kw["refsrc"]."""
+    from gencore_tpu_torch.core import vote
+    from gencore_tpu_torch.tools import workloads
+    bam, fa = workloads.long_amplicon(os.path.join(cs.WORK, "workloads"))
+    calls = []
+    d = os.path.join(cs.WORK, "kernel_ab_run")
+    os.makedirs(d, exist_ok=True)
+    with cs._patched(vote, "vote_gathered", cs._gathered_recorder(calls)):
+        rc, err = cs._cli(["-i", bam, "-o", os.path.join(d, "out.bam"),
+                           "-r", fa, "--device", "cuda"])
+    if rc:
+        raise RuntimeError(f"long_amplicon run failed: {err[-2000:]}")
+    return max(calls, key=lambda c: c[0][3].numel())
+
+
+def _gathered_shapes(torch, np, cs, dev):
+    """(name, J, K, L, rows-form args on the card, kw, source form) of
+    each gathered shape, the recorded 7b launch last."""
     for kind, J, K in SHAPES:
         arrs = (cs._pile_inputs(np, K, J, 160, J + K) if kind == "pile"
                 else cs._vote_inputs(np, K, J, 160, 40960, K))
         args, kw = cs._gathered_args(np, arrs, J + K, "sparse_qtable")
-        gpu = [None if a is None else torch.from_numpy(a).to(dev)
-               for a in args]
+        gpu, src = cs._with_refsrc(torch, np, args, J + K + 2, dev,
+                                   2 * J + 5)
+        yield kind, J, K, 160, gpu, kw, src
+    args, kw = _long_amplicon_gathered(torch, cs)
+    from gencore_tpu_torch.core import vote
+    src = kw.pop("refsrc")
+    K, J = args[3].shape
+    L = args[0].shape[1]
+    gpu = list(args)
+    gpu[7] = vote.refbase_rows(src, L)
+    yield "7b", J, K, L, gpu, kw, src
+
+
+def _idle_host_ms(torch, fn, reps):
+    """Median ms from fn's call to its return, each call on an idle
+    stream."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def bucket_calls(m, gpu, src, kw):
+    """(window, bucket): what a checkout's engine does with vote module m
+    once a window ahead of its gathered buckets, and for one bucket of
+    host arrays (the rows of gpu, each job's refbase row named by index
+    in the window's sources src): with `refsrc` (takes_refsrc), the
+    sources sent up once (window_refsrc) and the bucket's host arrays and
+    indices handed to pallas_vote_gathered; without, the window's rows
+    built on the card (vote.refbase, K11) and per bucket the host arrays
+    sent up one by one and the bucket's rows gathered there."""
+    import torch
+    genome, gp, hm, jp, hr, ridx = src
+    host = {k: t.cpu().numpy() for k, t in (
+        ("gp", gp), ("hm", hm), ("jp", jp), ("hr", hr), ("ridx", ridx))}
+    mats = gpu[:3]
+    rows_t, row0, valid, jl = (t.cpu().numpy() for t in gpu[3:7])
+    qtable = None if gpu[8] is None else gpu[8].cpu().numpy()
+    dev = genome.device
+    if takes_refsrc(m):
+        sources = m.window_refsrc(genome, host["gp"], host["hm"], host["jp"],
+                                  host["hr"])
+
+        def window():
+            return m.window_refsrc(genome, host["gp"], host["hm"],
+                                   host["jp"], host["hr"])
+
+        def bucket():
+            return m.pallas_vote_gathered(
+                *mats, rows_t, row0, valid, jl, None, qtable,
+                refsrc=(*sources, host["ridx"]), **kw)
+        return window, bucket
+    L = mats[0].shape[1]
+    table = m.refbase(genome, host["gp"], host["hr"], host["hm"],
+                      host["jp"], L)
+
+    def window():
+        return m.refbase(genome, host["gp"], host["hr"], host["hm"],
+                         host["jp"], L)
+
+    def bucket():
+        r = m.to_device(host["ridx"], dev).to(torch.int64).clamp(
+            0, table.shape[0] - 1)
+        return m.pallas_vote_gathered(
+            *mats, m.to_device(rows_t, dev), m.to_device(row0, dev),
+            m.to_device(valid, dev), m.to_device(jl, dev), table[r],
+            None if qtable is None else m.to_device(qtable, dev), **kw)
+    return window, bucket
+
+
+def _gathered(torch, np, cs, mods, dirs, opts, dev):
+    for kind, J, K, L, gpu, kw, src in _gathered_shapes(torch, np, cs, dev):
+        def calls(m):
+            forms = cs._forms(m, gpu, src, kw)
+            return forms if takes_refsrc(m) else {"rows": forms["rows"]}
+        runs = [(d, form, fn) for d in dirs
+                for form, fn in calls(mods[d]).items()]
         outs, ms, kernels = {}, {}, {}
+        for d, form, fn in runs + runs[::-1]:
+            key = f"{d} {form}"
+            outs[key] = fn()
+            ms.setdefault(key, []).append(cs._kernel_ms(torch, fn,
+                                                        opts.reps))
+            if opts.profile and key not in kernels:
+                kernels[key] = _kernel_medians(torch, cs, fn)
+        hosts, buckets, windows = {}, {}, {}
         for d in dirs + dirs[::-1]:
-            def call(m=mods[d]):
-                return m.vote_gathered(*gpu, **kw)
-            outs[d] = call()
-            ms.setdefault(d, []).append(cs._kernel_ms(torch, call,
-                                                      opts.reps))
-            if opts.profile and d not in kernels:
-                kernels[d] = _kernel_medians(torch, cs, call)
-        ref = outs[dirs[0]]
+            m = mods[d]
+            window, bucket = bucket_calls(m, gpu, src, kw)
+            outs[f"{d} bucket"] = bucket()
+            hosts.setdefault(d, []).append(_idle_host_ms(
+                torch, calls(m)["rows"], opts.reps))
+            buckets.setdefault(d, []).append(_idle_host_ms(
+                torch, bucket, opts.reps))
+            windows.setdefault(d, []).append(_idle_host_ms(
+                torch, window, opts.reps))
+        ref = outs[f"{dirs[0]} rows"]
         equal = all(cs._compare(o, ref)[0] == 0 for o in outs.values())
-        print(json.dumps({"shape": kind, "J": J, "K": K, "split":
+        print(json.dumps({"shape": kind, "J": J, "K": K, "L": L, "split":
                           mods[dirs[0]].split_size(K, J),
                           "outputs_equal": equal, "ms": ms,
+                          "host_ms": hosts, "bucket_host_ms": buckets,
+                          "window_host_ms": windows,
                           "kernel_ms": kernels or None}), flush=True)
         if not equal:
             return 1
@@ -343,8 +477,7 @@ def _window(torch, np, cs, mods, dirs, opts, dev):
             def upload(m=mods[d]):
                 return m.window_upload(
                     class_args, kw["classes"], srcs[0], srcs[2], srcs[3],
-                    qtable, srcs[1], **_taken(m.window_upload,
-                                              {"unref": kw.get("unref")}))
+                    qtable, srcs[1])
             try:
                 outs[d] = call()
                 torch.cuda.synchronize()
@@ -374,13 +507,6 @@ def _window(torch, np, cs, mods, dirs, opts, dev):
                 "Jw": len(srcs[0]), "job_positions": jobs * L,
                 "mismatching_bytes": mism, "ms": ms, "kernel_ms": kms,
                 "call_ms": calls, "host_ms": hosts, "upload_ms": uploads}
-        if kind == "deep_panel_largest":
-            from gencore_tpu_torch.core import vote
-            ridx = vote.window_job_table(class_args, kw["classes"])[3]
-            line["unreferenced_rows_ms"] = _host_median(
-                lambda: vote.unreferenced_rows(ridx, len(srcs[0])),
-                opts.reps)
-            line["unref_given"] = kw.get("unref") is not None
         print(json.dumps(line), flush=True)
         if any(mism.values()):
             return 1

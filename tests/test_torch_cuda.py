@@ -8,11 +8,13 @@ elsewhere. Run them on the card with
 Each kernel is held to its plain twin on the same inputs with 0
 mismatches (csrc/vote.cu's gathered entry, Bins6 with the epilogue, to
 vote_gathered_plain; its vote alone to vote_core_plain; its Bins16
-instantiation to kernels.fused_vote_plain; csrc/vote_window.cu, refbase
-rows included, to vote_window_plain, byte for byte), and the engine on
-CUDA to the oracle. The upload-and-score kernel (csrc/upload_score.cu) is
-held to its twin engine._upload_score_plain on the CPU, the refbase
-kernel (csrc/refbase.cu) to vote.refbase_combine, and the dense route's
+instantiation to kernels.fused_vote_plain; csrc/vote_window.cu to
+vote_window_plain, byte for byte), and the engine on CUDA to the oracle.
+The gathered entry's refbase source form (each job's row read by index
+where it lies, in the window's sources sent up by vote.window_refsrc) is
+held to vote_gathered_plain fed vote.refbase_rows. The upload-and-score kernel
+(csrc/upload_score.cu) is held to its twin engine._upload_score_plain on
+the CPU, and the dense route's
 unpack and score map (csrc/upload_dense.cu) to engine._upload_unpack_plain
 and kernels.score_map_plain / score_map_packed_plain, byte for byte, with
 the edges of their designs: mate pairs taken once, third-row and clamped
@@ -261,12 +263,30 @@ def test_kernel_launch_rejects_bad_arguments(cuda):
     lib = vote.build_library()
     outs = [torch.empty(n, dtype=torch.uint8, device=cuda)
             for n in (16 * 80, 16 * 160, 64, 64)]
-    ptrs = [None if t is None else t.data_ptr() for t in gpu + outs]
+    ptrs = [None if t is None else t.data_ptr()
+            for t in gpu[:8] + [None] * 6 + gpu[8:] + outs]
+    th = [30, 20, 15, 6, 4, 5]
     for ol in (3, 0, 320):   # odd, too short, longer than L
         with pytest.raises(RuntimeError, match="cudaError_t 1"):
             vote._launch("gc_vote_epilogue", lib.gc_vote_epilogue,
                          ptrs + [None] * 9,
-                         [8, 16, 160, len(args[0]), ol, 30, 20, 15, 6, 4, 5],
+                         [8, 16, 160, len(args[0]), ol, 16, 0, 0, *th],
+                         8, 16, 160, 27, cuda)
+    # refbase rows named by index: a [J, L] refbase with Jw != J and no
+    # ridx, a refbase beside ridx, and sources without their genome (or
+    # one shorter than L)
+    ridx = torch.zeros(16, dtype=torch.int32, device=cuda)
+    for refs, ints in (([gpu[7]] + [None] * 6, [17, 0, 0]),
+                       ([gpu[7], ridx] + [None] * 5, [16, 0, 0]),
+                       ([None, ridx] + [None] * 5, [16, 0, 0]),
+                       ([None, ridx, gpu[7], ridx, ridx, ridx, gpu[7]],
+                        [16, 100, 1])):
+        p = [None if t is None else t.data_ptr()
+             for t in gpu[:7] + refs + gpu[8:] + outs]
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            vote._launch("gc_vote_epilogue", lib.gc_vote_epilogue,
+                         p + [None] * 9,
+                         [8, 16, 160, len(args[0]), 160, *ints, *th],
                          8, 16, 160, 27, cuda)
     n0 = vote.LAUNCHES
     with pytest.raises(ValueError, match="must be even"):
@@ -324,9 +344,8 @@ def _refbase_sources(rng, Jw, L, G=20000, nh=40):
 # (L, out_len, qual table, layout): "mixed" is a window of four classes
 # (K = 4, 16, 64, 256) with refbase rows drawn with repeats; "grid_*" put
 # the job count below, at and at many times the kernel's persistent grid;
-# "unref_none" references every refbase row once, "unref_all" every job
-# the same row, so that the list of rows no job references is empty, or
-# holds all rows but one
+# "rows_once" references every refbase row once, "rows_one" names the same
+# row for every job
 WINDOW_CASES = [
     (160, 160, False, "mixed"), (160, 160, True, "mixed"),
     (160, 136, False, "mixed"), (160, 136, True, "mixed"),
@@ -335,7 +354,7 @@ WINDOW_CASES = [
     (256, 200, False, "mixed"),
     (160, 160, True, "grid_below"), (160, 160, True, "grid_equal"),
     (160, 160, True, "grid_many"),
-    (128, 128, True, "unref_none"), (128, 128, False, "unref_all"),
+    (128, 128, True, "rows_once"), (128, 128, False, "rows_one"),
 ]
 
 
@@ -352,7 +371,7 @@ def _window_case(rng, cuda, L, layout):
         classes = ((4, J4), (16, Jt - J4)) if Jt - J4 else ((4, J4),)
         return classes, Jt + Jt // 4, None
     classes = ((4, 500), (32, 100))
-    if layout == "unref_none":
+    if layout == "rows_once":
         perm = rng.permutation(600)
         parts = iter((perm[:500], perm[500:]))
         return classes, 600, lambda J: next(parts)
@@ -362,10 +381,10 @@ def _window_case(rng, cuda, L, layout):
 @pytest.mark.parametrize("L,out_len,with_qtable,layout", WINDOW_CASES)
 def test_vote_window_kernel_matches_twin(cuda, L, out_len, with_qtable,
                                          layout):
-    """gc_vote_window's flat wire buffer, refbase rows and dense fallback
-    equal the plain composition's (vote_window_plain on CPU copies) byte
-    for byte, every class of a window in one launch, the refbase rows
-    built in the kernel from the genome and the host rows; at the widths
+    """gc_vote_window's flat wire buffer and dense fallback equal the
+    plain composition's (vote_window_plain on CPU copies) byte for byte,
+    every class of a window in one launch, the refbase rows read in the
+    kernel from the genome and the host rows; at the widths
     and layouts of WINDOW_CASES, with member counts 0, 1, one stage and
     one more, clamped member rows, a qual table listing a value twice (the
     last matching index wins)."""
@@ -381,11 +400,10 @@ def test_vote_window_kernel_matches_twin(cuda, L, out_len, with_qtable,
     genome, gp, hr, hm, jp = _refbase_sources(rng, Jw, L)
     class_args = _window_args(rng, classes, L, N, Jw, ridx_of)
     ridx = np.concatenate([a.astype(np.int64) for a in class_args[3::4]])
-    n_unref = len(vote.unreferenced_rows(ridx, Jw))
-    if layout == "unref_none":
-        assert n_unref == 0
-    elif layout == "unref_all":
-        assert n_unref == Jw - 1
+    if layout == "rows_once":
+        assert sorted(ridx) == list(range(Jw))
+    elif layout == "rows_one":
+        assert not ridx.any()
     else:
         assert len(np.unique(ridx)) < len(ridx)   # rows shared by jobs
     qtable = _qtable() if with_qtable else None
@@ -400,8 +418,7 @@ def test_vote_window_kernel_matches_twin(cuda, L, out_len, with_qtable,
     torch.cuda.synchronize(cuda)
     assert vote.WINDOW_LAUNCHES == n0 + 1
     assert got[0].cpu().numpy().tobytes() == want[0].numpy().tobytes()
-    assert torch.equal(got[1].cpu(), want[1])
-    for (gp_, gq), (wp, wq) in zip(got[2], want[2]):
+    for (gp_, gq), (wp, wq) in zip(got[1], want[1]):
         assert torch.equal(gp_.cpu(), wp)
         assert torch.equal(gq.cpu(), wq)
     if with_qtable and layout == "mixed":   # the escape counts are not all 0
@@ -413,7 +430,9 @@ def test_vote_window_kernel_matches_twin(cuda, L, out_len, with_qtable,
                             None if qtable is None else
                             torch.from_numpy(qtable).to(cuda), class_args,
                             **kw)
-    assert torch.equal(got2[0], got[0]) and torch.equal(got2[1], got[1])
+    assert torch.equal(got2[0], got[0])
+    for (ap, aq), (bp, bq) in zip(got2[1], got[1]):
+        assert torch.equal(ap, bp) and torch.equal(aq, bq)
 
 
 def test_vote_window_escape_counts_exact_every_launch(cuda):
@@ -762,42 +781,107 @@ def test_upload_score_kernel_rejects_bad_staging(cuda):
         kernels.upload_score(arrays, None, **dict(kw, mate32=True))
 
 
-@pytest.mark.parametrize("J,L,nh", [(1, 32, 1), (300, 160, 40),
-                                    (16384, 160, 200)])
-def test_refbase_kernel_matches_twin(cuda, J, L, nh):
-    """csrc/refbase.cu against vote.refbase_combine: genome slices with
-    negative, overlong and in-range starts, short job lengths, host rows
-    with their index clamped; every byte equal."""
-    rng = np.random.default_rng(J + L)
-    G0 = 20000
-    genome = np.pad(np.array([1, 2, 4, 8], np.uint8)[
-        rng.integers(0, 4, size=G0)], (0, 4096))
+def _refsrc_case(rng, J, L, Jw, G0=20000, nh=40):
+    """A window's refbase sources as engine._refbase_host_args makes them
+    (genome NT16-coded and padded as engine._genome_dev pads it, hm int16,
+    jp u16): genome slices with negative, overlong and in-range starts,
+    short and zero job lengths, host rows with their index clamped; and a
+    bucket's ridx, rows repeated, unsorted and past the window's."""
+    genome = np.pad(np.array([1, 2, 4, 8, 15], np.uint8)[
+        rng.integers(0, 5, size=G0)], (0, 4096))
     G = len(genome)
-    gp = rng.integers(0, G0, size=J).astype(np.int32)
+    gp = rng.integers(0, G0, size=Jw).astype(np.int32)
     gp[::7] = -rng.integers(1, G, size=len(gp[::7]))
     gp[1::9] = G - L + rng.integers(1, 50, size=len(gp[1::9]))
     gp[2::11] = -3 * G
-    hm = np.where(rng.random(J) < 0.3, rng.integers(0, nh + 3, size=J),
+    hm = np.where(rng.random(Jw) < 0.3, rng.integers(0, nh + 3, size=Jw),
                   -1).astype(np.int16)
-    jp = rng.integers(0, L + 1, size=J).astype(np.uint16)
+    jp = rng.integers(0, L + 1, size=Jw).astype(np.uint16)
     jp[::3] = L
     hr = np.array([0, 1, 2, 4, 8], np.uint8)[rng.integers(0, 5, size=(nh, L))]
-    g_dev = torch.from_numpy(genome).to(cuda)
-    n0 = vote.REFBASE_LAUNCHES
-    got = vote.refbase(g_dev, gp, hr, hm, jp, L)
+    ridx = rng.integers(0, Jw + 2, size=J).astype(np.int32)
+    return genome, gp, hr, hm, jp, ridx
+
+
+# (K, J, L, mode): the source form at L = 128, 160 and 320, one CTA per
+# job and splits of 8 and 16, dense, sparse and sparse with a qual table,
+# and buckets of one job and of none
+REFSRC = [(16, 300, 128, "sparse"), (16, 300, 128, "dense"),
+          (64, 300, 160, "sparse_qtable"), (16, 4096, 160, "sparse_qtable"),
+          (2048, 8, 160, "sparse_qtable"), (2048, 8, 160, "dense"),
+          (300, 5, 320, "dense"), (300, 5, 320, "sparse"),
+          (4, 1, 160, "sparse_qtable"), (2048, 1, 160, "sparse"),
+          (8, 0, 160, "sparse"), (8, 0, 320, "dense")]
+
+
+@pytest.mark.parametrize("K,J,L,mode", REFSRC)
+def test_vote_gathered_refsrc_kernel_matches_twin(cuda, K, J, L, mode):
+    """csrc/vote.cu's gathered entry reading each job's refbase row by
+    index, as the engine calls it (vote.pallas_vote_gathered with the
+    bucket's host arrays, sent up in one pinned copy; the window's
+    sources through vote.window_refsrc), against vote_gathered_plain fed
+    vote.refbase_rows on the card, every output byte; and the rows
+    refbase_rows reads against vote.refbase_combine on the CPU."""
+    rng = np.random.default_rng(13 * K + J + L + len(mode))
+    args, kw = _gathered_case(rng, K, max(J, 1), L, mode)
+    seq, qual, score, rows, row0, valid, job_len, _rb, qtable = args
+    rows, row0, valid, job_len = (rows[:, :J], row0[:J], valid[:, :J],
+                                  job_len[:J])
+    genome, gp, hr, hm, jp, ridx = _refsrc_case(rng, J, L, max(J, 1) + 5)
+    mats = [torch.from_numpy(a).to(cuda) for a in (seq, qual, score)]
+    src = vote.window_refsrc(torch.from_numpy(genome).to(cuda), gp, hm, jp,
+                             hr)
+    table = vote.refbase_combine(*(torch.from_numpy(a) for a in (
+        genome, gp, hr, hm.astype(np.int32), jp.astype(np.int32))), L)
+    want_rows = table[torch.from_numpy(ridx).long().clamp(0, len(gp) - 1)]
+    n0, s0 = vote.LAUNCHES, vote.REFSRC_LAUNCHES
+    got = vote.pallas_vote_gathered(*mats, rows, row0, valid, job_len, None,
+                                    qtable, refsrc=(*src, ridx), **KW, **kw)
     torch.cuda.synchronize(cuda)
-    assert vote.REFBASE_LAUNCHES == n0 + 1
-    want = vote.refbase_combine(
-        torch.from_numpy(genome), torch.from_numpy(gp), torch.from_numpy(hr),
-        torch.from_numpy(hm.astype(np.int32)),
-        torch.from_numpy(jp.astype(np.int32)), L)
-    assert got.dtype == want.dtype and got.shape == want.shape == (J, L)
-    assert int((got.cpu() != want).sum()) == 0
-    # the engine's entry takes the kernel on the card
-    from gencore_tpu_torch import engine
-    again = engine._refbase_combine_fn(L)(g_dev, gp, hr, hm, jp)
-    assert vote.REFBASE_LAUNCHES == n0 + 2
-    assert torch.equal(again, got)
+    assert vote.LAUNCHES == n0 + 1 and vote.REFSRC_LAUNCHES == s0 + 1
+    dev_ridx = torch.from_numpy(ridx).to(cuda)
+    assert torch.equal(vote.refbase_rows((*src, dev_ridx), L).cpu(),
+                       want_rows)
+    want = vote.vote_gathered_plain(
+        *mats, *(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+            rows, row0, valid.astype(np.uint8), job_len)), None,
+        None if qtable is None else torch.from_numpy(qtable).to(cuda),
+        refsrc=(*src, dev_ridx), **KW, **kw)
+    _equal_outputs(got, want)
+    # the same rows given ready-made: the [J, L] form
+    again = vote.pallas_vote_gathered(*mats, rows, row0, valid, job_len,
+                                      want_rows.numpy(), qtable, **KW, **kw)
+    _equal_outputs(again, want)
+
+
+@pytest.mark.parametrize("K,S,L,sparse", [(3, 16, 160, True),
+                                           (70, 8, 320, False)])
+def test_pregathered_refsrc_kernel_matches_twin(cuda, K, S, L, sparse):
+    """vote.pallas_vote (the lenDiff-shifted jobs' host-gathered block,
+    voted over its [K*S, L] view) with its refbase rows named by index in
+    the window's sources, as the engine calls it, on the card against the
+    same call on CPU copies (the plain twin), every output byte; one CTA
+    per job and a split."""
+    rng = np.random.default_rng(7 * K + S + L)
+    codes = np.array([1, 2, 4, 8, vote.SENTINEL], np.uint8)
+    seq = codes[rng.choice(5, size=(K, S, L), p=[.24, .24, .24, .24, .04])]
+    qual = rng.integers(2, 42, size=(K, S, L)).astype(np.uint8)
+    score = rng.integers(-3, 13, size=(K, S, L)).astype(np.int8)
+    valid = rng.random((K, S)) < 0.8
+    job_len = rng.integers(L // 2, L + 1, size=S).astype(np.int32)
+    genome, gp, hr, hm, jp, ridx = _refsrc_case(rng, S, L, S + 5)
+    kw = dict(out_len=L, sparse=sparse, **KW)
+    host = (seq, qual, score, valid, job_len, None)
+    n0 = vote.REFSRC_LAUNCHES
+    got = vote.pallas_vote(*host, refsrc=(*vote.window_refsrc(
+        torch.from_numpy(genome).to(cuda), gp, hm, jp, hr), ridx),
+        device=cuda, **kw)
+    torch.cuda.synchronize(cuda)
+    assert vote.REFSRC_LAUNCHES == n0 + 1
+    assert (vote.split_size(K, S) > 1) == (K > 64)
+    want = vote.pallas_vote(*host, refsrc=(*vote.window_refsrc(
+        torch.from_numpy(genome), gp, hm, jp, hr), ridx), **kw)
+    _equal_outputs(got, want)
 
 
 DENSE_MODES = [(sm, qm) for sm in ("2bit", "4bit")

@@ -65,6 +65,30 @@ def run_three(sb, tmp_path, monkeypatch, opt_kwargs=None, use_fasta=True,
     return teng
 
 
+def _refbase_reads(monkeypatch):
+    """Counts, over a port run, the engine's gathered votes
+    (vote.pallas_vote_gathered, and vote.pallas_vote for lenDiff-shifted
+    jobs, "shifted_...") by how they get their refbase rows: ready-made
+    ("rows": a gather of refbase rows on the host or the device, or a
+    standalone assembly) or named by index in the window's refbase
+    sources ("sources")."""
+    seen = {"rows": 0, "sources": 0, "shifted_rows": 0, "shifted_sources": 0}
+    orig_g = vote.pallas_vote_gathered
+    orig_s = vote.pallas_vote
+
+    def gathered(*a, refsrc=None, **k):
+        seen["rows" if refsrc is None else "sources"] += 1
+        return orig_g(*a, refsrc=refsrc, **k)
+
+    def shifted(*a, refsrc=None, **k):
+        seen["shifted_rows" if refsrc is None else "shifted_sources"] += 1
+        return orig_s(*a, refsrc=refsrc, **k)
+
+    monkeypatch.setattr(vote, "pallas_vote_gathered", gathered)
+    monkeypatch.setattr(vote, "pallas_vote", shifted)
+    return seen
+
+
 @pytest.mark.parametrize("seed,umi_mode", [(1, "none"), (4, "single"),
                                            (6, "duplex")])
 def test_port_engine_random_workloads(tmp_path, monkeypatch, seed, umi_mode):
@@ -117,7 +141,10 @@ def test_port_engine_sparse_overflow(tmp_path, monkeypatch):
 
 def test_port_engine_shifted_members(tmp_path, monkeypatch):
     """Right-mode jobs with lenDiff shifts: host re-gather + the
-    pre-gathered vote whose rows override the bucket's."""
+    pre-gathered vote whose rows override the bucket's; both read their
+    refbase rows by index in the window's sources (no refbase gather, no
+    standalone assembly)."""
+    seen = _refbase_reads(monkeypatch)
     sb = SyntheticBam(seed=91, contig_len=100_000)
     for k in range(10):
         pos1 = 1000 + 400 * k
@@ -129,6 +156,8 @@ def test_port_engine_shifted_members(tmp_path, monkeypatch):
         sb._add(0, pos1, qname, 99, cg1, 0, end2 - 80, 240, seq1, 35, 0)
         sb._add(0, end2 - 80, qname, 147, cg2, 0, pos1, -240, seq2, 35, 0)
     run_three(sb, tmp_path, monkeypatch)
+    assert seen["shifted_sources"] > 0 and seen["sources"] > 0
+    assert seen["rows"] == seen["shifted_rows"] == 0
 
 
 @pytest.mark.parametrize("case", ["plain", "no_fasta", "duplex", "shifted"])
@@ -150,8 +179,11 @@ def test_port_engine_deep_pile(tmp_path, monkeypatch):
     off (the reads carry UMIs in their names, which the default `auto`
     would use): each pile is one job of 260 members per side, above the
     window path's 255, so the gathered vote takes it (one bucket,
-    K = 512). The JAX engine takes its XLA route here: Pallas interpret
-    mode needs minutes for a bucket that deep."""
+    K = 512), reading each job's refbase row where it lies (the window's
+    sources: no refbase gather, no standalone assembly). The JAX engine
+    takes its XLA route here: Pallas interpret mode needs minutes for a
+    bucket that deep."""
+    seen = _refbase_reads(monkeypatch)
     calls = []
     orig = vote.vote_gathered_plain
 
@@ -165,6 +197,8 @@ def test_port_engine_deep_pile(tmp_path, monkeypatch):
               tmp_path, monkeypatch, opt_kwargs={"umi_prefix": ""},
               jax_pallas=False)
     assert (512, 4) in calls
+    assert seen["sources"] > 0
+    assert seen["rows"] == seen["shifted_rows"] == 0
 
 
 def test_port_engine_window_past_u16_rows(tmp_path, monkeypatch):
@@ -209,8 +243,11 @@ def test_port_engine_long_reads(tmp_path, monkeypatch):
     amplicons x 30 molecules, mates overlapping by 40-200 bases): reads
     past 256 bases stage dense, so the port unpacks and scores through
     the dense route (on the CPU the twins of csrc/upload_dense.cu, the
-    int32 score map at w = 304) and votes at L = 320; records equal to the
-    oracle's and to the JAX engine's on its Pallas path."""
+    int32 score map at w = 304) and votes at L = 320, each job's refbase
+    row read where it lies (no refbase gather, no standalone assembly);
+    records equal to the oracle's and to the JAX engine's on its Pallas
+    path."""
+    seen = _refbase_reads(monkeypatch)
     from gencore_tpu_torch import engine as teng_mod
     from gencore_tpu_torch.core import kernels as tk
     calls = []
@@ -226,6 +263,8 @@ def test_port_engine_long_reads(tmp_path, monkeypatch):
     assert ("_upload_unpack_plain", (304, 320)) in calls
     assert any(n == "score_map_plain" and shape[1] == 320
                for n, shape in calls)
+    assert seen["sources"] > 0
+    assert seen["rows"] == seen["shifted_rows"] == 0
 
 
 def test_port_engine_default_device_needs_cuda():

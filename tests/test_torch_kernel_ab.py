@@ -115,3 +115,64 @@ def test_dense_shapes_are_phase_2f():
         ("score_map", "2f", dict(N=48_000, L=320, packed=False))]
     assert set(kernel_ab.DENSE_SPLIT_PARTS) == {"upload_unpack",
                                                 "score_map"}
+
+
+def test_takes_refsrc_of_each_variant(tmp_path):
+    """The gathered A/B runs the refbase source form only for variants
+    whose vote_gathered takes `refsrc` (a checkout from before it, here a
+    copy of core/vote.py without the keyword, runs the rows form
+    alone)."""
+    assert kernel_ab.takes_refsrc(vote)
+    pkg = tmp_path / "old" / "gencore_tpu_torch"
+    (pkg / "core").mkdir(parents=True)
+    (pkg / "csrc").mkdir()
+    src = pathlib.Path(vote.__file__).read_text()
+    old = ("                  ratio_num, ratio_den, out_len=None, sparse=False,\n"
+           "                  refsrc=None):")
+    assert src.count(old) == 1
+    (pkg / "core" / "vote.py").write_text(src.replace(
+        old, "                  ratio_num, ratio_den, out_len=None, "
+             "sparse=False):"))
+    assert not kernel_ab.takes_refsrc(kernel_ab._wrapper(str(pkg / "csrc"),
+                                                         vote))
+
+
+def test_bucket_calls_match_the_rows_form():
+    """The gathered A/B's host timing calls for this checkout
+    (kernel_ab.bucket_calls: the window's refbase sources sent up once,
+    then a bucket dispatched from host arrays with its rows named by
+    index, as the engine does) on CPU tensors, where the plain twin runs:
+    the bucket equals the rows form given vote.refbase_rows, and the
+    window call gives the sources it was handed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(3)
+    K, J, L, N, Jw = 4, 6, 32, 40, 9
+    seq = rng.choice(np.array([1, 2, 4, 8], np.uint8), size=(N, L))
+    qual = rng.integers(2, 42, size=(N, L)).astype(np.uint8)
+    score = rng.integers(-3, 13, size=(N, L)).astype(np.int8)
+    rows = rng.integers(0, N, size=(K, J)).astype(np.int32)
+    valid = (rng.random((K, J)) < 0.8).astype(np.uint8)
+    jl = rng.integers(L // 2, L + 1, size=J).astype(np.int32)
+    qtable = np.arange(16, dtype=np.uint8)
+    genome = torch.from_numpy(np.pad(rng.choice(
+        np.array([1, 2, 4, 8], np.uint8), size=400), (0, 64)))
+    gp = rng.integers(-50, 500, size=Jw).astype(np.int32)
+    hm = rng.integers(-1, 3, size=Jw).astype(np.int16)
+    jp = rng.integers(0, L + 1, size=Jw).astype(np.uint16)
+    hr = rng.choice(np.array([0, 1, 2, 4, 8], np.uint8), size=(2, L))
+    ridx = torch.from_numpy(rng.integers(0, Jw + 2, size=J).astype(np.int32))
+    src = (*vote.window_refsrc(genome, gp, hm, jp, hr), ridx)
+    gpu = [torch.from_numpy(a) for a in (seq, qual, score, rows, rows[0],
+                                         valid, jl)]
+    gpu += [vote.refbase_rows(src, L), torch.from_numpy(qtable)]
+    kw = dict(hi=30, mod=20, lo=15, base_score_req=6, ratio_num=4,
+              ratio_den=5, out_len=L, sparse=True)
+    window, bucket = kernel_ab.bucket_calls(vote, gpu, src, kw)
+    want = vote.vote_gathered_plain(*gpu, **kw)
+    got = bucket()
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[4], want[4]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(window(), src[:5]))

@@ -10,6 +10,7 @@ from gencore_tpu import engine as jeng
 from gencore_tpu.core import kernels as jk
 from gencore_tpu_torch import engine as teng
 from gencore_tpu_torch.core import kernels as tk
+from gencore_tpu_torch.core import vote
 from gencore_tpu_torch.core.vote import to_device
 from gencore_tpu_torch.tools import workloads
 
@@ -386,7 +387,11 @@ def test_refbase_combine_matches_jax():
     jl = rng.integers(0, L + 1, size=J).astype(np.uint16)
     args = (genome, gpos, hr, hm, jl)
     want = jeng._refbase_combine_fn(L)(*args)
-    got = teng._refbase_combine_fn(L)(*_dev(*args))
+    I32 = torch.int32
+    got = vote.refbase_combine(
+        to_device(genome, "cpu"), to_device(gpos, "cpu", I32),
+        to_device(hr, "cpu"), to_device(hm, "cpu", I32),
+        to_device(jl, "cpu", I32), L)
     _eq(got, want)
 
 

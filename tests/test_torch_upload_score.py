@@ -1,15 +1,16 @@
-"""The host side of the upload-and-score kernel and of the window kernel's
-unreferenced refbase rows, on the CPU.
+"""The host side of the upload-and-score kernel and of the refbase rows
+the votes read by index, on the CPU.
 
 * The kernel's one upload (kernels.upload_score_pack) holds the staging's
   15 host arrays in their own dtypes: unpacked, it equals them, every part
   16-byte aligned, the barrier bytes zero; the refbase kernel's upload
   (vote.refbase_upload) likewise.
-* The engine's list of the refbase rows that no window class votes with,
-  which it passes to the window kernel, equals vote.unreferenced_rows of
-  the launch's job table, on every window of the deep panel (a small
-  scale of its recipe) and on every case of the case matrix
-  (tools/golden_compare.py)."""
+* The refbase rows the engine's votes name by index: the window
+  kernel's jobs each their own row of the window's, and every gathered
+  bucket of a window with a reference its rows by index in the window's
+  sources (no rows handed over ready-made), on every window of the deep
+  panel (a small scale of its recipe) and on every case of the case
+  matrix (tools/golden_compare.py)."""
 
 import numpy as np
 import pytest
@@ -77,7 +78,7 @@ def test_refbase_upload_layout():
     jp = rng.integers(0, L + 1, size=J).astype(np.uint16)
     hr = rng.integers(0, 16, size=(nh, L)).astype(np.uint8)
     buf, lay = vote.refbase_upload(gp, hr, hm, jp)
-    assert lay == vote.window_upload_layout(0, J, 0, 0, hr.nbytes)
+    assert lay == vote.window_upload_layout(0, J, 0, hr.nbytes)
     assert buf.size == lay["size"] and lay["hr"] % 16 == 0
     ints = buf[:lay["qtable"]].view(np.int32)
     for k, a in (("gp", gp), ("hm", hm), ("jp", jp)):
@@ -88,50 +89,71 @@ def test_refbase_upload_layout():
         vote.refbase_upload(gp, hr, hm[:-1], jp)
 
 
-def _checked_window(seen):
-    """vote.pallas_vote_window that first holds the engine's `unref` to
-    unreferenced_rows of the launch's job table."""
-    orig = vote.pallas_vote_window
+def _checked_votes(seen):
+    """Stand-ins for vote.pallas_vote_window and pallas_vote_gathered that
+    record, per launch, whether its refbase rows are named as the engine
+    must name them: a window's jobs each their own row of the window's
+    (distinct, in [0, Jw)); a gathered bucket's, with refsrc, rows in
+    [0, Jw) of sources for every job of the window. Records ("window" or
+    "sources" or "rows", ok)."""
+    orig_w = vote.pallas_vote_window
+    orig_g = vote.pallas_vote_gathered
 
-    def f(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
-          class_args, **kw):
-        tab = vote.window_job_table(class_args, kw["classes"])
-        want = vote.unreferenced_rows(tab[3], len(np.asarray(gp)))
-        got = kw["unref"]
-        seen.append((got.dtype == np.int32 and np.array_equal(got, want),
-                     len(want), len(np.asarray(gp))))
-        return orig(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
-                    qtable, class_args, **kw)
+    def window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
+               class_args, **kw):
+        ridx = vote.window_job_table(class_args, kw["classes"])[3]
+        Jw = len(np.asarray(gp))
+        seen.append(("window", len(np.unique(ridx)) == len(ridx)
+                     and 0 <= ridx.min() and ridx.max() < Jw))
+        return orig_w(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp,
+                      qtable, class_args, **kw)
 
-    return f
+    def gathered(*a, refsrc=None, **k):
+        ok = a[7] is not None
+        if refsrc is not None:
+            ridx = np.asarray(refsrc[-1])
+            ok = (a[7] is None and len(refsrc) == 6
+                  and 0 <= ridx.min() and ridx.max() < len(refsrc[1]))
+        seen.append(("rows" if refsrc is None else "sources", ok))
+        return orig_g(*a, refsrc=refsrc, **k)
+
+    return window, gathered
 
 
-def test_engine_unreferenced_rows_deep_panel(tmp_path, monkeypatch):
+def _patch_votes(monkeypatch, seen):
+    window, gathered = _checked_votes(seen)
+    monkeypatch.setattr(vote, "pallas_vote_window", window)
+    monkeypatch.setattr(vote, "pallas_vote_gathered", gathered)
+
+
+def test_engine_refbase_rows_deep_panel(tmp_path, monkeypatch):
     bam, fa = workloads.deep_panel(str(tmp_path), n_fragments=2000)
     seen = []
-    monkeypatch.setattr(vote, "pallas_vote_window", _checked_window(seen))
+    _patch_votes(monkeypatch, seen)
     monkeypatch.setenv("GENCORE_NO_STREAM", "1")
     assert cli.main(["-i", bam, "-o", str(tmp_path / "out.bam"), "-r", fa,
                      "--windows", "4", "--device", "cpu"]) == 0
-    assert len(seen) >= 4, seen
-    assert all(ok for ok, _nu, _jw in seen), seen
-    assert any(nu < jw for _ok, nu, jw in seen)
+    assert sum(kind == "window" for kind, _ok in seen) >= 4, seen
+    assert all(ok for _kind, ok in seen), seen
+    assert not any(kind == "rows" for kind, _ok in seen), seen
 
 
 @pytest.mark.parametrize("name", list(gc.CASES))
-def test_engine_unreferenced_rows_cases(name, tmp_path, monkeypatch):
+def test_engine_refbase_rows_cases(name, tmp_path, monkeypatch):
     case = gc.CASES[name]
     seen = []
-    monkeypatch.setattr(vote, "pallas_vote_window", _checked_window(seen))
+    _patch_votes(monkeypatch, seen)
     gc.run_route(case, "default", str(tmp_path), device="cpu")
-    assert all(ok for ok, _nu, _jw in seen), seen
+    assert all(ok for _kind, ok in seen), seen
     if case.ref:
-        assert seen, "the case launched no window vote"
+        assert any(kind == "window" for kind, _ok in seen), \
+            "the case launched no window vote"
+        assert not any(kind == "rows" for kind, _ok in seen), seen
 
 
-def test_window_upload_with_the_engine_list():
-    """window_upload with `unref` given writes what it computes without,
-    into a buffer of exactly its size."""
+def test_window_upload_exact_size():
+    """window_upload fills a buffer of exactly its size from alloc, the
+    same bytes it writes without one."""
     rng = np.random.default_rng(9)
     Jw, L = 40, 32
     classes = ((4, 10), (16, 6))
@@ -145,14 +167,12 @@ def test_window_upload_with_the_engine_list():
     hm = np.full(Jw, -1, np.int16)
     jp = np.full(Jw, L, np.uint16)
     want, lay = vote.window_upload(class_args, classes, gp, hm, jp)
-    unref = vote.unreferenced_rows(
-        vote.window_job_table(class_args, classes)[3], Jw)
     room = []
     got, lay2 = vote.window_upload(
-        class_args, classes, gp, hm, jp, unref=unref,
+        class_args, classes, gp, hm, jp,
         alloc=lambda size: room.append(np.empty(size, np.uint8)) or room[0])
     assert lay2 == lay and got.tobytes() == want.tobytes()
-    assert room[0].size == lay["size"]
+    assert room[0].size == lay["size"] == want.size
 
 
 def test_upload_checks_mate_dtype():

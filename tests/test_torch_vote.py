@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from gencore_tpu import engine as jeng
 from gencore_tpu.core import pallas_vote as jpv
 from gencore_tpu_torch.core import vote
 from tests.test_pallas_vote import _batch
@@ -108,8 +109,9 @@ def _window_inputs(rng, L, out_len, classes, refs="mixed"):
 
 def _window_vs_jax(seed, with_qtable, refs="mixed"):
     """pallas_vote_window on CPU tensors against _pallas_window_all in
-    interpret mode: the wire buffer, refbase_dev and the dense fallbacks,
-    byte for byte."""
+    interpret mode: the wire buffer and the dense fallbacks, byte for
+    byte, and the refbase rows its twin votes with (refbase_combine)
+    against the JAX program's refbase_dev."""
     rng = np.random.default_rng(seed)
     L, out_len = 128, 104
     classes = ((4, 16), (16, 8))
@@ -124,9 +126,13 @@ def _window_vs_jax(seed, with_qtable, refs="mixed"):
     flat_j, ref_j, dense_j = jpv._pallas_window_all(
         seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
         *class_args, tjs=tjs, interpret=True, **kw)
-    flat_t, ref_t, dense_t = vote.pallas_vote_window(
+    flat_t, dense_t = vote.pallas_vote_window(
         _t(seq_dev), _t(qual_dev), _t(score_dev), _t(genome), gp, hr, hm, jp,
         qtable, class_args, **kw)
+    cpu, I32 = torch.device("cpu"), torch.int32
+    ref_t = vote.refbase_combine(
+        _t(genome), vote.to_device(gp, cpu, I32), _t(hr),
+        vote.to_device(hm, cpu, I32), vote.to_device(jp, cpu, I32), L)
     assert flat_t.dtype == torch.uint8
     assert ref_t.dtype == torch.uint8 and ref_t.shape == (len(gp), L)
     assert (ref_t.numpy() == np.asarray(ref_j)).all()
@@ -221,6 +227,127 @@ def test_gathered_variants_match_jax(mode, variant):
     _gathered_vs_jax(60 + len(mode) + len(variant), mode, variant)
 
 
+def _refsrc_inputs(rng, J, L, case):
+    """A window's refbase sources as engine._refbase_host_args makes them
+    (genome NT16-coded and padded as _genome_dev pads it, hm int16, jp
+    u16) and a bucket's refbase row per job, ridx, in the window's
+    numbering. `case`: "mixed" genome slices and host rows; "genome"
+    slices only; "host_rows" host rows only, some indices past the last
+    row (they clamp); "zero_len" slices of length 0 among the rest;
+    "edge_starts" starts negative (counted once from the end) and past
+    the end (they clamp); "ridx_order" rows repeated, unsorted and past
+    the window's (they clamp)."""
+    codes = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
+    genome = np.pad(codes[rng.integers(0, 5, size=3000)], (0, 4096))
+    Jw = J + 9
+    nh = 5
+    gp = rng.integers(0, 3000, size=Jw).astype(np.int32)
+    hr = codes[rng.integers(0, 5, size=(nh, L))]
+    hr[0] = 0
+    hm = rng.integers(-1, nh, size=Jw).astype(np.int16)
+    jp = rng.integers(1, L + 1, size=Jw).astype(np.uint16)
+    ridx = rng.permutation(Jw)[:J].astype(np.int32)
+    if case == "genome":
+        hm[:] = -1
+    elif case == "host_rows":
+        hm = rng.integers(0, nh + 3, size=Jw).astype(np.int16)
+    elif case == "zero_len":
+        hm[::2] = -1
+        jp[::3] = 0
+    elif case == "edge_starts":
+        hm[:] = -1
+        edges = [-7, -1, len(genome) - L + 9, -len(genome) - 5, 0,
+                 len(genome) + 40]
+        gp[:len(edges)] = edges
+        ridx[:len(edges)] = np.arange(len(edges))
+    elif case == "ridx_order":
+        ridx = rng.integers(0, Jw + 4, size=J).astype(np.int32)
+        ridx[1::4] = ridx[0]
+    return genome, gp, hr, hm, jp, ridx
+
+
+def _refsrc_vs_jax(seed, case, L, mode, K, J):
+    """pallas_vote_gathered with its refbase rows named by index in the
+    window's sources (vote.window_refsrc), run by its plain twin on CPU
+    tensors, against the JAX pallas_vote_gathered in interpret mode fed
+    the JAX engine's refbase assembly and row gather
+    (_refbase_combine_fn, _gather_one): every output and encoded field
+    exact."""
+    rng = np.random.default_rng(seed)
+    (seq_dev, qual_dev, score_dev, rows_t, row0, valid, job_len,
+     _rb) = _gathered_inputs(rng, K, J, L)
+    genome, gp, hr, hm, jp, ridx = _refsrc_inputs(rng, J, L, case)
+    table = np.array(jeng._refbase_combine_fn(L)(genome, gp, hr, hm, jp))
+    refbase = np.asarray(jeng._gather_one(table, ridx))
+    if case == "zero_len":
+        r = np.clip(ridx, 0, len(gp) - 1)
+        assert not refbase[(hm[r] < 0) & (jp[r] == 0)].any()
+    qtable = None
+    if mode == "sparse_qtable":
+        qtable = np.zeros(16, dtype=np.uint8)
+        qtable[1:15] = np.arange(3, 45, 3)
+    kw = dict(out_len=min(L - 16, 256) if mode != "dense" else L - 16,
+              sparse=mode != "dense", **KW)
+    want = jpv.pallas_vote_gathered(seq_dev, qual_dev, score_dev, rows_t,
+                                    row0, valid, job_len, refbase, qtable,
+                                    tj=8, interpret=True, **kw)
+    refsrc = (*vote.window_refsrc(_t(genome), gp, hm, jp, hr), ridx)
+    got = vote.pallas_vote_gathered(_t(seq_dev), _t(qual_dev), _t(score_dev),
+                                    rows_t, row0, valid, job_len, None,
+                                    qtable, refsrc=refsrc, **kw)
+    assert len(got) == len(want)
+    for a, b in zip(got[:4], want[:4]):
+        assert a.numpy().dtype == np.asarray(b).dtype
+        assert (a.numpy() == np.asarray(b)).all()
+    if kw["sparse"]:
+        for k, (a, b) in enumerate(zip(got[4], want[4])):
+            assert a.shape == np.asarray(b).shape, k
+            assert (a.numpy() == np.asarray(b)).all(), k
+
+
+@pytest.mark.parametrize("case,L,mode,K,J", [
+    ("genome", 160, "dense", 8, 16),
+    ("host_rows", 160, "sparse", 8, 16),
+    ("zero_len", 160, "sparse_qtable", 8, 16),
+    ("edge_starts", 160, "dense", 8, 16),
+    ("ridx_order", 160, "sparse", 8, 16),
+    ("mixed", 160, "sparse_qtable", 8, 16),
+    ("mixed", 320, "dense", 8, 8),
+    ("edge_starts", 320, "dense", 8, 8),
+    ("mixed", 160, "sparse_qtable", 96, 8),
+    ("ridx_order", 160, "dense", 96, 8)])
+def test_gathered_refsrc_matches_jax(case, L, mode, K, J):
+    """The source form at L = 160 and 320, dense and sparse, and at a
+    bucket the kernel splits (K = 96, J = 8: split 2; the others split
+    1)."""
+    assert (vote.split_size(K, J) > 1) == (K > 64)
+    _refsrc_vs_jax(107 + K + J + L + len(case), case, L, mode, K, J)
+
+
+def test_pack_parts_layout():
+    """A bucket's host arrays in one buffer, each at a 16-byte aligned
+    offset in the dtype pallas_vote_gathered casts it to (bool and u16
+    widened; values cast to int32 must fit), as the gathered entry's one
+    pinned copy (vote.pinned_parts) sends them."""
+    rows = np.arange(12, dtype=np.int64).reshape(3, 4).T
+    valid = np.array([[True, False, True]] * 4)
+    jl = np.array([5, 6, 7], dtype=np.uint16)
+    qt = np.arange(16, dtype=np.uint8)
+    host = [vote._host_as("f", a, dt) for a, dt in (
+        (rows, np.int32), (valid, np.uint8), (jl, np.int32),
+        (qt, np.uint8))]
+    buf, offs = vote.pack_parts([np.ascontiguousarray(a) for a in host])
+    assert offs == [0, 48, 64, 80] and len(buf) == 96
+    assert (buf[:48].view(np.int32).reshape(4, 3) == rows).all()
+    assert (buf[48:60] == valid.astype(np.uint8).reshape(-1)).all()
+    assert (buf[64:76].view(np.int32) == [5, 6, 7]).all()
+    assert (buf[80:] == qt).all()
+    assert [a.dtype for a in host] == [np.int32, np.uint8, np.int32,
+                                       np.uint8]
+    with pytest.raises(ValueError, match="does not fit int32"):
+        vote._host_as("f", np.array([2**31], dtype=np.int64), np.int32)
+
+
 def _shifted_block(rng, K, S, L):
     """Host-gathered [K, S, L] members as engine._vote_pallas builds them
     for lenDiff-shifted jobs: absent members all sentinel with zero qual
@@ -268,6 +395,48 @@ def test_pregathered_matches_jax(trial):
         assert (a.numpy() == np.asarray(b)).all()
 
 
+@pytest.mark.parametrize("case", ["zero", "negative", "past_end",
+                                  "in_range", "host_rows"])
+def test_shifted_refsrc_matches_jax(case):
+    """pallas_vote (the lenDiff-shifted jobs' host-gathered block) with
+    its refbase rows named by index in the window's sources, as the
+    engine hands them (the genome NT16-coded and padded as _genome_dev
+    pads it, hm int16, jp u16), run by its plain twin, against the JAX
+    pallas_vote in interpret mode fed the JAX engine's refbase assembly
+    and row gather: starts of 0, negative (counted once from the padded
+    end), past the end (clamped) and in range, job lengths 0..L; and host
+    rows, indices past the rows (clamped). Exact."""
+    rng = np.random.default_rng(70 + len(case))
+    K, S, L, G0, Jw = 4, 16, 128, 3000, 30
+    seq, qual, score, valid, job_len, _rb = _shifted_block(rng, K, S, L)
+    codes = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
+    genome = np.pad(codes[rng.integers(0, 5, size=G0)], (0, 4096))
+    G = len(genome)
+    gp = {"zero": np.zeros(Jw), "negative": -rng.integers(1, 2 * G, size=Jw),
+          "past_end": G0 - rng.integers(-G, L, size=Jw),
+          "in_range": rng.integers(0, G0 - L, size=Jw),
+          "host_rows": rng.integers(0, G0, size=Jw)}[case].astype(np.int32)
+    hr = codes[rng.integers(0, 5, size=(6, L))]
+    hm = np.full(Jw, -1, dtype=np.int16)
+    if case == "host_rows":
+        hm = rng.integers(-1, 9, size=Jw).astype(np.int16)
+    jp = rng.integers(0, L + 1, size=Jw).astype(np.uint16)
+    jp[:3] = (0, L, 1)
+    ridx = rng.permutation(Jw)[:S].astype(np.int32)
+    ridx[:3] = (0, 1, 2)
+    table = np.array(jeng._refbase_combine_fn(L)(genome, gp, hr, hm, jp))
+    refbase = np.asarray(jeng._gather_one(table, ridx))
+    kw = dict(out_len=96, **KW)
+    want = jpv.pallas_vote(seq, qual, score, valid, job_len, refbase, tj=8,
+                           interpret=True, **kw)
+    refsrc = (*vote.window_refsrc(_t(genome), gp, hm, jp, hr), ridx)
+    got = vote.pallas_vote(seq, qual, score, valid, job_len, None,
+                           refsrc=refsrc, **kw)
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        assert (a.numpy() == np.asarray(b)).all()
+
+
 def test_epilogue_first_index_semantics():
     """Edit/run positions follow jnp.argmax (first maximum, 0 when the row
     has none) — checked directly on the sparse encoding."""
@@ -307,7 +476,7 @@ def test_window_kernel_host_side(with_qtable):
     class_args[1][0] = 9          # more members than the class holds
     class_args[9][0] = 255        # uint8 counts of the 256 class
     qtable = np.arange(16, dtype=np.uint8) if with_qtable else None
-    flat, _ref, dense = vote.pallas_vote_window(
+    flat, dense = vote.pallas_vote_window(
         _t(seq_dev), _t(qual_dev), _t(score_dev), _t(genome), gp, hr, hm, jp,
         qtable, class_args, classes=classes, L=L, out_len=out_len, **KW)
     assert flat.numel() == vote.wire_size(29, len(classes), qtable)
@@ -324,56 +493,39 @@ def test_window_kernel_host_side(with_qtable):
         vote.window_job_table(class_args, ((4, 16), (16, 9), (256, 5)))
 
     # the kernel's one upload: job table, gp, hm, jp as int32, the qual
-    # table, 16-byte aligned the host rows, then the rows that no job
-    # references
+    # table, then 16-byte aligned the host rows
     Jw = len(gp)
-    ridx = tab[3].astype(np.int64)
-    unref = vote.unreferenced_rows(ridx, Jw)
-    want_unref = np.setdiff1d(np.arange(Jw), np.clip(ridx, 0, Jw - 1))
-    assert unref.dtype == np.int32 and (unref == want_unref).all()
-    assert 0 < len(unref) < Jw
     buf, lay = vote.window_upload(class_args, classes, gp, hm, jp, qtable,
                                   hr)
     assert lay == vote.window_upload_layout(
-        29, Jw, len(unref), 0 if qtable is None else 16, hr.nbytes)
+        29, Jw, 0 if qtable is None else 16, hr.nbytes)
     assert buf.dtype == np.uint8 and buf.size == lay["size"]
     assert [lay[k] for k in ("jobs", "gp", "hm", "jp", "qtable")] == [
         0, 24 * 29, 24 * 29 + 4 * Jw, 24 * 29 + 8 * Jw, 24 * 29 + 12 * Jw]
     assert lay["hr"] % 16 == 0
     assert lay["qtable"] + (16 if qtable is not None else 0) <= lay["hr"]
     assert lay["hr"] < lay["qtable"] + (16 if qtable is not None else 0) + 16
-    assert lay["unref"] == lay["hr"] + hr.nbytes
-    assert lay["size"] == lay["unref"] + 4 * len(unref)
+    assert lay["size"] == lay["hr"] + hr.nbytes
     ints = buf[:lay["qtable"]].view(np.int32)
     assert (ints[:6 * 29].reshape(6, 29) == tab).all()
     for k, a in (("gp", gp), ("hm", hm), ("jp", jp)):
         got = ints[lay[k] // 4:lay[k] // 4 + len(a)]
         assert (got == a.astype(np.int64)).all(), k
     assert (hm < 0).any() and (ints[lay["hm"] // 4:][:Jw] < 0).any()
-    assert (buf[lay["unref"]:].view(np.int32) == unref).all()
     if qtable is not None:
         assert buf[lay["qtable"]:lay["qtable"] + 16].tobytes() == \
             qtable.tobytes()
-    assert buf[lay["hr"]:lay["unref"]].tobytes() == hr.tobytes()
+    assert buf[lay["hr"]:].tobytes() == hr.tobytes()
     # host rows that lie on the device stay out of the upload
     small, slay = vote.window_upload(class_args, classes, gp, hm, jp, qtable)
-    assert slay["unref"] == lay["hr"] and small.size == slay["size"]
-    assert small.tobytes() == (buf.tobytes()[:lay["hr"]]
-                               + buf.tobytes()[lay["unref"]:])
-    # the buffer is the head of alloc's, which has room for every row
+    assert slay["size"] == lay["hr"] and small.size == slay["size"]
+    assert small.tobytes() == buf.tobytes()[:lay["hr"]]
+    # the buffer is alloc's, of exactly the size
     got = []
     pinned, _ = vote.window_upload(
         class_args, classes, gp, hm, jp, qtable, hr,
         alloc=lambda n: got.append(np.zeros(n, np.uint8)) or got[0])
-    assert pinned.base is got[0] and pinned.tobytes() == buf.tobytes()
-    assert got[0].size == lay["unref"] + 4 * Jw
-    # every row referenced: an empty list; one row for all: all the others
-    assert len(vote.unreferenced_rows(np.arange(Jw)[::-1], Jw)) == 0
-    assert (vote.unreferenced_rows(np.full(7, Jw + 5), Jw)
-            == np.arange(Jw - 1)).all()
-    # uint16 rows (the engine's staging) in a window of more rows
-    big = vote.unreferenced_rows(np.array([0, 65535], np.uint16), 70000)
-    assert len(big) == 69998 and big[0] == 1 and big[-1] == 69999
+    assert pinned is got[0] and pinned.tobytes() == buf.tobytes()
     with pytest.raises(ValueError, match="one entry per job"):
         vote.window_upload(class_args, classes, gp, hm[:-1], jp)
     with pytest.raises(ValueError, match="gp does not fit int32"):
@@ -430,6 +582,51 @@ def test_gathered_kernel_checks_arguments(change, err, match):
         a = _gathered_args()
         vote.vote_core(a["seq_src"], a["qual_src"], a["score_src"],
                        a["rows"], a["valid"], a["refbase"], **KW)
+
+
+@pytest.mark.parametrize("form,err,match", [
+    ("both", ValueError, "refbase and refsrc both given"),
+    ("parts", ValueError, "got 2 parts"),
+    ("ridx_i64", TypeError, "ridx is torch.int64"),
+    ("hr_width", ValueError, "hr has shape"),
+    ("short_genome", ValueError, "at least L=32 bases"),
+    ("no_host_row", ValueError, r"a host row \(0\)"),
+    ("hm_i16", TypeError, "hm is torch.int16"),
+    ("ok_sources", ValueError, "needs CUDA tensors")])
+def test_gathered_kernel_checks_refsrc(form, err, match):
+    """What vote_gathered checks of the refbase source form before it
+    launches; a valid form on the CPU reaches the device check, and the
+    plain twin takes it."""
+    args = _gathered_args()
+    J, L = args["refbase"].shape
+    I32 = torch.int32
+    ridx = torch.arange(J, dtype=I32)
+    src = [torch.zeros(L + 5, dtype=torch.uint8),
+           torch.zeros(J + 2, dtype=I32), torch.full((J + 2,), -1, dtype=I32),
+           torch.full((J + 2,), L, dtype=I32),
+           torch.zeros((1, L), dtype=torch.uint8), ridx]
+    refbase = None
+    refsrc = list(src)
+    if form == "both":
+        refbase = args["refbase"]
+    elif form == "parts":
+        refsrc = [torch.zeros((J + 2, L), dtype=torch.uint8), ridx]
+    elif form == "ridx_i64":
+        refsrc[5] = ridx.long()
+    elif form == "hr_width":
+        refsrc[4] = torch.zeros((1, 16), dtype=torch.uint8)
+    elif form == "short_genome":
+        refsrc[0] = src[0][:L - 1]
+    elif form == "no_host_row":
+        refsrc[4] = torch.zeros((0, L), dtype=torch.uint8)
+    elif form == "hm_i16":
+        refsrc[2] = src[2].short()
+    args["refbase"] = refbase
+    with pytest.raises(err, match=match):
+        vote.vote_gathered(**args, refsrc=tuple(refsrc), **KW)
+    if form.startswith("ok"):
+        out = vote.vote_gathered_plain(**args, refsrc=tuple(refsrc), **KW)
+        assert out[0].shape == (J, L // 2)
 
 
 def test_window_kernel_checks_arguments():
