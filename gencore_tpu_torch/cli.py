@@ -23,6 +23,7 @@ import sys
 import time
 
 from gencore_tpu_torch.options import OptionError, Options
+from gencore_tpu_torch.utils import tracing
 from gencore_tpu_torch import __version__
 
 
@@ -160,7 +161,17 @@ def main(argv=None) -> int:
         print(f"ERROR: {e}", file=sys.stderr)
         return -1
 
+    # spans are recorded under --debug (beside the stage table) and with
+    # GENCORE_TRACE_DIR (written there as spans.json)
+    with tracing.recording(opt.debug), tracing.maybe_trace(), \
+            tracing.sample():
+        return _run(args, opt, argv)
+
+
+def _run(args, opt, argv) -> int:
+    """One run of the engine on the parsed options: the body of `main`."""
     import os
+
     device = None
     devices = None
     if not args.oracle:
@@ -182,17 +193,16 @@ def main(argv=None) -> int:
         from gencore_tpu_torch.io.sam import spool_stdin
         opt.input, stdin_keeper, stdin_is_bam = spool_stdin()
 
-    from gencore_tpu_torch.io import bam as bamio
     from gencore_tpu_torch.io.bed import BedRegions
     from gencore_tpu_torch.io.fasta import FastaRef
-    from gencore_tpu_torch.report import write_html_report, write_json_report
 
     fasta = None
     if opt.ref_file:
         print("loading reference data:", file=sys.stderr)
-        fasta = FastaRef.load(opt.ref_file, opt.max_contig)
-        for name, contig in fasta.contigs.items():
-            print(f"{name}: {len(contig)} bp", file=sys.stderr)
+        with tracing.span("fasta.load"):
+            fasta = FastaRef.load(opt.ref_file, opt.max_contig)
+            for name, contig in fasta.contigs.items():
+                print(f"{name}: {len(contig)} bp", file=sys.stderr)
 
     # Streaming (bounded-memory windowed decode/process/write) is the
     # DEFAULT for file->file BAM runs: the reference's only mode is
@@ -228,21 +238,23 @@ def main(argv=None) -> int:
         from gencore_tpu_torch.parallel.streaming import (StreamingBam,
                                                           run_streaming)
         try:
-            sb0 = StreamingBam(opt.input)
+            with tracing.span("stream.header"):
+                sb0 = StreamingBam(opt.input)
         except (ValueError, RuntimeError, OSError):
             if args.stream:
                 raise
             sb0 = None  # auto-selected but not BGZF: in-memory path below
             use_stream = False
     if use_stream:
-        from gencore_tpu_torch.io.bed import BedRegions
-        buf0, _ = sb0._read_span(0, min(1 << 20, sb0.total))
-        sb0._parse_header(buf0)
-        bed = None
-        if opt.bed_file:
-            bed = BedRegions.load(opt.bed_file, sb0.header.names)
-            opt.has_bed_file = True
+        with tracing.span("stream.header"):
+            buf0, _ = sb0._read_span(0, min(1 << 20, sb0.total))
+            sb0._parse_header(buf0)
+            bed = None
+            if opt.bed_file:
+                bed = BedRegions.load(opt.bed_file, sb0.header.names)
+                opt.has_bed_file = True
         stage_sum = {} if opt.debug else None
+        count_sum = {} if opt.debug else None
         out_path = opt.output
         if out_path == "-":
             # incremental BGZF writes are sequential appends: route them
@@ -250,22 +262,12 @@ def main(argv=None) -> int:
             sys.stdout.flush()
             out_path = "/dev/stdout"
         print(io_line("streaming path"), file=sys.stderr)
-        from gencore_tpu_torch.utils.tracing import maybe_trace
-        with maybe_trace():
-            header, pre_stats, post_stats = run_streaming(
-                opt, opt.input, out_path, fasta=fasta, bed=bed,
-                n_windows=args.windows, device=device, devices=devices,
-                stage_totals=stage_sum)
-        if stage_sum:
-            for k in sorted(stage_sum, key=lambda k: -stage_sum[k]):
-                print(f"[stage] {k}: {stage_sum[k]:.3f}s (summed over "
-                      "windows)", file=sys.stderr)
-        print("----Before gencore processing:", file=sys.stderr)
-        pre_stats.print_summary(sys.stderr)
-        print("\n----After gencore processing:", file=sys.stderr)
-        post_stats.print_summary(sys.stderr)
-        write_json_report(opt.json_file, opt, pre_stats, post_stats, command)
-        write_html_report(opt.html_file, opt, pre_stats, post_stats, command)
+        header, pre_stats, post_stats = run_streaming(
+            opt, opt.input, out_path, fasta=fasta, bed=bed,
+            n_windows=args.windows, device=device, devices=devices,
+            stage_totals=stage_sum, count_totals=count_sum)
+        _print_tables(stage_sum, count_sum)
+        _report(opt, pre_stats, post_stats, command)
         t2 = time.time()
         print(f"\n{command}", file=sys.stderr)
         print(f"gencore-tpu-torch v{__version__}, time used: "
@@ -289,9 +291,6 @@ def main(argv=None) -> int:
     # only a name ending in "sam" gets text mode; `-o -` writes BAM to
     # stdout exactly like the reference (gencore.cpp:170-173)
     sam_out = opt.output.endswith("sam")
-    from gencore_tpu_torch.utils.tracing import maybe_trace
-    _trace_ctx = maybe_trace()
-    _trace_ctx.__enter__()
     if args.shards > 1 and not args.oracle:
         from gencore_tpu_torch.parallel import windows as win
 
@@ -320,6 +319,7 @@ def main(argv=None) -> int:
             from gencore_tpu_torch.io import native as _native
             from gencore_tpu_torch.parallel import pipeline as pipe
             stage_sum = {} if opt.debug else None
+            count_sum = {} if opt.debug else None
             out_writer = None
             if (not sam_out and opt.output != "-"
                     and _native.get_lib() is not None):
@@ -332,7 +332,10 @@ def main(argv=None) -> int:
                 tables, pre_stats, post_stats = pipe.run_pipelined(
                     opt, batch, header, fasta=fasta, bed=bed,
                     n_windows=args.windows, device=device, devices=devices,
-                    stage_totals=stage_sum, out_writer=out_writer)
+                    stage_totals=stage_sum, count_totals=count_sum,
+                    out_writer=out_writer)
+                if out_writer is not None:
+                    out_writer.close()
             except BaseException:
                 # the incremental writer truncated the output at start;
                 # don't leave a corrupt EOF-less partial file behind
@@ -342,14 +345,12 @@ def main(argv=None) -> int:
                     except OSError:
                         pass
                 raise
-            if stage_sum:
-                for k in sorted(stage_sum, key=lambda k: -stage_sum[k]):
-                    print(f"[stage] {k}: {stage_sum[k]:.3f}s (summed over "
-                          "windows)", file=sys.stderr)
+            if out_writer is not None:
+                out_writer.timer.merge_into(stage_sum, count_sum)
+            _print_tables(stage_sum, count_sum)
             engine = _MergedResult(pre_stats, post_stats)
             if out_writer is not None:
-                out_writer.close()
-                outs = None
+                outs = None   # written window by window
             elif sam_out:
                 from gencore_tpu_torch.parallel import windows as win
                 outs = win.merged_records(tables)
@@ -359,14 +360,32 @@ def main(argv=None) -> int:
             engine = VectorEngine(opt, header, fasta=fasta, bed=bed,
                                   device=device)
             outs = engine.run(batch)
-    _trace_ctx.__exit__(None, None, None)
 
     if outs is not None:
+        _write_outs(outs, opt.output, header, sam_out)
+
+    if opt.debug and hasattr(engine, "timer"):
+        for line in engine.timer.report_lines():
+            print(line, file=sys.stderr)
+
+    _report(opt, engine.pre_stats, engine.post_stats, command)
+
+    t2 = time.time()
+    print(f"\n{command}", file=sys.stderr)
+    print(f"gencore-tpu-torch v{__version__}, time used: {t2 - t1:.1f} "
+          "seconds", file=sys.stderr)
+    return 0
+
+
+def _write_outs(outs, path, header, sam_out) -> None:
+    """Write an in-memory run's output records to `path`."""
+    from gencore_tpu_torch.io import bam as bamio
+    with tracing.span("write"):
         if sam_out:
             from gencore_tpu_torch.io.sam import SamWriter
-            writer = SamWriter(opt.output, header)
+            writer = SamWriter(path, header)
         else:
-            writer = bamio.BamWriter(opt.output, header)
+            writer = bamio.BamWriter(path, header)
         import numpy as _np
         if isinstance(outs, _np.ndarray):
             writer.write_payload(outs)
@@ -380,23 +399,27 @@ def main(argv=None) -> int:
                 writer.write_record(r.encode())
         writer.close()
 
-    if opt.debug and hasattr(engine, "timer"):
-        for line in engine.timer.report_lines():
-            print(line, file=sys.stderr)
 
-    print("----Before gencore processing:", file=sys.stderr)
-    engine.pre_stats.print_summary(sys.stderr)
-    print("\n----After gencore processing:", file=sys.stderr)
-    engine.post_stats.print_summary(sys.stderr)
+def _print_tables(stage_sum, count_sum) -> None:
+    """The --debug tables of a windowed run: `[stage]` lines (seconds
+    summed over windows, longest first), then `[count]` lines."""
+    for k in sorted(stage_sum or {}, key=lambda k: -stage_sum[k]):
+        print(f"[stage] {k}: {stage_sum[k]:.3f}s (summed over windows)",
+              file=sys.stderr)
+    for line in tracing.count_lines(count_sum or {}):
+        print(line, file=sys.stderr)
 
-    write_json_report(opt.json_file, opt, engine.pre_stats, engine.post_stats, command)
-    write_html_report(opt.html_file, opt, engine.pre_stats, engine.post_stats, command)
 
-    t2 = time.time()
-    print(f"\n{command}", file=sys.stderr)
-    print(f"gencore-tpu-torch v{__version__}, time used: {t2 - t1:.1f} "
-          "seconds", file=sys.stderr)
-    return 0
+def _report(opt, pre_stats, post_stats, command) -> None:
+    """The run's summaries on stderr and its JSON and HTML reports."""
+    from gencore_tpu_torch.report import write_html_report, write_json_report
+    with tracing.span("report"):
+        print("----Before gencore processing:", file=sys.stderr)
+        pre_stats.print_summary(sys.stderr)
+        print("\n----After gencore processing:", file=sys.stderr)
+        post_stats.print_summary(sys.stderr)
+        write_json_report(opt.json_file, opt, pre_stats, post_stats, command)
+        write_html_report(opt.html_file, opt, pre_stats, post_stats, command)
 
 
 if __name__ == "__main__":

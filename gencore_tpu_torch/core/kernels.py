@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from gencore_tpu_torch.core import vote
+from gencore_tpu_torch.utils import tracing
 
 I32 = torch.int32
 
@@ -225,12 +226,15 @@ def score_map(seq_all, qual_all, mate_row, my_len, *, meta=None,
     lib = vote.build_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gc_score_map(
-            seq_all.data_ptr(), qual_all.data_ptr(), mate_row.data_ptr(),
-            ptr(meta), ptr(my_start), ptr(mate_start), ptr(cmp_len),
-            my_len.data_ptr(), ptr(is_left), ptr(scored), score.data_ptr(),
-            qual.data_ptr(), N, L, int(packed), hi, mod, lo, s_hi, s_mod,
-            s_lo, s_bad, stream)
+        with tracing.span("launch.gc_score_map", rows=N, L=L,
+                          packed=int(packed)):
+            err = lib.gc_score_map(
+                seq_all.data_ptr(), qual_all.data_ptr(),
+                mate_row.data_ptr(), ptr(meta), ptr(my_start),
+                ptr(mate_start), ptr(cmp_len), my_len.data_ptr(),
+                ptr(is_left), ptr(scored), score.data_ptr(),
+                qual.data_ptr(), N, L, int(packed), hi, mod, lo, s_hi,
+                s_mod, s_lo, s_bad, stream)
     if err != 0:
         raise RuntimeError(f"gc_score_map launch failed: cudaError_t {err}")
     global SCORE_MAP_LAUNCHES
@@ -287,10 +291,11 @@ def upload_unpack(seq_up, qual_up, lens, qtable, *, w, L, seq_mode,
     lib = vote.build_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gc_upload_unpack(
-            seq_up.data_ptr(), qual_up.data_ptr(), lens.data_ptr(),
-            qtable.data_ptr(), seq.data_ptr(), qual.data_ptr(),
-            lens_out.data_ptr(), n, w, L, sw, qw, s_bit | q_bit, stream)
+        with tracing.span("launch.gc_upload_unpack", rows=n, w=w, L=L):
+            err = lib.gc_upload_unpack(
+                seq_up.data_ptr(), qual_up.data_ptr(), lens.data_ptr(),
+                qtable.data_ptr(), seq.data_ptr(), qual.data_ptr(),
+                lens_out.data_ptr(), n, w, L, sw, qw, s_bit | q_bit, stream)
     if err != 0:
         raise RuntimeError(f"gc_upload_unpack launch failed: cudaError_t "
                            f"{err}")
@@ -704,10 +709,11 @@ def upload_score(arrays, genome, *, device, w, L, mode2, has_sedit,
     lib = vote.build_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gc_upload_score(
-            up.data_ptr(), genome.data_ptr() if has_genome else None,
-            seq.data_ptr(), qual.data_ptr(), score.data_ptr(),
-            scratch.data_ptr(), c_dims, stream)
+        with tracing.span("launch.gc_upload_score", rows=n, w=w, L=L):
+            err = lib.gc_upload_score(
+                up.data_ptr(), genome.data_ptr() if has_genome else None,
+                seq.data_ptr(), qual.data_ptr(), score.data_ptr(),
+                scratch.data_ptr(), c_dims, stream)
     if err != 0:
         raise RuntimeError(f"gc_upload_score launch failed: cudaError_t "
                            f"{err}")

@@ -62,6 +62,8 @@ import threading
 import numpy as np
 import torch
 
+from gencore_tpu_torch.utils import tracing
+
 BINS = (0, 1, 2, 4, 8, 15)  # non-empty nt16 bins of =ACGTN data
 SENTINEL = 255              # member-absent marker (never a bin or refbase)
 NEG_INF = -0x7FFFFFFF
@@ -249,7 +251,8 @@ def _launch(fn, lib_fn, ptrs, ints, K, J, L, fields, dev):
     split = split_size(K, J)
     part = (torch.empty((split, J, fields, L), dtype=torch.int32, device=dev)
             if split > 1 else None)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), \
+            tracing.span("launch." + fn, J=J, K=K, L=L, split=split):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib_fn(*ptrs, *ints, split,
                      None if part is None else part.data_ptr(), stream)
@@ -973,13 +976,15 @@ def vote_window(seq_dev, qual_dev, score_dev, genome, gp, hr, hm, jp, qtable,
     th = _thresholds(hi, mod, lo, base_score_req, ratio_num, ratio_den)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gc_vote_window(
-            seq_dev.data_ptr(), qual_dev.data_ptr(), score_dev.data_ptr(),
-            genome.data_ptr(), at["gp"], at["hm"], at["jp"], hr_ptr,
-            at["jobs"], qt_ptr, flat.data_ptr(), pseq.data_ptr(),
-            qual.data_ptr(), scratch.data_ptr(), N, L, G, nh, Jw, Jt, nb, ol,
-            th["hi"], th["mod"], th["lo"], th["bsr"], th["rnum"], th["rden"],
-            stream)
+        with tracing.span("launch.gc_vote_window", rows=N, J=Jt, L=L,
+                          classes=nb):
+            err = lib.gc_vote_window(
+                seq_dev.data_ptr(), qual_dev.data_ptr(),
+                score_dev.data_ptr(), genome.data_ptr(), at["gp"], at["hm"],
+                at["jp"], hr_ptr, at["jobs"], qt_ptr, flat.data_ptr(),
+                pseq.data_ptr(), qual.data_ptr(), scratch.data_ptr(), N, L,
+                G, nh, Jw, Jt, nb, ol, th["hi"], th["mod"], th["lo"],
+                th["bsr"], th["rnum"], th["rden"], stream)
     if err != 0:
         raise RuntimeError(f"gc_vote_window launch failed: cudaError_t {err}")
     global WINDOW_LAUNCHES

@@ -41,6 +41,7 @@ from gencore_tpu_torch.io import bam as bamio
 from gencore_tpu_torch.options import Options
 from gencore_tpu_torch.stats import MAX_SUPPORTING_READS, Stats
 from gencore_tpu_torch.utils import cigar as cig
+from gencore_tpu_torch.utils import tracing
 from gencore_tpu_torch.utils.tracing import StageTimer
 from gencore_tpu_torch.core import kernels, vote
 from gencore_tpu_torch.core.vote import to_device
@@ -313,30 +314,35 @@ class VectorEngine:
                 fasta._gcat_cache = cache
             hit = cache.get(key)
             if hit is None:
-                lens = [fasta.contig_len(n) for n in header.names]
-                clen = np.array(lens, dtype=np.int64)
-                cbase = np.zeros(len(lens) + 1, dtype=np.int64)
-                np.cumsum(lens, out=cbase[1:])
-                parts = [fasta.get_contig(n) if fasta.get_contig(n) is not None
-                         else np.zeros(0, dtype=np.uint8)
-                         for n in header.names]
-                genome = (np.concatenate(parts) if parts
-                          else np.zeros(0, dtype=np.uint8))
-                hit = (clen, cbase, genome)
-                cache[key] = hit
+                with tracing.span("genome.build"):
+                    lens = [fasta.contig_len(n) for n in header.names]
+                    clen = np.array(lens, dtype=np.int64)
+                    cbase = np.zeros(len(lens) + 1, dtype=np.int64)
+                    np.cumsum(lens, out=cbase[1:])
+                    parts = [fasta.get_contig(n)
+                             if fasta.get_contig(n) is not None
+                             else np.zeros(0, dtype=np.uint8)
+                             for n in header.names]
+                    genome = (np.concatenate(parts) if parts
+                              else np.zeros(0, dtype=np.uint8))
+                    hit = (clen, cbase, genome)
+                    cache[key] = hit
             self._contig_len, self._contig_base, self._genome = hit
         else:
             self._genome = None
         self._mi_has_rank = None   # per-rank MI presence (None = no MI)
         self._qname_umi = None
+        # stage seconds, and the counters wire.h2dMB / wire.d2hMB (MB
+        # shipped host->device and downloaded device->host this run)
         self.timer = StageTimer()
-        self.wire_h2d = 0          # bytes shipped host->device this run
-        self.wire_d2h = 0          # bytes downloaded device->host
 
     def _acct_up(self, *arrays):
         for a in arrays:
             if isinstance(a, np.ndarray):
-                self.wire_h2d += a.nbytes
+                self._acct("wire.h2dMB", a.nbytes)
+
+    def _acct(self, counter: str, nbytes: int):
+        self.timer.count(counter, nbytes / 1e6)
 
     # ------------------------------------------------------------------
     def run(self, batch: bamio.RecordBatch, *, checkpoint=None,
@@ -876,12 +882,6 @@ class VectorEngine:
 
         with _T("finalize"):
             out = self._finalize(st.out_records)
-        # wire accounting (bytes -> MB pseudo-stages; summed across window
-        # engines by the pipeline's stage_totals merge)
-        self.timer.totals["wire.h2dMB"] = (
-            self.timer.totals.get("wire.h2dMB", 0.0) + self.wire_h2d / 1e6)
-        self.timer.totals["wire.d2hMB"] = (
-            self.timer.totals.get("wire.d2hMB", 0.0) + self.wire_d2h / 1e6)
         return out
 
     # ------------------------------------------------------------------
@@ -1312,7 +1312,8 @@ class VectorEngine:
                        s["base"], s["q_src"], s["qd"], s["qcnt"], s["qpos"],
                        s["qval"], s["lens16"], mate, meta, s["gslots"])
             # the staging crosses as one buffer (kernels.upload_score_pack)
-            self.wire_h2d += kernels.upload_score_layout(staging)["size"]
+            self._acct("wire.h2dMB",
+                       kernels.upload_score_layout(staging)["size"])
             g = (self._genome_dev() if s["has_genome"]
                  else np.zeros(1, np.uint8))
             with _Ts("score.dispatch"):
@@ -1482,8 +1483,9 @@ class VectorEngine:
         hit = cache.get(key)
         if hit is not None:
             return hit
-        gn = np.pad(_ASCII_TO_NT16[self._genome], (0, _GENOME_PAD))
-        dev = self._dev(gn)
+        with tracing.span("genome.upload", bases=len(self._genome)):
+            gn = np.pad(_ASCII_TO_NT16[self._genome], (0, _GENOME_PAD))
+            dev = self._dev(gn)
         cache[key] = dev
         return dev
 
@@ -1838,7 +1840,7 @@ class VectorEngine:
         for _, dl, entries in wflat:
             with _T("vote.sync"):
                 fb = dl.wait()
-                self.wire_d2h += fb.nbytes
+                self._acct("wire.d2hMB", fb.nbytes)
                 ds, dq, df, mc = self._sparse_parse(fb, entries)
             buf = jobs.add_buffer(ds, dq)
             off = 0
@@ -1881,7 +1883,7 @@ class VectorEngine:
                         self._dev(qtable), *flat)
                     # ONE device->host transfer for the whole window
                     fb = _to_host(flat_d)
-                    self.wire_d2h += fb.nbytes
+                    self._acct("wire.d2hMB", fb.nbytes)
                     J2 = sum(outs.dev_out[0].shape[0] for _, outs, _ in packed)
                     pw = packed[0][1].dev_out[0].shape[1]
                     o1 = J2 * pw          # ps
@@ -1907,8 +1909,8 @@ class VectorEngine:
                     dq = _to_host(dq_d)
                     df = _to_host(df_d)
                     mc = _to_host(mc_d)
-                    self.wire_d2h += (ps.nbytes + dq.nbytes + df.nbytes
-                                      + mc.nbytes)
+                    self._acct("wire.d2hMB", ps.nbytes + dq.nbytes
+                               + df.nbytes + mc.nbytes)
                 ds = native.unpack_nib_dense(ps, _IDENT16)
                 if ds is None:
                     ds = _unpack_nibbles(ps)
@@ -1935,7 +1937,7 @@ class VectorEngine:
         for _, outs, _ in packed:
             flat.extend(outs.enc)
         fb = _to_host(_concat_sparse_fn(len(packed))(*flat))
-        self.wire_d2h += fb.nbytes
+        self._acct("wire.d2hMB", fb.nbytes)
         entries = [(jlist, (outs.dev_out[0], outs.dev_out[1]), outs.rows0)
                    for jlist, outs, _ in packed]
         return self._sparse_parse(fb, entries)
@@ -2035,7 +2037,7 @@ class VectorEngine:
                     pw = pseq_d.shape[1]
                     buf = _to_host(_pull_dense_fn()(pseq_d, qual_d,
                                                     self._dev(idxp)))
-                    self.wire_d2h += buf.nbytes
+                    self._acct("wire.d2hMB", buf.nbytes)
                     pr = buf[:n2 * pw].reshape(n2, pw)[:len(sel)]
                     qr = buf[n2 * pw:].reshape(n2, ol)[:len(sel)]
                     drows = native.unpack_nib_dense(pr, _IDENT16)

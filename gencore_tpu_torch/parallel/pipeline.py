@@ -42,6 +42,7 @@ from gencore_tpu_torch.parallel.windows import (cluster_left_keys,
                                                 merge_shard_stats,
                                                 resolve_umi_prefix,
                                                 subset_batch)
+from gencore_tpu_torch.utils import tracing
 
 
 def plan_windows(batch: bamio.RecordBatch, header_lengths, n_windows: int,
@@ -195,6 +196,52 @@ def flush_ready(pending: list, boundary, writer):
     writer.write_payload(out)
 
 
+def emit_window(eng, table, pending: list, boundary, writer):
+    """A collected window's output: its records' payload (stage `payload`)
+    joins `pending` and every pending record below `boundary` goes to
+    the writer (flush_ready), both within the stage `write` of the
+    window's engine, which also counts `out.records`."""
+    with eng.timer.stage("write"):
+        if table is not None and len(table):
+            with eng.timer.stage("payload"):
+                pay = table.build_payload()  # sets table._doff
+            pending.append((table.record_keys(), table._doff[:-1].copy(),
+                            np.diff(table._doff), pay))
+            eng.timer.count("out.records", len(table))
+        flush_ready(pending, boundary, writer)
+
+
+def collect_windows(done_q: "queue.Queue", err: list, n_windows: int, ctx,
+                    take) -> None:
+    """The collector thread of a window pipeline: every dispatched window
+    (w, engine, state) from done_q is collected (run_collect) and handed
+    to take(w, engine, table), its run state dropped after, until the
+    None sentinel or an error (recorded in err). ctx: the starter's
+    tracing context; spans collect.wait (for window w) and collect."""
+    tracing.adopt(ctx)
+    nxt = 0
+    while True:
+        tracing.set_window(nxt if nxt < n_windows else -1)
+        with tracing.span("collect.wait"):
+            item = _get_alive(done_q, err)
+        if item is None:
+            return
+        w, eng, st = item
+        nxt = w + 1
+        tracing.set_window(w)
+        try:
+            with tracing.span("collect"), device_scope(eng.device):
+                table = eng.run_collect(st)
+            take(w, eng, table)
+            # stats/timer survive; matrices and the window's payload
+            # reference are dropped so peak residency stays
+            # O(inflight windows), not O(all windows)
+            eng.release_run_state()
+        except BaseException as e:  # propagate to the dispatch thread
+            err.append(e)
+            return
+
+
 def window_flush_boundaries(batch, wins):
     """Per-window safe flush boundary: after window w completes, every
     record with key strictly below boundary[w] can be written — no later
@@ -226,7 +273,8 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
                   fasta=None, bed=None, n_windows: int = 0,
                   device="cuda", devices=None, max_inflight: int = 3,
                   stage_totals: dict = None, engines_out: list = None,
-                  out_writer=None, window_weights=None):
+                  out_writer=None, window_weights=None,
+                  count_totals: dict = None):
     """Run the vectorized engine as a window pipeline; returns
     (tables, pre_stats, post_stats) record-equivalent to a single-shot
     VectorEngine.run (the merged outputs are ordered by windows.merged_records).
@@ -240,7 +288,14 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
     collector thread as each window's flush boundary clears (overlapping
     the BGZF compression with later windows' host/device work) and the
     returned tables list is empty. Output bytes are identical to writing
-    merged_payload(tables)."""
+    merged_payload(tables). stage_totals and count_totals accumulate the
+    windows' engines' stage seconds and counters (not the writer's).
+
+    Spans (utils/tracing), per window: dispatch (subset, engine and
+    run_dispatch) and dispatch.backpressure (blocked on the full collect
+    queue, or on the collector at the end) on the calling thread;
+    collect.wait, collect (run_collect), write and payload (emit_window)
+    on the collector thread `gencore-collect`."""
     assert opt.max_contig == 0, \
         "window pipelining does not combine with --quit_after_contig"
     resolve_umi_prefix(opt, batch)
@@ -288,77 +343,42 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
     tables = [None] * len(wins)
     engines = [None] * len(wins)
     err: list = []
+    ctx = tracing.context()
 
-    import sys
-    import time as _time
-    t_origin = _time.perf_counter()
-    dbg = bool(getattr(opt, "debug", False))
+    def take(w, eng, table):
+        engines[w] = eng
+        if bounds is None:
+            tables[w] = table
+        else:   # the payload goes to wpending
+            emit_window(eng, table, wpending, bounds[w], out_writer)
 
-    def collector():
-        while True:
-            item = _get_alive(done_q, err)
-            if item is None:
-                return
-            w, eng, st = item
-            try:
-                tc0 = _time.perf_counter()
-                with device_scope(eng.device):
-                    tables[w] = eng.run_collect(st)
-                engines[w] = eng
-                if bounds is not None:
-                    tw0 = _time.perf_counter()
-                    t = tables[w]
-                    if t is not None and len(t):
-                        pay = t.build_payload()  # sets t._doff
-                        wpending.append((t.record_keys(),
-                                         t._doff[:-1].copy(),
-                                         np.diff(t._doff), pay))
-                        out_writer.records_written = (
-                            getattr(out_writer, "records_written", 0)
-                            + len(t))
-                    tables[w] = None  # payload now owned by wpending
-                    flush_ready(wpending, bounds[w], out_writer)
-                    eng.timer.totals["write"] = (
-                        eng.timer.totals.get("write", 0.0)
-                        + _time.perf_counter() - tw0)
-                # stats/timer survive; matrices and the window's payload
-                # reference are dropped so peak residency stays
-                # O(inflight windows), not O(all windows)
-                eng.release_run_state()
-                if dbg:
-                    tc1 = _time.perf_counter()
-                    print(f"[pipeline] w{w} collect "
-                          f"{tc0 - t_origin:.2f}-{tc1 - t_origin:.2f}s",
-                          file=sys.stderr)
-            except BaseException as e:  # propagate to main
-                err.append(e)
-                return
-
-    th = threading.Thread(target=collector, daemon=True)
+    th = threading.Thread(target=collect_windows, name="gencore-collect",
+                          args=(done_q, err, len(wins), ctx, take),
+                          daemon=True)
     th.start()
     try:
         for w, idx in enumerate(wins):
             if err:
                 break
-            sub = subset_batch(batch, idx)
-            eng = VectorEngine(mkopt(), header, fasta=fasta,
-                               bed=bed.copy_structure() if bed is not None
-                               else None, device=devs[w % len(devs)])
-            eng._suppress_contig_dbg = True
-            td0 = _time.perf_counter()
-            with device_scope(eng.device):
-                st = eng.run_dispatch(sub, checkpoint=ck, watermark=wm,
-                                      count_pre_reads=False)
-            if dbg:
-                td1 = _time.perf_counter()
-                print(f"[pipeline] w{w} dispatch "
-                      f"{td0 - t_origin:.2f}-{td1 - t_origin:.2f}s "
-                      f"({len(idx)} reads)", file=sys.stderr)
-            if not _put_alive(done_q, (w, eng, st), err):
-                break
+            tracing.set_window(w)
+            with tracing.span("dispatch", reads=len(idx)):
+                sub = subset_batch(batch, idx)
+                eng = VectorEngine(mkopt(), header, fasta=fasta,
+                                   bed=bed.copy_structure()
+                                   if bed is not None else None,
+                                   device=devs[w % len(devs)])
+                eng._suppress_contig_dbg = True
+                with device_scope(eng.device):
+                    st = eng.run_dispatch(sub, checkpoint=ck, watermark=wm,
+                                          count_pre_reads=False)
+            with tracing.span("dispatch.backpressure"):
+                if not _put_alive(done_q, (w, eng, st), err):
+                    break
     finally:
-        _put_alive(done_q, None, err)
-        th.join()
+        tracing.set_window(-1)
+        with tracing.span("dispatch.backpressure"):
+            _put_alive(done_q, None, err)
+            th.join()
     if err:
         raise err[0]
     if engines_out is not None:
@@ -366,8 +386,6 @@ def run_pipelined(opt: Options, batch: bamio.RecordBatch, header,
     for eng in engines:
         if eng is not None:
             merge_shard_stats(pre, post, eng.pre_stats, eng.post_stats)
-            if stage_totals is not None:
-                for k, v in eng.timer.totals.items():
-                    stage_totals[k] = stage_totals.get(k, 0.0) + v
+            eng.timer.merge_into(stage_totals, count_totals)
     tables = [t for t in tables if t is not None]
     return tables, pre, post

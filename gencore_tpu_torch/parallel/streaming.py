@@ -24,7 +24,9 @@ index — not the file. Output is byte-identical to the in-memory pipeline.
 
 from __future__ import annotations
 
+import os
 import queue
+import stat
 import threading
 
 import numpy as np
@@ -36,12 +38,15 @@ from gencore_tpu_torch.options import Options
 from gencore_tpu_torch.stats import Stats
 from gencore_tpu_torch.engine import VectorEngine
 from gencore_tpu_torch.parallel.pipeline import (plan_windows,
-                                                 flush_ready, _get_alive,
-                                                 _put_alive,
+                                                 collect_windows,
+                                                 emit_window, flush_ready,
+                                                 _get_alive, _put_alive,
                                                  window_flush_boundaries)
 from gencore_tpu_torch.parallel.windows import (global_checkpoint,
                                                 global_watermark,
                                                 merge_shard_stats)
+from gencore_tpu_torch.utils import tracing
+from gencore_tpu_torch.utils.tracing import StageTimer
 
 
 # Auto-streaming size threshold (bytes of compressed BAM): above this the
@@ -85,7 +90,6 @@ class StreamingBam:
         bt = native.bgzf_block_table(path)
         if bt is None:
             raise ValueError(f"not a BGZF file: {path}")
-        import os
         self.path = path
         self.block_table, self.total = bt
         self.out_offs = np.append(self.block_table[:, 1], self.total)
@@ -274,21 +278,31 @@ class StreamingBamWriter:
     continuous byte stream chunked at the standard 65280-byte BGZF block
     size — sub-block tails carry over to the next write — so the file is
     byte-identical (framing included) to compressing the concatenated
-    payload in one shot (io.bam.BamWriter)."""
+    payload in one shot (io.bam.BamWriter). `timer` holds the writer's
+    `write.deflate` stage (every native call) and its counters
+    `out.bytes_in` (bytes compressed) and, at close, `out.bytes_out`
+    (the file's size; left out where the output is not a regular file)."""
 
     _CHUNK = 65280
 
     def __init__(self, path: str, header: bamio.BamHeader, level: int = 6):
         self.path = path
         self.level = level
+        self.timer = StageTimer()
         self._carry = np.frombuffer(header.encode(), dtype=np.uint8)
-        self._opened = False
         if native.get_lib() is None:
             raise IOError("native BGZF writer unavailable")
         # create/truncate the file now so close() on an empty run works
-        if not native.bgzf_write_ex(path, np.zeros(0, dtype=np.uint8),
-                                    level, append=False, write_eof=False):
+        if not self._deflate(np.zeros(0, dtype=np.uint8), append=False,
+                             eof=False):
             raise IOError("native BGZF writer unavailable")
+
+    def _deflate(self, buf: np.ndarray, append: bool, eof: bool) -> bool:
+        with self.timer.stage("write.deflate"):
+            ok = native.bgzf_write_ex(self.path, buf, self.level,
+                                      append=append, write_eof=eof)
+        self.timer.count("out.bytes_in", len(buf))
+        return ok
 
     def write_payload(self, payload: np.ndarray):
         if len(payload) == 0:
@@ -297,21 +311,26 @@ class StreamingBamWriter:
                else np.asarray(payload, dtype=np.uint8))
         cut = (len(buf) // self._CHUNK) * self._CHUNK
         if cut:
-            if not native.bgzf_write_ex(self.path, buf[:cut], self.level,
-                                        append=True, write_eof=False):
+            if not self._deflate(buf[:cut], append=True, eof=False):
                 raise IOError("BGZF append failed")
         self._carry = buf[cut:]
 
     def close(self):
-        native.bgzf_write_ex(self.path, self._carry, self.level,
-                             append=True, write_eof=True)
+        self._deflate(self._carry, append=True, eof=True)
         self._carry = np.zeros(0, dtype=np.uint8)
+        try:
+            st = os.stat(self.path)
+        except OSError:
+            return
+        if stat.S_ISREG(st.st_mode):
+            self.timer.count("out.bytes_out", st.st_size)
 
 
 def run_streaming(opt: Options, path: str, out_path: str,
                   fasta=None, bed=None, n_windows: int = 0,
                   chunk_bytes: int = 24 << 20, device="cuda",
-                  devices=None, stage_totals: dict = None):
+                  devices=None, stage_totals: dict = None,
+                  count_totals: dict = None):
     """Bounded-memory end-to-end run: returns (header, pre, post) after
     writing the output BAM incrementally. Output bytes are identical to
     the in-memory pipeline path. This is the DEFAULT engine path for
@@ -322,14 +341,22 @@ def run_streaming(opt: Options, path: str, out_path: str,
 
     device: where every window's device programs run; devices: a list of
     torch.device to deal the windows over in turn instead (as
-    parallel.pipeline); stage_totals accumulates per-window stage timers."""
+    parallel.pipeline); stage_totals and count_totals accumulate the
+    run's stage seconds and counters (its own, its windows' engines' and
+    its writer's StageTimer).
+
+    Spans (utils/tracing): stream.header, index, stream.plan,
+    stream.windows (pass 2) and stream.tail on the calling thread; under
+    stream.windows, per window, decode and decode.wait (the decoder thread
+    `gencore-decode` blocked on the full decode queue), dispatch.wait
+    (blocked on the decoder), dispatch (engine and run_dispatch) and
+    dispatch.backpressure (blocked on the full collect queue, or on the
+    collector at the end) on the calling thread, collect.wait, collect
+    (run_collect), write and payload (emit_window) on the collector
+    thread `gencore-collect`."""
     assert opt.max_contig == 0, \
         "streaming does not combine with --quit_after_contig"
-    sbam = StreamingBam(path, chunk_bytes=chunk_bytes)
-
-    pre = None
-    post = None
-    probe = None
+    timer = StageTimer()
     chunks_stats = []
 
     def per_chunk(batch):
@@ -345,52 +372,51 @@ def run_streaming(opt: Options, path: str, out_path: str,
                              c["l_qseq"].astype(np.int64),
                              c["nm"].astype(np.int64)))
 
-    # need the header before building Stats: peek via first span
-    buf0, _ = sbam._read_span(0, min(1 << 20, sbam.total))
-    sbam._parse_header(buf0)
-    header = sbam.header
-    devs = list(devices) if devices else [device]
-    probe = VectorEngine(opt, header, fasta=None, device=devs[0])
-    import time as _time
-    _ti0 = _time.perf_counter()
-    index = sbam.build_index(per_chunk=per_chunk,
-                             per_chunk_cols=per_chunk_cols)
-    if stage_totals is not None:
-        stage_totals["index"] = (stage_totals.get("index", 0.0)
-                                 + _time.perf_counter() - _ti0)
+    with tracing.span("stream.header"):
+        sbam = StreamingBam(path, chunk_bytes=chunk_bytes)
+        # need the header before building Stats: peek via first span
+        buf0, _ = sbam._read_span(0, min(1 << 20, sbam.total))
+        sbam._parse_header(buf0)
+        header = sbam.header
+        devs = list(devices) if devices else [device]
+        probe = VectorEngine(opt, header, fasta=None, device=devs[0])
+    with timer.stage("index"):
+        index = sbam.build_index(per_chunk=per_chunk,
+                                 per_chunk_cols=per_chunk_cols)
 
-    pre = Stats(opt.coverage_step, header.names, header.lengths,
-                bed_stats=bed, is_post=False)
-    post = Stats(opt.coverage_step, header.names, header.lengths,
-                 bed_stats=bed.copy_structure() if bed is not None else None,
-                 is_post=True)
-    for t, p, l, nm in chunks_stats:
-        pre.add_reads_vectorized(t, p, l, nm)
+    with tracing.span("stream.plan"):
+        pre = Stats(opt.coverage_step, header.names, header.lengths,
+                    bed_stats=bed, is_post=False)
+        post = Stats(opt.coverage_step, header.names, header.lengths,
+                     bed_stats=bed.copy_structure() if bed is not None
+                     else None, is_post=True)
+        for t, p, l, nm in chunks_stats:
+            pre.add_reads_vectorized(t, p, l, nm)
 
-    if opt.umi_prefix == "auto":
-        # auto-detect from the first record (gencore.cpp:206-221)
-        if index.n:
-            b0 = sbam.window_batch(index, np.array([0]))
-            qn0 = b0.qname(0).decode("latin-1")
-        else:
-            qn0 = ""
-        if "umi_" in qn0:
-            opt.umi_prefix = "umi"
-        elif "UMI_" in qn0:
-            opt.umi_prefix = "UMI"
-        else:
-            opt.umi_prefix = ""
+        if opt.umi_prefix == "auto":
+            # auto-detect from the first record (gencore.cpp:206-221)
+            if index.n:
+                b0 = sbam.window_batch(index, np.array([0]))
+                qn0 = b0.qname(0).decode("latin-1")
+            else:
+                qn0 = ""
+            if "umi_" in qn0:
+                opt.umi_prefix = "umi"
+            elif "UMI_" in qn0:
+                opt.umi_prefix = "UMI"
+            else:
+                opt.umi_prefix = ""
 
-    if n_windows <= 0:
-        n_windows = max(2, min(64, index.n // 40_000))
-    ck = global_checkpoint(index)
-    wm = global_watermark(index, header.lengths)
-    wins = plan_windows(index, header.lengths, n_windows)
+        if n_windows <= 0:
+            n_windows = max(2, min(64, index.n // 40_000))
+        ck = global_checkpoint(index)
+        wm = global_watermark(index, header.lengths)
+        wins = plan_windows(index, header.lengths, n_windows)
 
-    # per-window safe flush boundaries for the ordered-emission holdback
-    bounds = window_flush_boundaries(index, wins)
+        # per-window safe flush boundaries for the ordered-emission holdback
+        bounds = window_flush_boundaries(index, wins)
 
-    writer = StreamingBamWriter(out_path, header)
+        writer = StreamingBamWriter(out_path, header)
     pending: list = []
 
     def mkopt():
@@ -403,29 +429,9 @@ def run_streaming(opt: Options, path: str, out_path: str,
     err: list = []
     stats_engines: list = []
 
-    def collector():
-        w = 0
-        while True:
-            item = _get_alive(done_q, err)
-            if item is None:
-                return
-            w, eng, st = item
-            try:
-                with device_scope(eng.device):
-                    table = eng.run_collect(st)
-                stats_engines.append(eng)
-                if len(table):
-                    pay = table.build_payload()
-                    pending.append((table.record_keys(),
-                                    table._doff[:-1] + 0,
-                                    np.diff(table._doff), pay))
-                    writer.records_written = (
-                        getattr(writer, "records_written", 0) + len(table))
-                flush_ready(pending, bounds[w], writer)
-                eng.release_run_state()
-            except BaseException as e:
-                err.append(e)
-                return
+    def take(w, eng, table):
+        stats_engines.append(eng)
+        emit_window(eng, table, pending, bounds[w], writer)
 
     # window decode prefetch: the ranged BGZF inflate of window k+1 runs
     # on its own thread (libdeflate releases the GIL) while the dispatch
@@ -433,64 +439,79 @@ def run_streaming(opt: Options, path: str, out_path: str,
     dec_q: "queue.Queue" = queue.Queue(maxsize=2)
 
     def decoder():
+        tracing.adopt(ctx)
         try:
             for w, idx in enumerate(wins):
                 if err:
                     return
-                if not _put_alive(dec_q, (w, sbam.window_batch(index, idx)),
-                                  err):
-                    return
+                tracing.set_window(w)
+                with tracing.span("decode", reads=len(idx)):
+                    batch = sbam.window_batch(index, idx)
+                with tracing.span("decode.wait"):
+                    if not _put_alive(dec_q, (w, batch), err):
+                        return
         except BaseException as e:
             err.append(e)
         finally:
             _put_alive(dec_q, None, err)
 
-    dth = threading.Thread(target=decoder, daemon=True)
-    dth.start()
+    with tracing.span("stream.windows", windows=len(wins)):
+        ctx = tracing.context()
+        dth = threading.Thread(target=decoder, name="gencore-decode",
+                               daemon=True)
+        dth.start()
 
-    th = threading.Thread(target=collector, daemon=True)
-    th.start()
-    try:
-        for w, idx in enumerate(wins):
-            if err:
-                break
-            item = _get_alive(dec_q, err)
-            if item is None:
-                break
-            w_dec, batch = item
-            assert w_dec == w
-            eng = VectorEngine(mkopt(), header, fasta=fasta,
-                               bed=bed.copy_structure() if bed is not None
-                               else None, device=devs[w % len(devs)])
-            eng._suppress_contig_dbg = True
-            with device_scope(eng.device):
-                st = eng.run_dispatch(batch, checkpoint=ck, watermark=wm,
-                                      count_pre_reads=False)
-            if not _put_alive(done_q, (w, eng, st), err):
-                break
-    except BaseException as e:
-        # record before the finally joins: the decoder/collector loops
-        # exit as soon as err is non-empty
-        err.append(e)
-    finally:
-        _put_alive(done_q, None, err)
-        th.join()
-        while True:  # unblock a decoder mid-put, then reap it
-            try:
-                dec_q.get_nowait()
-            except queue.Empty:
-                break
-        dth.join(timeout=30)
+        th = threading.Thread(target=collect_windows, name="gencore-collect",
+                              args=(done_q, err, len(wins), ctx, take),
+                              daemon=True)
+        th.start()
+        try:
+            for w, idx in enumerate(wins):
+                if err:
+                    break
+                tracing.set_window(w)
+                with tracing.span("dispatch.wait"):
+                    item = _get_alive(dec_q, err)
+                if item is None:
+                    break
+                w_dec, batch = item
+                assert w_dec == w
+                with tracing.span("dispatch", reads=batch.n):
+                    eng = VectorEngine(mkopt(), header, fasta=fasta,
+                                       bed=bed.copy_structure()
+                                       if bed is not None else None,
+                                       device=devs[w % len(devs)])
+                    eng._suppress_contig_dbg = True
+                    with device_scope(eng.device):
+                        st = eng.run_dispatch(batch, checkpoint=ck,
+                                              watermark=wm,
+                                              count_pre_reads=False)
+                with tracing.span("dispatch.backpressure"):
+                    if not _put_alive(done_q, (w, eng, st), err):
+                        break
+        except BaseException as e:
+            # record before the finally joins: the decoder/collector loops
+            # exit as soon as err is non-empty
+            err.append(e)
+        finally:
+            tracing.set_window(-1)
+            with tracing.span("dispatch.backpressure"):
+                _put_alive(done_q, None, err)
+                th.join()
+            while True:  # unblock a decoder mid-put, then reap it
+                try:
+                    dec_q.get_nowait()
+                except queue.Empty:
+                    break
+            dth.join(timeout=30)
     if err:
         raise err[0]
-    flush_ready(pending, None, writer)
-    writer.close()
-    for eng in stats_engines:
-        merge_shard_stats(pre, post, eng.pre_stats, eng.post_stats)
-        if stage_totals is not None:
-            for k, v in eng.timer.totals.items():
-                stage_totals[k] = stage_totals.get(k, 0.0) + v
-    if stage_totals is not None:
-        stage_totals["out.records"] = (stage_totals.get("out.records", 0)
-                                       + getattr(writer, "records_written", 0))
+    with tracing.span("stream.tail"):
+        flush_ready(pending, None, writer)
+        writer.close()
+        for eng in stats_engines:
+            merge_shard_stats(pre, post, eng.pre_stats, eng.post_stats)
+            eng.timer.merge_into(stage_totals, count_totals)
+        writer.timer.merge_into(stage_totals, count_totals)
+        timer.merge_into(stage_totals, count_totals)
     return header, pre, post

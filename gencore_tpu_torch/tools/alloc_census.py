@@ -9,7 +9,10 @@ every `StageTimer` stage wrapped, and prints one JSON line:
 
   * `stages`: per stage and window, in the order they ended, the growth of
     glibc's arenas and of the C heap in use across the stage (mallinfo2),
-    and of what tracemalloc traces (Python and numpy, not torch);
+    and of what tracemalloc traces (Python and numpy, not torch); a
+    "window" numbers each StageTimer in the order it first ran: the run's
+    own (`index`) and its writer's (`write.deflate`) come before the
+    windows' engines;
   * `numpy_over_1mb`: the traced allocations of 1 MB or more that a stage
     left alive, by the line that made them;
   * `torch_peak`: the largest live total of torch's CPU allocations
