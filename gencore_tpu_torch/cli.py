@@ -161,11 +161,14 @@ def main(argv=None) -> int:
         print(f"ERROR: {e}", file=sys.stderr)
         return -1
 
-    # spans are recorded under --debug (beside the stage table) and with
-    # GENCORE_TRACE_DIR (written there as spans.json)
+    # spans and the memory gauge are recorded under --debug (beside the
+    # stage table) and with GENCORE_TRACE_DIR (written there as spans.json)
     with tracing.recording(opt.debug), tracing.maybe_trace(), \
-            tracing.sample():
-        return _run(args, opt, argv)
+            tracing.sample() as peak:
+        rc = _run(args, opt, argv)
+    if opt.debug and peak is not None and peak.line():
+        print(peak.line(), file=sys.stderr)
+    return rc
 
 
 def _run(args, opt, argv) -> int:

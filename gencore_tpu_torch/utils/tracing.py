@@ -14,13 +14,23 @@ optional device trace (port of gencore_tpu/utils/tracing.py, extended).
     Recording is off by default, and then costs one check of `RECORDING`
     a stage; it is on inside `recording(True)` (the CLI under --debug or
     with GENCORE_TRACE_DIR) and after `enable()`;
+  * the memory gauge: while a sample runs with recording on, the thread
+    `gencore-mem` reads the resident set every GAUGE_PERIOD_S and what
+    holds it (mapped files; anonymous memory; glibc's heap in use and
+    held free; pinned host blocks; device memory reserved) wherever it
+    climbed by WHOLE_STEP; `sample()` reads all of it once before its
+    root span opens and once after it closes, so no span holds a reading.
+    One `Gauge` a reading, on the spans' clock, kept in memory (the
+    newest MAX_GAUGES) until `take("gauges")` hands them over; `Peak`,
+    from `sample()`, is a sample's highest. With recording off no thread
+    starts and nothing is read;
   * set GENCORE_TRACE_DIR to capture a torch.profiler trace (CPU ops, plus
     CUDA kernels on a CUDA run) of the traced region, written there as a
     Chrome trace (`trace.json`) with a kernel-time table (`kernels.txt`),
-    and the region's spans as a Chrome trace of their own (`spans.json`),
-    shifted onto the profiler's clock (`clock_map`, through one
-    `gencore.clock` event) so that the two files load aligned (Perfetto,
-    chrome://tracing).
+    and the region's spans and gauge readings as a Chrome trace of their
+    own (`spans.json`: "X" events and "C" counter events), shifted onto
+    the profiler's clock (`clock_map`, through one `gencore.clock` event)
+    so that the two files load aligned (Perfetto, chrome://tracing).
 
 Threads: a thread that works for a run takes its starter's context
 (`context()` in the starter, `adopt()` in the thread), so that its spans
@@ -32,15 +42,25 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import itertools
 import json
 import os
+import re
+import sys
 import threading
 import time
 from typing import NamedTuple
 
 RECORDING = False    # spans are recorded while this is True
 MAX_SPANS = 1 << 17  # the newest spans kept; older ones are dropped
+MAX_GAUGES = 1 << 16  # the newest gauge readings kept (55 min at 50 ms)
+# The gauge's thread wakes every GAUGE_PERIOD_S, and each wake takes the
+# interpreter lock from the program's threads. On an H100 host a 10 ms
+# period lengthened a sample by 10-14% against the gauge off (one
+# process, one seed, alternating); 50 ms stayed inside the samples'
+# noise and still found each sample's highest resident set to 0.7%.
+GAUGE_PERIOD_S = 0.05
 
 
 class Span(NamedTuple):
@@ -56,7 +76,22 @@ class Span(NamedTuple):
     attrs: dict | None
 
 
+class Gauge(NamedTuple):
+    """One reading of what holds the process's memory, in bytes."""
+    t_ns: int             # time.perf_counter_ns() of the reading
+    rss: int              # resident pages (/proc/self/statm)
+    file: int | None      # RssFile: mapped files (libraries) resident
+    anon: int | None      # RssAnon + RssShmem
+    heap_used: int | None  # glibc mallinfo2 uordblks + hblkhd
+    heap_free: int | None  # fordblks (both None without mallinfo2)
+    pinned: int | None    # pinned host blocks (0 without CUDA)
+    device_reserved: int | None  # torch.cuda.memory_reserved(): device
+    # A reading of the resident set alone leaves every field after rss
+    # None (see WHOLE_STEP).
+
+
 _SPANS: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_GAUGES: collections.deque = collections.deque(maxlen=MAX_GAUGES)
 _IDS = itertools.count(1)
 _SAMPLES = itertools.count(1)
 _local = threading.local()
@@ -145,12 +180,14 @@ def recording(on: bool = True):
         RECORDING = was
 
 
-def take() -> list:
-    """The recorded spans, oldest first; the recorder keeps none of them."""
+def take(what: str = "spans") -> list:
+    """The recorded spans (`what="gauges"`: the gauge's readings), oldest
+    first; the recorder keeps none of them."""
+    q = {"spans": _SPANS, "gauges": _GAUGES}[what]
     out = []
     while True:
         try:
-            out.append(_SPANS.popleft())
+            out.append(q.popleft())
         except IndexError:
             return out
 
@@ -160,21 +197,268 @@ def spans() -> list:
     return list(_SPANS)
 
 
+def gauges() -> list:
+    """The gauge's readings, oldest first, left in the recorder."""
+    return list(_GAUGES)
+
+
 @contextlib.contextmanager
 def sample(name: str = "cli.sample"):
     """The root span of one run: its spans, and those of the threads that
-    adopt its context, share a new sample id."""
+    adopt its context, share a new sample id. The gauge runs around it,
+    with one whole reading before the span opens and one after it closes.
+    Yields the sample's `Peak` (filled when the block ends), or None while
+    recording is off."""
     if not RECORDING:
-        yield
+        yield None
         return
+    peak, t_on = Peak(), time.perf_counter_ns()
+    _gauge_on()
     st = _state()
     saved = st.sample, st.base, st.window
     st.sample, st.base, st.window = next(_SAMPLES), 0, -1
+    rec = _open(name, None)
     try:
-        with _span(name, None):
-            yield
+        yield peak
     finally:
+        _close(rec, time.perf_counter_ns())
+        _gauge_off()
+        peak.fill(st.sample, rec[3], t_on, time.perf_counter_ns())
         st.sample, st.base, st.window = saved
+
+
+# the memory gauge
+
+_PAGE = os.sysconf("SC_PAGE_SIZE")
+_STATUS_RSS = re.compile(rb"^(RssAnon|RssFile|RssShmem):\s+(\d+)", re.M)
+_STATUS_KEYS = {b"RssAnon": "anon", b"RssFile": "file", b"RssShmem": "anon"}
+# each mapping's path (empty for an anonymous one), Rss and Anonymous
+_SMAPS_VMA = re.compile(rb"^[0-9a-f]+-[0-9a-f]+ \S+ \S+ \S+ \S+ *([^\n]*)\n"
+                        rb"(?:(?!Rss:)[^\n]*\n)*Rss: +(\d+) kB\n"
+                        rb"(?:(?!Anonymous:)[^\n]*\n)*Anonymous: +(\d+)", re.M)
+# A whole reading (every field) holds the interpreter lock 0.3-0.9 ms on
+# an H100 host (mallinfo2 ~0.1 ms, torch's memory_reserved ~0.13 ms)
+# and, where /proc/self/status lists no RssFile, reads /proc/self/smaps
+# (5-35 ms with a CUDA process's ~500 mappings). So every GAUGE_PERIOD_S
+# the gauge's thread reads the resident set alone, and takes a whole
+# reading when it has passed the last whole reading by WHOLE_STEP: a
+# sample's highest whole reading lies within WHOLE_STEP of its highest
+# resident set.
+WHOLE_STEP = 0.005
+_gauge = None          # the running gauge thread, or None
+_reader = None         # its sources, while it runs
+_gauge_users = 0       # samples running with it
+_gauge_lock = threading.Lock()
+_read_lock = threading.Lock()
+
+
+class _MallInfo2(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_size_t) for n in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+        "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+
+def _smaps_split() -> tuple:
+    """(file, anon) bytes resident, from /proc/self/smaps: file is the Rss
+    of the mappings of files outside /dev (libraries, data files) less
+    their pages copied on write, anon the rest (heap, stacks, anonymous
+    and device mappings, where pinned host blocks lie), as status's
+    RssFile and RssAnon + RssShmem count them."""
+    fd = os.open("/proc/self/smaps", os.O_RDONLY)
+    try:
+        parts = []
+        while True:
+            got = os.read(fd, 1 << 22)
+            if not got:
+                break
+            parts.append(got)
+    finally:
+        os.close(fd)
+    file = anon = 0
+    for path, rss, copied in _SMAPS_VMA.findall(b"".join(parts)):
+        if path.startswith(b"/") and not path.startswith(b"/dev/"):
+            file += int(rss) - int(copied)
+            anon += int(copied)
+        else:
+            anon += int(rss)
+    return file << 10, anon << 10
+
+
+class _Reader:
+    """The gauge's sources while it runs. Its two /proc files stay open
+    and are read again from offset 0, by pread and mallinfo2 called
+    through ctypes without letting go of the interpreter lock (each takes
+    microseconds): a reading takes the lock once."""
+
+    def __init__(self):
+        libc = ctypes.PyDLL(None)
+        self.pread = libc.pread
+        self.pread.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                               ctypes.c_size_t, ctypes.c_long]
+        self.pread.restype = ctypes.c_ssize_t
+        self.buf = ctypes.create_string_buffer(1 << 15)
+        self.mallinfo2 = getattr(libc, "mallinfo2", None)
+        if self.mallinfo2 is not None:
+            self.mallinfo2.argtypes = []
+            self.mallinfo2.restype = _MallInfo2
+        self.statm = os.open("/proc/self/statm", os.O_RDONLY)
+        self.status = os.open("/proc/self/status", os.O_RDONLY)
+        self.split_in_status = b"RssFile:" in self._read(self.status)
+        self.whole_rss = 0     # rss of the last whole reading
+
+    def _read(self, fd: int) -> bytes:
+        n = self.pread(fd, self.buf, len(self.buf), 0)
+        if n < 0:
+            raise OSError("pread of a /proc file failed")
+        return self.buf.raw[:n]
+
+    def close(self) -> None:
+        os.close(self.statm)
+        os.close(self.status)
+
+    def rss(self) -> Gauge:
+        """A reading of the resident set alone."""
+        t = time.perf_counter_ns()
+        rss = int(self._read(self.statm).split()[1]) * _PAGE
+        return Gauge(t, rss, None, None, None, None, None, None)
+
+    def whole(self, g: Gauge | None = None) -> Gauge:
+        """A reading of every field (rss split from smaps where status has
+        no split), from g, a reading of the resident set, where given."""
+        g = self.rss() if g is None else g
+        if self.split_in_status:
+            kb = {"anon": 0, "file": 0}
+            for key, n in _STATUS_RSS.findall(self._read(self.status)):
+                kb[_STATUS_KEYS[key]] += int(n)
+            file, anon = kb["file"] << 10, kb["anon"] << 10
+        else:
+            file, anon = _smaps_split()
+        heap_used = heap_free = None
+        if self.mallinfo2 is not None:
+            mi = self.mallinfo2()
+            heap_used, heap_free = mi.uordblks + mi.hblkhd, mi.fordblks
+        torch = sys.modules.get("torch")
+        pinned = reserved = 0
+        if torch is not None and torch.cuda.is_initialized():
+            pinned = torch.cuda.host_memory_stats().get(
+                "allocated_bytes.current", 0)
+            reserved = torch.cuda.memory_reserved()
+        self.whole_rss = g.rss
+        return g._replace(file=file, anon=anon, heap_used=heap_used,
+                          heap_free=heap_free, pinned=pinned,
+                          device_reserved=reserved)
+
+    def tick(self) -> Gauge:
+        """The gauge thread's reading: the resident set, and a whole
+        reading where it passed the last by WHOLE_STEP."""
+        g = self.rss()
+        if g.rss <= self.whole_rss * (1 + WHOLE_STEP):
+            return g
+        return self.whole(g)
+
+
+def _keep(tick: bool) -> None:
+    """Keep the thread's reading (`tick`) or a whole one. One reading at a
+    time, so that they are kept in time order."""
+    with _read_lock:
+        if _reader is not None:
+            _GAUGES.append(_reader.tick() if tick else _reader.whole())
+
+
+class _GaugeThread(threading.Thread):
+    def __init__(self):
+        super().__init__(name="gencore-mem", daemon=True)
+        self.halt = threading.Event()
+
+    def run(self):
+        while not self.halt.wait(GAUGE_PERIOD_S):
+            _keep(tick=True)
+
+
+def _gauge_on() -> None:
+    """A whole reading; the first running sample starts the thread."""
+    global _gauge, _reader, _gauge_users
+    with _gauge_lock:
+        _gauge_users += 1
+        if _reader is None:
+            _reader = _Reader()
+        _keep(tick=False)
+        if _gauge is None:
+            _gauge = _GaugeThread()
+            _gauge.start()
+
+
+def _gauge_off() -> None:
+    """A whole reading; the last running sample stops the thread first."""
+    global _gauge, _reader, _gauge_users
+    with _gauge_lock:
+        _gauge_users -= 1
+        if _gauge_users == 0:
+            _gauge.halt.set()
+            _gauge.join()
+            _gauge = None
+        _keep(tick=False)
+        if _gauge_users == 0:
+            with _read_lock:
+                _reader.close()
+                _reader = None
+
+
+_MB = 1_000_000   # the MB of the [mem] line and spans.json
+_FIELDS = ("file", "anon", "heap_used", "heap_free", "pinned",
+           "device_reserved")
+
+
+class Peak:
+    """One sample's whole reading of the highest resident set (`gauge`,
+    by `highest`), its time from the sample's start (`at_s`), and the
+    innermost span open on each thread then (`open`, {thread: span
+    name}); filled when the sample ends."""
+
+    __slots__ = ("gauge", "at_s", "open")
+
+    def __init__(self):
+        self.gauge, self.at_s, self.open = None, 0.0, {}
+
+    def fill(self, sample_id: int, t0: int, lo: int, hi: int) -> None:
+        """From the readings taken from lo to hi; t0: the sample's start."""
+        mine = [g for g in gauges() if lo <= g.t_ns <= hi]
+        if not mine:
+            return
+        g = self.gauge = highest(mine)
+        self.at_s = (g.t_ns - t0) / 1e9
+        self.open = open_at([s for s in spans() if s.sample == sample_id],
+                            g.t_ns)
+
+    def line(self) -> str | None:
+        """The `[mem]` line of the --debug output."""
+        g = self.gauge
+        if g is None:
+            return None
+        parts = ", ".join(f"{k} {getattr(g, k) / _MB:.1f}" for k in _FIELDS
+                          if getattr(g, k) is not None)
+        spans_ = ", ".join(f"{t} {n}" for t, n in sorted(self.open.items()))
+        return (f"[mem] peak rss {g.rss / _MB:.1f} MB at {self.at_s:.3f}s "
+                f"({parts} MB); open: {spans_ or 'no span'}")
+
+
+def highest(gauges_: list) -> Gauge:
+    """The reading of the highest rss among the whole readings, where
+    there are such readings."""
+    whole = [g for g in gauges_ if g.file is not None]
+    return max(whole or gauges_, key=lambda g: g.rss)
+
+
+def open_at(spans_: list, t_ns: int) -> dict:
+    """{thread: name of its innermost span open at t_ns} (nested spans:
+    the innermost is the shortest)."""
+    best = {}
+    for s in spans_:
+        if s.t0_ns <= t_ns <= s.t1_ns:
+            b = best.get(s.thread)
+            if b is None or s.t1_ns - s.t0_ns < b.t1_ns - b.t0_ns:
+                best[s.thread] = s
+    return {t: s.name for t, s in best.items()}
 
 
 def context():
@@ -276,6 +560,26 @@ def chrome_events(spans_: list, t_clock_ns: int, clock_ts_us: float,
     return out
 
 
+def gauge_events(gauges_: list, t_clock_ns: int, clock_ts_us: float,
+                 pid: int) -> list:
+    """Chrome-trace counter ("C") events of gauge readings, on the clock
+    of `chrome_events`: one `host memory MB` event a reading (a series a
+    field held in host memory; a field that was not read is left out) and
+    one `device reserved MB` a whole reading."""
+    out = []
+    for g in gauges_:
+        ts = clock_ts_us + (g.t_ns - t_clock_ns) / 1e3
+        host = {k: getattr(g, k) / _MB for k in ("rss",) + _FIELDS[:-1]
+                if getattr(g, k) is not None}
+        out.append({"ph": "C", "name": "host memory MB", "pid": pid,
+                    "ts": ts, "args": host})
+        if g.device_reserved is not None:
+            out.append({"ph": "C", "name": "device reserved MB", "pid": pid,
+                        "ts": ts, "args": {"device_reserved":
+                                           g.device_reserved / _MB}})
+    return out
+
+
 def clock_map(trace: dict, t_clock: int, unix_clock: int):
     """The time (us) on a profiler trace's clock of perf_counter_ns 0,
     from the `gencore.clock` event, within which perf_counter_ns read
@@ -326,6 +630,8 @@ def maybe_trace():
         zero = clock_map(json.load(f), t_clock, unix_clock) or 0.0
     mine = [s for s in spans() if s.t0_ns >= t_start]
     events = chrome_events(mine, t_clock, zero + t_clock / 1e3, os.getpid())
+    events += gauge_events([g for g in gauges() if g.t_ns >= t_start],
+                           t_clock, zero + t_clock / 1e3, os.getpid())
     events.append({"ph": "i", "s": "p", "name": "gencore.clock",
                    "pid": os.getpid(), "tid": 0, "ts": zero + t_clock / 1e3})
     with open(os.path.join(trace_dir, "spans.json"), "w") as f:
