@@ -405,7 +405,10 @@ def _write_outs(outs, path, header, sam_out) -> None:
 
 def _print_tables(stage_sum, count_sum) -> None:
     """The --debug tables of a windowed run: `[stage]` lines (seconds
-    summed over windows, longest first), then `[count]` lines."""
+    summed over windows, longest first), then `[count]` lines. The
+    counter totals also go on the run's `cli.sample` span."""
+    if count_sum:
+        tracing.annotate(**count_sum)
     for k in sorted(stage_sum or {}, key=lambda k: -stage_sum[k]):
         print(f"[stage] {k}: {stage_sum[k]:.3f}s (summed over windows)",
               file=sys.stderr)

@@ -344,6 +344,18 @@ class VectorEngine:
     def _acct(self, counter: str, nbytes: int):
         self.timer.count(counter, nbytes / 1e6)
 
+    def _count_upload(self, work):
+        """The window's rows by upload route, and those whose qualities
+        ship as raw bytes (no value table; on the sparse route the rows
+        past the quality-edit cap)."""
+        n = work.n_pad - 1
+        sparse = work.upload_mode == "sparse"
+        raw = (work.sparse_sizes.get("nq", 0) if sparse
+               else n if work.qual_mode == "raw" else 0)
+        self.timer.count("upload.dense_rows", 0 if sparse else n)
+        self.timer.count("upload.sparse_rows", n if sparse else 0)
+        self.timer.count("upload.qual_raw_rows", raw)
+
     # ------------------------------------------------------------------
     def run(self, batch: bamio.RecordBatch, *, checkpoint=None,
             watermark=None, count_pre_reads: bool = True):
@@ -647,7 +659,11 @@ class VectorEngine:
                                          != wcl[msk]).astype(np.int64)
                 from gencore_tpu_torch.io import native as _nat
                 _glib = _nat.get_lib()
-                for ci in np.nonzero(n_per_cl > 2)[0]:
+                greedy = np.nonzero(n_per_cl > 2)[0]
+                # the distance rows the greedy loop evaluates: its UMIs
+                # times the groups it emits, a cluster
+                cmp = 0
+                for ci in greedy:
                     lo, hi = int(c_pair_start[ci]), int(c_pair_end[ci])
                     if _glib is not None:
                         # columnar form: the cluster's DISTINCT umis are
@@ -675,13 +691,22 @@ class VectorEngine:
                         ids_local = np.searchsorted(
                             uidv[e0:e1], pair_ukey_id[lo:hi])
                         grp_rank[lo:hi] = group_of[ids_local]
+                        if tracing.RECORDING:
+                            cmp += (e1 - e0) * (int(group_of.max()) + 1)
                     else:
                         umis = [umivec.umi_string(u_mat, u_start, u_len, pi)
                                 for pi in range(lo, hi)]
-                        for r, idxs in enumerate(
-                                greedy_umi_groups(umis, int(c_thr[ci]))):
+                        groups = greedy_umi_groups(umis, int(c_thr[ci]))
+                        for r, idxs in enumerate(groups):
                             grp_rank[lo + np.asarray(idxs,
                                                      dtype=np.int64)] = r
+                        if tracing.RECORDING:
+                            cmp += int(n_per_cl[ci]) * len(groups)
+                if tracing.RECORDING:
+                    tracing.annotate(
+                        clusters=len(greedy), umis=int(n_per_cl[greedy].sum()),
+                        cmp=cmp, pairs_max=int((c_pair_end - c_pair_start)[
+                            greedy].max(initial=0)))
             order_p = np.lexsort((grp_rank, cluster_of_pair))
             mem_pairs = order_p.astype(np.int64)
             cl_s = cluster_of_pair[order_p]
@@ -778,6 +803,8 @@ class VectorEngine:
             # score stage, after election); dense ones upload here, and
             # on the card csrc/upload_dense.cu unpacks them and, at the
             # score stage, scores them (kernels.score_map)
+            if tracing.RECORDING:
+                self._count_upload(work)
             if work.upload_mode == "sparse":
                 seq_dev = qual_dev = lens_dev = None
             else:
@@ -1791,6 +1818,14 @@ class VectorEngine:
                     self._sync()
             pending.append((jlist, outs, overrides))
 
+        if tracing.RECORDING:
+            # jobs of the fused window program, and of gathered buckets
+            # with their members
+            n_win = int(handled.sum())
+            self.timer.count("vote.window_jobs", n_win)
+            self.timer.count("vote.gathered_jobs", nj - n_win)
+            self.timer.count("vote.gathered_members",
+                             int(k_col[~handled].sum()))
         return pending
 
     def _vote_qual_table(self):

@@ -30,7 +30,10 @@ optional device trace (port of gencore_tpu/utils/tracing.py, extended).
     and the region's spans and gauge readings as a Chrome trace of their
     own (`spans.json`: "X" events and "C" counter events), shifted onto
     the profiler's clock (`clock_map`, through one `gencore.clock` event)
-    so that the two files load aligned (Perfetto, chrome://tracing).
+    so that the two files load aligned (Perfetto, chrome://tracing);
+  * `annotate()` adds attributes to the innermost span open on the
+    calling thread: the CLI puts a windowed run's counter totals on its
+    `cli.sample` span.
 
 Threads: a thread that works for a run takes its starter's context
 (`context()` in the starter, `adopt()` in the thread), so that its spans
@@ -155,6 +158,17 @@ def span(name: str, **attrs):
     if not RECORDING:
         return _OFF
     return _span(name, attrs or None)
+
+
+def annotate(**attrs) -> None:
+    """Add attrs to the innermost span open on this thread (while
+    recording is on)."""
+    if not RECORDING:
+        return
+    st = _state()
+    if st.stack:
+        rec = st.stack[-1]
+        rec[5] = {**(rec[5] or {}), **attrs}
 
 
 def enable() -> None:
@@ -337,12 +351,14 @@ class _Reader:
         if self.mallinfo2 is not None:
             mi = self.mallinfo2()
             heap_used, heap_free = mi.uordblks + mi.hblkhd, mi.fordblks
-        torch = sys.modules.get("torch")
+        # torch may be half imported by another thread: no CUDA context
+        # exists before its cuda module is whole
+        cuda = getattr(sys.modules.get("torch"), "cuda", None)
         pinned = reserved = 0
-        if torch is not None and torch.cuda.is_initialized():
-            pinned = torch.cuda.host_memory_stats().get(
-                "allocated_bytes.current", 0)
-            reserved = torch.cuda.memory_reserved()
+        if getattr(cuda, "is_initialized", None) and cuda.is_initialized():
+            pinned = cuda.host_memory_stats().get("allocated_bytes.current",
+                                                  0)
+            reserved = cuda.memory_reserved()
         self.whole_rss = g.rss
         return g._replace(file=file, anon=anon, heap_used=heap_used,
                           heap_free=heap_free, pinned=pinned,

@@ -20,7 +20,9 @@ STREAM_STAGES = {"index", "sort", "sort.perm", "umi", "grouping",
                  "score.dispatch", "vote", "vote.refbase", "vote.sync",
                  "assemble", "finalize"}
 COUNTERS = {"wire.h2dMB", "wire.d2hMB", "out.records", "out.bytes_in",
-            "out.bytes_out"}
+            "out.bytes_out", "upload.dense_rows", "upload.sparse_rows",
+            "upload.qual_raw_rows", "vote.window_jobs", "vote.gathered_jobs",
+            "vote.gathered_members"}
 MODES = {"stream": ["--stream", "--windows", "3"],
          "windows": ["--windows", "3"]}
 
