@@ -204,6 +204,8 @@ def _run(args, opt, argv) -> int:
         print("loading reference data:", file=sys.stderr)
         with tracing.span("fasta.load"):
             fasta = FastaRef.load(opt.ref_file, opt.max_contig)
+            if tracing.RECORDING:
+                tracing.annotate(**fasta.load_info)
             for name, contig in fasta.contigs.items():
                 print(f"{name}: {len(contig)} bp", file=sys.stderr)
 

@@ -110,6 +110,140 @@ bool scan_blocks(const std::vector<uint8_t>& buf, std::vector<Block>* blocks,
   return pos == n;
 }
 
+// ---------------------------- FASTA ----------------------------
+//
+// The reference's FASTA rules (fastareader.cpp, util.h:194-210), as the
+// Python loader (io/fasta.py) applies them: a line (up to '\n') whose
+// first byte is '>' is a header, its text the rest of the line less
+// trailing '\r'; every other line's bytes count when they are letters or
+// '-' or '*', upper-cased. The file is read in chunks, never whole.
+
+constexpr size_t kFastaChunk = size_t(1) << 20;
+
+inline bool fasta_kept(uint8_t c) {
+  return static_cast<uint8_t>((c | 0x20) - 'a') < 26 || c == '-' || c == '*';
+}
+
+inline uint8_t fasta_upper(uint8_t c) {
+  return static_cast<uint8_t>(c - ((static_cast<uint8_t>(c - 'a') < 26) << 5));
+}
+
+inline int64_t fasta_count(const uint8_t* p, size_t n) {
+  uint32_t k = 0;   // a piece is at most one chunk
+  for (size_t i = 0; i < n; ++i) k += fasta_kept(p[i]);
+  return k;
+}
+
+// Walk `path` line by line. The sink's begin_header() opens a record,
+// header(p, n) takes pieces of its text, end_header() closes the text,
+// and seq(p, n) takes pieces of sequence lines (of record 0, before the
+// first header, too). Returns the bytes read, or -1 when the file cannot
+// be read.
+template <class Sink>
+int64_t fasta_walk(const char* path, Sink* sink) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  std::vector<uint8_t> buf(kFastaChunk);
+  bool line_start = true, in_header = false;
+  int64_t total = 0;
+  size_t n;
+  while ((n = fread(buf.data(), 1, buf.size(), f)) > 0) {
+    total += static_cast<int64_t>(n);
+    const uint8_t* p = buf.data();
+    const uint8_t* end = p + n;
+    while (p < end) {
+      if (line_start) {
+        line_start = false;
+        in_header = *p == '>';
+        if (in_header) {
+          sink->begin_header();
+          ++p;
+          continue;
+        }
+      }
+      const uint8_t* nl =
+          static_cast<const uint8_t*>(memchr(p, '\n', end - p));
+      const uint8_t* e = nl ? nl : end;
+      if (in_header)
+        sink->header(p, e - p);
+      else
+        sink->seq(p, e - p);
+      if (!nl) break;
+      if (in_header) sink->end_header();
+      in_header = false;
+      line_start = true;
+      p = nl + 1;
+    }
+  }
+  const bool failed = ferror(f);
+  fclose(f);
+  if (failed) return -1;
+  if (in_header) sink->end_header();
+  return total;
+}
+
+// First pass: each record's kept bytes and header text.
+struct FastaCount {
+  std::vector<int64_t> kept{0};   // record 0: before the first header
+  std::vector<int64_t> name_end{0};
+  std::vector<uint8_t> names;
+  void begin_header() {
+    kept.push_back(0);
+    name_end.push_back(static_cast<int64_t>(names.size()));
+  }
+  void header(const uint8_t* p, size_t n) {
+    names.insert(names.end(), p, p + n);
+  }
+  void end_header() {   // name_end.back() holds the text's start here
+    while (static_cast<int64_t>(names.size()) > name_end.back() &&
+           names.back() == '\r')
+      names.pop_back();
+    name_end.back() = static_cast<int64_t>(names.size());
+  }
+  void seq(const uint8_t* p, size_t n) { kept.back() += fasta_count(p, n); }
+};
+
+// Second pass: record r's kept bytes, upper-cased, to out + dest[r]
+// (none where dest[r] < 0); `ok` falls when the file no longer has the
+// first pass's records.
+struct FastaFill {
+  const int64_t* dest;
+  const int64_t* kept;
+  int64_t n_rec;
+  uint8_t* out;
+  int64_t r = 0, done = 0;
+  bool ok = true;
+  void close_record() {
+    if (r < n_rec && done != kept[r]) ok = false;
+  }
+  void begin_header() {
+    close_record();
+    ++r;
+    done = 0;
+    if (r >= n_rec) ok = false;
+  }
+  void header(const uint8_t*, size_t) {}
+  void end_header() {}
+  void seq(const uint8_t* p, size_t n) {
+    if (r >= n_rec) return;
+    const int64_t k = fasta_count(p, n);
+    if (done + k > kept[r]) {
+      ok = false;
+      return;
+    }
+    if (dest[r] >= 0) {
+      uint8_t* o = out + dest[r] + done;
+      if (k == static_cast<int64_t>(n)) {   // the usual line: all bases
+        for (size_t i = 0; i < n; ++i) o[i] = fasta_upper(p[i]);
+      } else {
+        for (size_t i = 0; i < n; ++i)
+          if (fasta_kept(p[i])) *o++ = fasta_upper(p[i]);
+      }
+    }
+    done += k;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -1187,6 +1321,63 @@ int64_t gc_greedy_group(const uint8_t* mat, const int64_t* lens,
     ++ng;
   }
   return ng;
+}
+
+// ---------------------------- FASTA ----------------------------
+
+// First pass over a FASTA file: returns the number of records n (record 0
+// holds what comes before the first header, record i >= 1 the i-th
+// header's), or -1 when the file cannot be read. *kept receives n counts
+// of each record's sequence bytes, *name_end n ends of each header's text
+// in *names (record 0's text is empty), *bytes_read the file's size. The
+// three arrays are malloc'd: the caller frees them with gc_free.
+int64_t gc_fasta_scan(const char* path, int64_t** kept, int64_t** name_end,
+                      uint8_t** names, int64_t* bytes_read) {
+  FastaCount c;
+  const int64_t total = fasta_walk(path, &c);
+  if (total < 0) return -1;
+  const size_t n = c.kept.size();
+  *kept = static_cast<int64_t*>(malloc(n * sizeof(int64_t)));
+  *name_end = static_cast<int64_t*>(malloc(n * sizeof(int64_t)));
+  *names = static_cast<uint8_t*>(malloc(c.names.size() + 1));
+  if (!*kept || !*name_end || !*names) {
+    free(*kept);
+    free(*name_end);
+    free(*names);
+    return -1;
+  }
+  memcpy(*kept, c.kept.data(), n * sizeof(int64_t));
+  memcpy(*name_end, c.name_end.data(), n * sizeof(int64_t));
+  memcpy(*names, c.names.data(), c.names.size());
+  *bytes_read = total;
+  return static_cast<int64_t>(n);
+}
+
+// Second pass: writes record r's sequence bytes, upper-cased, to
+// out + dest[r] for each r with dest[r] >= 0 (the caller sizes `out` from
+// gc_fasta_scan's counts, `kept`). Returns the bytes read, or -1 when the
+// file cannot be read or no longer has the records that `kept` counts.
+int64_t gc_fasta_fill(const char* path, const int64_t* dest,
+                      const int64_t* kept, int64_t n_rec, uint8_t* out) {
+  FastaFill fill;
+  fill.dest = dest;
+  fill.kept = kept;
+  fill.n_rec = n_rec;
+  fill.out = out;
+  const int64_t total = fasta_walk(path, &fill);
+  fill.close_record();
+  if (total < 0 || !fill.ok || fill.r != n_rec - 1) return -1;
+  return total;
+}
+
+// NT16 codes of ASCII bases: out[i] = 1, 2, 4, 8 for src[i] = 'A', 'C',
+// 'G', 'T', else 0 (engine._ASCII_TO_NT16), for i < n.
+void gc_nt16(const uint8_t* src, int64_t n, uint8_t* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t c = src[i];
+    out[i] = (c == 'A') | ((c == 'C') << 1) | ((c == 'G') << 2) |
+             ((c == 'T') << 3);
+  }
 }
 
 void gc_free(void* p) { free(p); }

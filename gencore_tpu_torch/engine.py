@@ -303,9 +303,12 @@ class VectorEngine:
         self._ipo_cache: dict = {}
         self._cig_cache: dict = {}
         self._refoff_cache: dict = {}
-        # concatenated genome for vectorized ref gathers — cached on the
-        # FastaRef keyed by contig order/length so the W window engines
-        # of a pipelined run share one copy instead of building W
+        # the header's contigs joined into one genome for vectorized ref
+        # gathers: the FASTA's own buffer where the header names its
+        # contigs back to back in the FASTA's order (no copy), else a
+        # concatenation — cached on the FastaRef keyed by contig
+        # order/length so the W window engines of a pipelined run share
+        # one genome instead of building W
         if fasta is not None:
             key = (tuple(header.names), tuple(header.lengths))
             cache = getattr(fasta, "_gcat_cache", None)
@@ -319,12 +322,15 @@ class VectorEngine:
                     clen = np.array(lens, dtype=np.int64)
                     cbase = np.zeros(len(lens) + 1, dtype=np.int64)
                     np.cumsum(lens, out=cbase[1:])
-                    parts = [fasta.get_contig(n)
-                             if fasta.get_contig(n) is not None
-                             else np.zeros(0, dtype=np.uint8)
-                             for n in header.names]
-                    genome = (np.concatenate(parts) if parts
-                              else np.zeros(0, dtype=np.uint8))
+                    genome = fasta.joined(header.names)
+                    copied = genome is None
+                    if copied:
+                        genome = np.concatenate(
+                            [fasta.contigs[n] for n in header.names
+                             if n in fasta.contigs])
+                    if tracing.RECORDING:
+                        tracing.annotate(
+                            copied_MB=genome.nbytes / 1e6 if copied else 0)
                     hit = (clen, cbase, genome)
                     cache[key] = hit
             self._contig_len, self._contig_base, self._genome = hit
@@ -1511,8 +1517,7 @@ class VectorEngine:
         if hit is not None:
             return hit
         with tracing.span("genome.upload", bases=len(self._genome)):
-            gn = np.pad(_ASCII_TO_NT16[self._genome], (0, _GENOME_PAD))
-            dev = self._dev(gn)
+            dev = _upload_genome(self._genome, self.device)
         cache[key] = dev
         return dev
 
@@ -3089,6 +3094,51 @@ _NIBIDX2B = np.array([((b >> 4) << 2) | (b & 0xF) for b in range(256)],
 _ALL_OK = np.ones(256, dtype=bool)
 
 _GENOME_PAD = 4096  # device-genome end slack; also caps device-refbase L
+_GENOME_CHUNK = 4 << 20  # genome bases coded and sent up at a time
+
+
+def _upload_genome(genome: np.ndarray, device) -> torch.Tensor:
+    """NT16 codes of the ASCII `genome` on `device`, then _GENOME_PAD zeros
+    (so clamped end-of-genome slices never shift real data). Coded
+    _GENOME_CHUNK bases at a time, so no whole-genome host array is made:
+    on a CUDA device into two pinned host buffers in turn, each sent up
+    without blocking and refilled once an event says its copy has ended;
+    on the CPU straight into the tensor."""
+    from gencore_tpu_torch.io import native
+    n = len(genome)
+    out = torch.empty(n + _GENOME_PAD, dtype=torch.uint8, device=device)
+    out[n:].zero_()
+    starts = range(0, n, _GENOME_CHUNK)
+
+    def code(src, dst):
+        if not native.nt16(src, dst):
+            dst[:] = _ASCII_TO_NT16[src]
+
+    cuda = out.device.type == "cuda"
+    if tracing.RECORDING:
+        tracing.annotate(chunks=len(starts), pinned=int(cuda))
+    if not cuda:
+        dst = out.numpy()
+        for i in starts:
+            src = genome[i:i + _GENOME_CHUNK]
+            code(src, dst[i:i + len(src)])
+        return out
+    ring = [torch.empty(min(_GENOME_CHUNK, n), dtype=torch.uint8,
+                        pin_memory=True) for _ in starts[:2]]
+    copied = [None] * len(ring)
+    stream = torch.cuda.current_stream(out.device)
+    for k, i in enumerate(starts):
+        b = k % len(ring)
+        if copied[b] is not None:
+            copied[b].synchronize()
+        src = genome[i:i + _GENOME_CHUNK]
+        host = ring[b][:len(src)]
+        code(src, host.numpy())
+        out[i:i + len(src)].copy_(host, non_blocking=True)
+        copied[b] = torch.cuda.Event()
+        copied[b].record(stream)
+    stream.synchronize()
+    return out
 
 
 @_functools.cache

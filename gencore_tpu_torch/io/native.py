@@ -274,6 +274,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     ctypes.c_void_p, ctypes.c_int64,
                                     ctypes.c_int64, ctypes.c_int64,
                                     ctypes.c_void_p]
+    lib.gc_fasta_scan.restype = ctypes.c_int64
+    lib.gc_fasta_scan.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.gc_fasta_fill.restype = ctypes.c_int64
+    lib.gc_fasta_fill.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_int64,
+                                  ctypes.c_void_p]
+    lib.gc_nt16.restype = None
+    lib.gc_nt16.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
     return lib
 
 
@@ -764,4 +776,65 @@ def pack_seq_rows(rows: np.ndarray, lens, dst: np.ndarray, dst_off) -> bool:
     ln, do = _c32(lens), _c64(dst_off)
     lib.gc_pack_seq_rows(rows.ctypes.data, rows.shape[1], ln.ctypes.data,
                          len(do), dst.ctypes.data, do.ctypes.data, 0)
+    return True
+
+
+def fasta_scan(path: str):
+    """First pass over a FASTA file (gc_fasta_scan): (kept int64[n], each
+    record's sequence bytes, record 0 being what precedes the first
+    header; headers, the n records' header texts as bytes, b"" for record
+    0; the file's size). None without the native lib; OSError when the
+    file cannot be read (FileNotFoundError where it is missing, as open()
+    raises it)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    kept_p = ctypes.POINTER(ctypes.c_int64)()
+    end_p = ctypes.POINTER(ctypes.c_int64)()
+    names_p = ctypes.POINTER(ctypes.c_uint8)()
+    size = ctypes.c_int64(0)
+    n = lib.gc_fasta_scan(path.encode(), ctypes.byref(kept_p),
+                          ctypes.byref(end_p), ctypes.byref(names_p),
+                          ctypes.byref(size))
+    if n < 0:
+        with open(path, "rb"):    # the system's own error, where it has one
+            pass
+        raise OSError(f"cannot read the FASTA file {path}")
+    try:
+        kept = np.ctypeslib.as_array(kept_p, shape=(n,)).copy()
+        ends = np.ctypeslib.as_array(end_p, shape=(n,)).tolist()
+        names = ctypes.string_at(names_p, ends[-1])
+    finally:
+        for p in (kept_p, end_p, names_p):
+            lib.gc_free(p)
+    starts = [0] + ends[:-1]
+    return kept, [names[a:b] for a, b in zip(starts, ends)], int(size.value)
+
+
+def fasta_fill(path: str, dest: np.ndarray, kept: np.ndarray,
+               out: np.ndarray) -> int:
+    """Second pass (gc_fasta_fill): record r's sequence bytes, upper-cased,
+    into out[dest[r]:] where dest[r] >= 0. Returns the bytes read; OSError
+    when the file cannot be read or no longer has the records `kept`
+    counts. The native lib must be loaded."""
+    dest, kept = _c64(dest), _c64(kept)
+    assert out.dtype == np.uint8 and out.flags.c_contiguous
+    got = get_lib().gc_fasta_fill(path.encode(), dest.ctypes.data,
+                                  kept.ctypes.data, len(kept),
+                                  out.ctypes.data)
+    if got < 0:
+        raise OSError(f"the FASTA file {path} changed while it was read")
+    return int(got)
+
+
+def nt16(src: np.ndarray, out: np.ndarray) -> bool:
+    """out[:] = the NT16 codes of the ASCII bases `src` (gc_nt16: A, C, G,
+    T to 1, 2, 4, 8, every other byte to 0), uint8 arrays of one length;
+    False without the native lib."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    assert (src.dtype == out.dtype == np.uint8 and len(src) == len(out)
+            and src.flags.c_contiguous and out.flags.c_contiguous)
+    lib.gc_nt16(src.ctypes.data, len(src), out.ctypes.data)
     return True

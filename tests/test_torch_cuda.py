@@ -1077,3 +1077,24 @@ def test_dense_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         kernels.score_map(bad, qual, mate, ml, meta=meta, **SCORE_KW)
     assert (kernels.UPLOAD_UNPACK_LAUNCHES, kernels.SCORE_MAP_LAUNCHES) == n0
+
+
+@pytest.mark.parametrize("chunk,n", [(1000, 4_321), (None, 9_000_001)])
+def test_genome_upload_through_the_pinned_ring(cuda, monkeypatch, chunk, n):
+    """The device genome sent up through the two pinned buffers equals
+    the one-shot NT16 coding it replaced, padded, byte for byte."""
+    from gencore_tpu_torch import engine
+    from gencore_tpu_torch.utils import tracing
+    if chunk is not None:
+        monkeypatch.setattr(engine, "_GENOME_CHUNK", chunk)
+    g = np.random.default_rng(4).integers(0, 256, n).astype(np.uint8)
+    g[::3] = np.frombuffer(b"ACGT", np.uint8)[np.arange(len(g[::3])) % 4]
+    want = np.pad(engine._ASCII_TO_NT16[g], (0, engine._GENOME_PAD))
+    tracing.take()
+    with tracing.recording(), tracing.span("genome.upload"):
+        dev = engine._upload_genome(g, cuda)
+    (span,) = tracing.take()
+    assert span.attrs == {"chunks": -(-n // engine._GENOME_CHUNK),
+                          "pinned": 1}
+    assert dev.device == cuda and dev.dtype == torch.uint8
+    assert dev.cpu().numpy().tobytes() == want.tobytes()

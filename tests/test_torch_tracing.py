@@ -4,11 +4,12 @@ window pipeline of the CLI (`--device cpu`), recording off by default,
 and GENCORE_TRACE_DIR's spans.json aligned with the profiler's trace."""
 
 import json
+import os
 import re
 
 import pytest
 
-from gencore_tpu_torch import cli
+from gencore_tpu_torch import cli, engine
 from gencore_tpu_torch.options import Options
 from gencore_tpu_torch.parallel.streaming import run_streaming
 from gencore_tpu_torch.tools import workloads
@@ -108,6 +109,28 @@ def test_spans_nest_share_the_sample_and_carry_windows(panel, tmp_path):
         if s.name in STREAM_STAGES - {"index"}:
             assert s.window in (0, 1, 2), s
     assert all(s.cpu_ns >= 0 for s in spans)
+
+
+def test_reference_load_spans_say_how_it_ran(panel, tmp_path):
+    """Each CLI run loads its reference once (nothing is cached across
+    runs), natively, builds no copy of the genome and sends it up in
+    chunks; on the CPU device with no pinned staging."""
+    for _ in range(2):
+        _cli(panel, tmp_path, ["--debug"])
+    spans = tracing.take()
+    samples = [s.sample for s in spans if s.name == "cli.sample"]
+    assert len(samples) == 2
+    for sample in samples:
+        mine = [s for s in spans if s.sample == sample]
+        (load,) = [s for s in mine if s.name == "fasta.load"]
+        (build,) = [s for s in mine if s.name == "genome.build"]
+        (upload,) = [s for s in mine if s.name == "genome.upload"]
+        assert load.attrs["native"] == 1 and load.attrs["contigs"] == 2
+        assert load.attrs["bytes_read"] == 2 * os.path.getsize(panel[1])
+        assert build.attrs == {"copied_MB": 0}
+        assert upload.attrs["pinned"] == 0
+        assert upload.attrs["chunks"] == -(-upload.attrs["bases"]
+                                           // engine._GENOME_CHUNK) >= 1
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
